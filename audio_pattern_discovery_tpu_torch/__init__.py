@@ -1,0 +1,27 @@
+"""audio_pattern_discovery_tpu_torch: the PyTorch/CUDA port of
+``audio_pattern_discovery_tpu``.
+
+Same public surface as the JAX package (a directory of WAV files in,
+pattern clusters + DTW alignments out; the same ``PipelineConfig`` schema
+and ``-s section.key=value`` overrides), written in PyTorch for an NVIDIA
+Hopper card.  The JAX package stays the reference this port is tested
+against; nothing here imports JAX.
+
+Ported so far: the PCA embedder with diag-banded DTW (``discover()`` and
+the CLI).  The all-pairs DTW runs through a CUDA C++ kernel
+(``csrc/dtw_lane_diag.cu``) on a CUDA device and through its plain PyTorch
+twin on CPU tensors.  Paths not ported yet raise ``NotImplementedError``
+naming the ROADMAP.md item that will port them.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# TF32 keeps ~3 decimal digits: it would corrupt the PCA covariance, the
+# DFT matmul and the DTW frame costs near zero (docs/DESIGN.md section 3).
+# Both flags are set explicitly rather than trusting the defaults.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from audio_pattern_discovery_tpu_torch.config import PipelineConfig  # noqa: E402,F401

@@ -1,0 +1,363 @@
+"""ctypes bindings for the native C++ library (SURVEY.md SS3 row 11).
+
+Loads native/libapd_native.so, building it on first use if a compiler is
+available.  Every binding has a pure-Python fallback elsewhere in the
+package, so the framework degrades gracefully without a toolchain.
+
+Copy of ``audio_pattern_discovery_tpu/native.py``; only the import paths differ.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+_LIB_PATH = _NATIVE_DIR / "libapd_native.so"
+_lib: ctypes.CDLL | None = None
+_load_failed = False
+
+
+def _build() -> bool:
+    try:
+        subprocess.run(
+            ["make", "-C", str(_NATIVE_DIR)],
+            check=True,
+            capture_output=True,
+            timeout=300,
+        )
+        return _LIB_PATH.exists()
+    except Exception:
+        return _LIB_PATH.exists()
+
+
+def get_lib() -> ctypes.CDLL | None:
+    """The loaded library, or None if unavailable."""
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    # Always invoke make (dependency-tracked, near-free when up to date) so
+    # source edits are never shadowed by a stale .so; a missing toolchain
+    # falls back to whatever binary exists.
+    if not _build():
+        _load_failed = True
+        return None
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+    except OSError:
+        _load_failed = True
+        return None
+
+    lib.apd_dtw_batch.restype = None
+    lib.apd_dtw_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.apd_nn_chain.restype = ctypes.c_int
+    lib.apd_nn_chain.argtypes = [
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.apd_read_wav_pcm16.restype = ctypes.c_int64
+    lib.apd_read_wav_pcm16.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.apd_wav_info_batch.restype = ctypes.c_int
+    lib.apd_wav_info_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int,
+    ]
+    lib.apd_wav_load_batch.restype = ctypes.c_int
+    lib.apd_wav_load_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int,
+    ]
+    FP = ctypes.POINTER(ctypes.c_float)
+    IP = ctypes.POINTER(ctypes.c_int64)
+    lib.apd_scatter_block_direct.restype = None
+    lib.apd_scatter_block_direct.argtypes = [
+        FP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        FP, FP, IP, IP, FP, ctypes.c_int64, ctypes.c_int,
+    ]
+    lib.apd_scatter_block_strip.restype = None
+    lib.apd_scatter_block_strip.argtypes = [
+        FP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        FP, FP, FP, ctypes.c_int64, ctypes.c_int64,
+        FP, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.apd_strip_unpermute.restype = None
+    lib.apd_strip_unpermute.argtypes = [
+        FP, ctypes.c_int, ctypes.c_int64, IP, IP, FP,
+    ]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+_METRICS = {"euclidean": 0, "sqeuclidean": 1, "cosine": 2}
+_LINKAGES = {"single": 0, "complete": 1, "average": 2, "weighted": 3}
+
+
+def dtw_batch_cpu(
+    a: np.ndarray,            # [B, S, d] f32 padded
+    b: np.ndarray,
+    len_a: np.ndarray,
+    len_b: np.ndarray,
+    *,
+    metric: str = "euclidean",
+    band: int | None = None,
+    auto_widen: bool = True,
+    normalize: str = "none",
+    n_threads: int = 0,       # 0 = all cores, 1 = single-core baseline
+    band_mode: str = "widen",
+) -> np.ndarray:
+    """Native CPU batched DTW — the Rust-reference-equivalent baseline."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    a = np.ascontiguousarray(a, dtype=np.float32)
+    b = np.ascontiguousarray(b, dtype=np.float32)
+    la = np.ascontiguousarray(len_a, dtype=np.int32)
+    lb = np.ascontiguousarray(len_b, dtype=np.int32)
+    B, S, d = a.shape
+    if b.shape != a.shape:
+        raise ValueError(f"b shape {b.shape} != a shape {a.shape}")
+    if la.shape != (B,) or lb.shape != (B,):
+        raise ValueError("length vectors must be [B]")
+    if (la > S).any() or (lb > S).any() or (la < 0).any() or (lb < 0).any():
+        raise ValueError("lengths must be within [0, S]")
+    out = np.empty(B, dtype=np.float32)
+    lib.apd_dtw_batch(
+        a.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        b.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        la.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        lb.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        B,
+        S,
+        d,
+        -1 if band is None else int(band),
+        _METRICS[metric],
+        int(auto_widen),
+        1 if normalize == "path_len" else 0,
+        n_threads,
+        1 if band_mode == "diag" else 0,
+    )
+    return out
+
+
+def nn_chain_cpp(dist: np.ndarray, method: str = "average") -> np.ndarray:
+    """Raw merge rows (pre-sort/relabel) from the C++ NN-chain."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    D = np.ascontiguousarray(dist, dtype=np.float64)
+    K = D.shape[0]
+    Z = np.zeros((max(K - 1, 0), 4), dtype=np.float64)
+    if K >= 2:
+        rc = lib.apd_nn_chain(
+            D.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            K,
+            _LINKAGES[method],
+            Z.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        )
+        if rc != 0:
+            raise RuntimeError(f"apd_nn_chain failed: {rc}")
+    return Z
+
+
+def _fp(a: np.ndarray | None, off_elems: int = 0):
+    if a is None:
+        return None
+    return ctypes.cast(
+        a.ctypes.data + 4 * off_elems, ctypes.POINTER(ctypes.c_float)
+    )
+
+
+def _ip(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def scatter_block_direct(
+    blk: np.ndarray,          # [ti, ti] f32 C-contiguous kernel block
+    nr: int,
+    nc: int,
+    lr: np.ndarray | None,    # [nr] f32 row path-length terms, None = no norm
+    lc: np.ndarray | None,    # [nc] f32
+    pr: np.ndarray,           # [nr] int64 original row ids
+    pc: np.ndarray,           # [nc] int64
+    D: np.ndarray,            # [K, K] f32
+    diag: bool,
+) -> None:
+    """Fused normalize + mirrored scatter of one tile-pair block into D.
+
+    Single pass over the block, writing both triangles through the sort
+    permutation — replaces the NumPy normalize/triu/transpose/np.ix_ chain
+    (~6 memory passes + temps) in the pair scheduler's hot scatter loop.
+    Bitwise-identical to that chain (f32 IEEE divide either way; tested in
+    tests/test_native.py).
+    """
+    lib = get_lib()
+    assert lib is not None
+    lib.apd_scatter_block_direct(
+        _fp(blk), blk.shape[1], nr, nc, _fp(lr), _fp(lc),
+        _ip(pr), _ip(pc), _fp(D), D.shape[1], int(diag),
+    )
+
+
+def scatter_block_strip(
+    blk: np.ndarray,          # [ti, ti] f32
+    nr: int,
+    nc: int,
+    lr: np.ndarray | None,
+    lc: np.ndarray | None,
+    bufI: np.ndarray,         # [rows_I, K] f32 strip buffer of tile I
+    c0: int,                  # column offset of this block in strip I
+    bufJ: np.ndarray | None,  # strip J buffer, or None for a diagonal tile
+    r0: int,                  # column offset of the transposed block in J
+) -> None:
+    """Fused write of one block into strip I (and its transpose into strip
+    J) at sorted-order column offsets; diagonal tiles (bufJ=None) mirror the
+    strict upper triangle in place with an exact-zero diagonal."""
+    lib = get_lib()
+    assert lib is not None
+    lib.apd_scatter_block_strip(
+        _fp(blk), blk.shape[1], nr, nc, _fp(lr), _fp(lc),
+        _fp(bufI), bufI.shape[1], c0,
+        _fp(bufJ), 0 if bufJ is None else bufJ.shape[1], r0,
+    )
+
+
+def strip_unpermute(
+    buf: np.ndarray,          # [n_rows, K] completed sorted-order strip
+    inv: np.ndarray,          # [K] int64 original->sorted column gather
+    row_ids: np.ndarray,      # [n_rows] int64 original row ids
+    D: np.ndarray,            # [K, K] f32
+) -> None:
+    """D[row_ids] = buf[:, inv] without the strip-sized np.take temp."""
+    lib = get_lib()
+    assert lib is not None
+    lib.apd_strip_unpermute(
+        _fp(buf), buf.shape[0], buf.shape[1], _ip(inv), _ip(row_ids), _fp(D)
+    )
+
+
+def read_wav_pcm16(path: str | Path) -> tuple[np.ndarray, int] | None:
+    """Native PCM16 WAV demux; None if unsupported format (caller falls back)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = np.frombuffer(Path(path).read_bytes(), dtype=np.uint8)
+    rate = ctypes.c_int32(0)
+    n = lib.apd_read_wav_pcm16(
+        raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        len(raw),
+        None,
+        ctypes.byref(rate),
+    )
+    if n < 0:
+        return None
+    out = np.empty(int(n), dtype=np.float32)
+    lib.apd_read_wav_pcm16(
+        raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        len(raw),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.byref(rate),
+    )
+    return out, int(rate.value)
+
+
+def load_wavs_batch(
+    paths: list[str | Path],
+    n_threads: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
+    """Parallel bulk WAV ingest (the native data loader, SS3 rows 1 & 11).
+
+    Header-probes every file in parallel to size the padded batch, then
+    reads + decodes all files with an OpenMP thread pool directly into the
+    padded [B, max_len] float32 array the spectrogram op consumes.
+
+    Returns (padded [B, N], lengths [B], rates [B]) or None if the library
+    is unavailable or any file is not plain PCM16 (caller falls back to the
+    Python reader, which handles 8/24/32-bit and float formats).
+    """
+    lib = get_lib()
+    if lib is None or not paths:
+        return None
+    c_paths = (ctypes.c_char_p * len(paths))(
+        *[str(p).encode() for p in paths]
+    )
+    n_samples = np.empty(len(paths), dtype=np.int64)
+    rates = np.empty(len(paths), dtype=np.int32)
+    rc = lib.apd_wav_info_batch(
+        c_paths,
+        len(paths),
+        n_samples.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        rates.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_threads,
+    )
+    if rc != 0:
+        return None
+    # Streaming WAVs declare placeholder data sizes (0xFFFFFFFF); clamp each
+    # count by what the file can physically hold (2 bytes/sample lower
+    # bound) so one bogus header cannot size a multi-GB padded batch.
+    sizes = np.array([Path(p).stat().st_size for p in paths], np.int64)
+    n_samples = np.minimum(n_samples, np.maximum(sizes - 44, 0) // 2)
+    stride = int(n_samples.max())
+    # The batch pads every clip to the longest one; a very ragged corpus
+    # (hours-long recording + many short clips) would allocate mostly
+    # padding.  Bail to the per-file Python path when padding dominates or
+    # the allocation is large.
+    padded_bytes = 4 * len(paths) * stride
+    real_bytes = 4 * int(n_samples.sum())
+    if stride > 2**31 - 1 or (
+        padded_bytes > 1 << 30 and padded_bytes > 4 * real_bytes
+    ):
+        return None
+    if stride <= 0:
+        return None
+    out = np.zeros((len(paths), stride), dtype=np.float32)
+    lengths = np.empty(len(paths), dtype=np.int32)
+    rc = lib.apd_wav_load_batch(
+        c_paths,
+        len(paths),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        stride,
+        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        rates.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_threads,
+    )
+    if rc != 0:
+        return None
+    return out, lengths, rates

@@ -1,0 +1,387 @@
+"""All-pairs DTW: tiled diag-lane scheduling over one device.
+
+Port of ``audio_pattern_discovery_tpu/parallel/pair_scheduler.py``
+(``all_pairs_distances`` -> ``all_pairs_distances_tiled``, lane route with
+``band_mode="diag"``).  Kept from the reference: the length sort and tile
+padding, the per-tile-pair static classes (``make_tile_lane_diag_class_fn``
+quantized on ``_ws_level_diag``, thin classes merged by
+``_merge_thin_classes``), power-of-two chunking of each class, the
+long-side-on-rows orientation, and the fused native scatter with
+``path_len`` normalization on a worker thread.  The executor of a chunk is
+the K1 wrapper ``ops.dtw_cuda.dtw_tile_lane_diag_pairs``: the CUDA kernel
+for a CUDA device, its plain twin for the CPU.
+
+Not ported yet: unbanded jobs (K2/K3) and ``band_mode="widen"`` (K4-K7)
+raise ``NotImplementedError`` naming the ROADMAP.md item; block persistence,
+retries and incremental ``known=`` reuse are left out (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from audio_pattern_discovery_tpu_torch import native
+from audio_pattern_discovery_tpu_torch.config import DTWConfig
+from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+    diag_class_bounds,
+    dtw_tile_lane_diag_pairs,
+    tile_rep_lengths,
+)
+
+# Past this matrix size, blocks assemble per sorted row strip instead of
+# scattering straight into original-order D (reference: measured on the
+# host, per-block random-row writes degrade superlinearly past ~2 GB).
+_DIRECT_SCATTER_BYTES = 2 * 1024**3
+
+# Tile size per device type.  On the card one tile row is one block of ti
+# threads; on the CPU the plain twin pays for every padded pair and for
+# the wider classes of bigger tiles, so tiles are small.  D does not depend
+# on ti: every class contract is exact.
+DEFAULT_TI = {"cuda": 128, "cpu": 16}
+
+
+def _ws_level_diag(wv_req: int) -> int:
+    """Quantize a required half-width UP on the 8-slot width grid
+    (W = 8*ceil((2*wv+2)/8); levels 7, 11, 15, 19, 23, ...), so a job has a
+    handful of stripe classes."""
+    w = 8 * -(-(2 * int(wv_req) + 2) // 8)
+    return (w - 2) // 2
+
+
+def make_tile_lane_diag_class_fn(
+    lens_sorted: np.ndarray,   # [nT*ti] lengths in tile order (pad: 1)
+    nT: int,
+    ti: int,
+    Lp: int,
+    band: int,
+    n_real: int,
+) -> Callable[[int, int], tuple[int, int]]:
+    """(I, J) tile-pair -> (rows_cls, wv_cls) for the diag lane kernel.
+
+    wv comes from diag_class_bounds over the tile-pair's REAL length ranges
+    (pad entries excluded), quantized UP by _ws_level_diag; rows is the A
+    tile's max real length on a Lp//8 ladder.  Both are >=-monotone
+    contracts, so _merge_thin_classes' elementwise-max merging stays
+    correct.  The reference's third key component (kmax) sized TPU-only
+    levers and is dropped."""
+    tmin = np.empty(nT, np.int64)
+    tmax = np.empty(nT, np.int64)
+    for t in range(nT):
+        real = lens_sorted[t * ti : min((t + 1) * ti, n_real)]
+        if len(real) == 0:
+            real = lens_sorted[t * ti : (t + 1) * ti]
+        tmin[t], tmax[t] = real.min(), real.max()
+    rq = max(16, Lp // 8)
+
+    def pair_class(i: int, j: int) -> tuple[int, int]:
+        rows_cls = min(Lp, rq * -(-int(tmax[i]) // rq))
+        wv_req, _ = diag_class_bounds(
+            band, int(tmin[i]), int(tmax[i]), int(tmin[j]), int(tmax[j])
+        )
+        return rows_cls, _ws_level_diag(min(wv_req, Lp))
+
+    return pair_class
+
+
+def _merge_thin_classes(
+    by_class: dict[tuple[int, ...], list],
+    min_programs: int = 16,
+    max_merge_cost: int = 400_000,
+) -> None:
+    """Merge classes with few tile-pairs into neighbours, in place (port of
+    the reference's rule, kept so a job launches a handful of chunk shapes).
+
+    The merged class takes the elementwise max of its keys, which every
+    kernel contract accepts; the target minimizes the crude cost model
+    programs * rows * (3 + wv), and a merge that would add more than
+    ``max_merge_cost`` model units is refused."""
+
+    def t(cls, n):
+        r, s = cls[0], cls[1]
+        return n * r * (3 + s + sum(cls[2:]))
+
+    while len(by_class) > 1:
+        thin = [c for c in by_class if len(by_class[c]) < min_programs]
+        if not thin:
+            return
+        best = None  # (cost, small, target)
+        for small in thin:
+            for other in by_class:
+                if other == small:
+                    continue
+                m = tuple(map(max, small, other))
+                cost = (
+                    t(m, len(by_class[small]))
+                    - t(small, len(by_class[small]))
+                    + t(m, len(by_class[other]))
+                    - t(other, len(by_class[other]))
+                )
+                if best is None or cost < best[0]:
+                    best = (cost, small, other)
+        if best[0] > max_merge_cost:
+            return
+        _, small, target = best
+        m = tuple(map(max, small, target))
+        merged = by_class.pop(small) + by_class.pop(target)
+        by_class.setdefault(m, []).extend(merged)
+
+
+def all_pairs_distances_tiled(
+    features: np.ndarray | torch.Tensor,   # [K, L, d] padded segment features
+    lengths: np.ndarray,                   # [K] true frame counts
+    cfg: DTWConfig,
+    *,
+    device: torch.device | str = "cpu",
+    ti: int | None = None,
+    chunk_programs: int = 64,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Symmetric [K, K] diag-banded DTW matrix through the K1 tile kernel.
+
+    Sequences are length-sorted and padded to whole tiles, uploaded once,
+    and every upper-triangle tile-pair runs as one K1 tile-pair (ti*ti
+    pairs).  Tile-pairs are grouped by static class and launched in chunks
+    of ``chunk_programs``; on a CUDA device up to eight chunks are in flight
+    while a worker thread scatters finished blocks into D.
+
+    ``stats`` receives host seconds per activity (dispatch, collect: waiting
+    for a chunk's copy, scatter, upload) and, on a CUDA device,
+    ``kernel_s``: the K1 launches' device time from CUDA events around
+    each launch."""
+    device = torch.device(device)
+    if cfg.band is None or cfg.band_mode != "diag":
+        raise ValueError("all_pairs_distances_tiled takes diag-banded jobs only")
+    K, L, d = features.shape
+    lengths = np.asarray(lengths, dtype=np.int32)
+    if K < 2:
+        return np.zeros((K, K), dtype=np.float32)
+    ti = int(ti or DEFAULT_TI[device.type])
+    Lp = L
+    Kp = -(-K // ti) * ti
+    direct = K * K * 4 <= _DIRECT_SCATTER_BYTES
+    D = np.zeros((K, K), dtype=np.float32)
+    perm = np.argsort(lengths, kind="stable").astype(np.int64)
+    lens_p = np.ones((Kp,), np.int32)
+    lens_p[:K] = lengths[perm]
+    nT = Kp // ti
+
+    t_up = time.perf_counter()
+    if isinstance(features, torch.Tensor):
+        feats = features.to(device=device, dtype=torch.float32)[
+            torch.as_tensor(perm, device=device)
+        ]
+        feats_p = torch.zeros((Kp, Lp, d), dtype=torch.float32, device=device)
+        feats_p[:K] = feats
+    else:
+        fp = np.zeros((Kp, Lp, d), np.float32)
+        fp[:K] = features[perm]
+        feats_p = torch.from_numpy(fp).to(device)
+    lens_dev = torch.from_numpy(lens_p).to(device)
+    rep_dev = torch.from_numpy(tile_rep_lengths(lens_p, nT, ti, K)).to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    upload_s = time.perf_counter() - t_up
+
+    pair_class = make_tile_lane_diag_class_fn(lens_p, nT, ti, Lp, int(cfg.band), K)
+    # Long side on DP rows (tiles are length-sorted, so J >= I is the longer
+    # tile): the corridor's per-row half-width is then exactly `band`, and
+    # the class stripes stay narrow.  The scatter writes both triangles of
+    # every block, so (J, I) blocks land like (I, J) ones.
+    pairs_list = [(j, i) for i in range(nT) for j in range(i, nT)]
+    by_class: dict[tuple[int, ...], list[tuple[int, int]]] = {}
+    for pij in pairs_list:
+        by_class.setdefault(pair_class(*pij), []).append(pij)
+    _merge_thin_classes(by_class)
+    # Each class's tail chunk is padded to the next power of two by
+    # repeating its last tile-pair (duplicate scatters are skipped).
+    chunks: list[tuple[np.ndarray, np.ndarray, tuple[int, ...]]] = []
+    for cls, plist in sorted(by_class.items()):
+        for s in range(0, len(plist), chunk_programs):
+            part = plist[s : s + chunk_programs]
+            u = 1 << max(0, (len(part) - 1).bit_length())
+            while len(part) < min(u, chunk_programs):
+                part = part + [part[-1]]
+            chunks.append((
+                np.array([p[0] for p in part], np.int32),
+                np.array([p[1] for p in part], np.int32),
+                cls,
+            ))
+    if stats is None:
+        stats = {}
+    stats.update(
+        dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, kernel_s=0.0, upload_s=upload_s,
+        blocks=len(chunks), pairs=K * (K - 1) // 2, tiled=True, lane=True,
+        tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
+    )
+
+    norm = cfg.normalize == "path_len"
+    ls_f = lens_p.astype(np.float32)
+    use_native = native.available() and os.environ.get("APD_NO_NATIVE_SCATTER", "") != "1"
+    stats["native_scatter"] = use_native
+    inv = None if direct else np.argsort(perm)
+    strip_bufs: dict[int, np.ndarray] = {}
+    strip_left: dict[int, int] = {}
+
+    def _strip_buf(I):
+        buf = strip_bufs.get(I)
+        if buf is None:
+            buf = np.zeros((min(ti, K - I * ti), K), np.float32)
+            strip_bufs[I] = buf
+            strip_left[I] = nT      # one piece per tile of the strip
+        return buf
+
+    def _strip_dec(I):
+        strip_left[I] -= 1
+        if strip_left[I] == 0:
+            del strip_left[I]
+            buf = strip_bufs.pop(I)
+            rows = perm[I * ti : I * ti + buf.shape[0]]
+            if use_native:
+                native.strip_unpermute(buf, inv, rows, D)
+            else:
+                D[rows] = np.take(buf, inv, axis=1)
+
+    def scatter_chunk(ii, jj, blocks) -> None:
+        # Both triangles per block; diagonal tiles take their strict upper
+        # part mirrored, so D is exactly symmetric with a zero diagonal.
+        seen = set()
+        for u in range(len(ii)):
+            I, J = int(ii[u]), int(jj[u])
+            if (I, J) in seen:
+                continue
+            seen.add((I, J))
+            blk = blocks[u]
+            r0, c0 = I * ti, J * ti
+            # pad sequences (sorted index >= K) exist only in the last tile
+            nr, nc = min(ti, K - r0), min(ti, K - c0)
+            lr = ls_f[r0 : r0 + nr] if norm else None
+            lc = ls_f[c0 : c0 + nc] if norm else None
+            if use_native and direct:
+                native.scatter_block_direct(
+                    blk, nr, nc, lr, lc, perm[r0 : r0 + nr],
+                    perm[c0 : c0 + nc], D, I == J,
+                )
+                continue
+            if use_native:
+                bufI = _strip_buf(I)
+                bufJ = None if I == J else _strip_buf(J)
+                native.scatter_block_strip(blk, nr, nc, lr, lc, bufI, c0, bufJ, r0)
+                _strip_dec(I)
+                if I != J:
+                    _strip_dec(J)
+                continue
+            blk = blk[:nr, :nc] / (lr[:, None] + lc[None, :]) if norm else blk[:nr, :nc]
+            if I == J:
+                blk = np.triu(blk, k=1)
+                blk = blk + blk.T
+            if direct:
+                r_orig, c_orig = perm[r0 : r0 + nr], perm[c0 : c0 + nc]
+                D[np.ix_(r_orig, c_orig)] = blk
+                if I != J:
+                    D[np.ix_(c_orig, r_orig)] = blk.T
+            else:
+                _strip_buf(I)[:, c0 : c0 + nc] = blk
+                _strip_dec(I)
+                if I != J:
+                    _strip_buf(J)[:, r0 : r0 + nr] = blk.T
+                    _strip_dec(J)
+
+    scatter_q: queue.Queue = queue.Queue(maxsize=8)
+    scatter_err: list[BaseException] = []
+
+    def scatter_worker():
+        while True:
+            item = scatter_q.get()
+            if item is None:
+                return
+            if scatter_err:
+                continue  # drain so the producer never blocks on put()
+            try:
+                ii, jj, host, events = item
+                t0 = time.perf_counter()
+                if events is not None:
+                    events[2].synchronize()
+                    stats["kernel_s"] += events[0].elapsed_time(events[1]) / 1e3
+                stats["collect_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                scatter_chunk(ii, jj, host.numpy())
+                stats["scatter_s"] += time.perf_counter() - t0
+            except BaseException as exc:
+                scatter_err.append(exc)
+
+    worker = threading.Thread(target=scatter_worker, name="apd-scatter", daemon=True)
+    worker.start()
+    on_cuda = device.type == "cuda"
+    try:
+        for ii, jj, cls in chunks:
+            if scatter_err:
+                raise scatter_err[0]
+            t0 = time.perf_counter()
+            events = None
+            if on_cuda:
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                events[0].record()
+            blocks = dtw_tile_lane_diag_pairs(
+                feats_p, lens_dev, rep_dev,
+                torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device),
+                ti=ti, band=int(cfg.band), wv_max=cls[1], metric=cfg.metric,
+                rows=cls[0],
+            )
+            if on_cuda:
+                events[1].record()
+                host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
+                host.copy_(blocks, non_blocking=True)
+                events.append(torch.cuda.Event())
+                events[2].record()
+            else:
+                host = blocks
+            stats["dispatch_s"] += time.perf_counter() - t0
+            # The bounded queue keeps at most 8 chunks between launch and
+            # scatter, so pinned buffers stay bounded.
+            scatter_q.put((ii, jj, host, events))
+    finally:
+        scatter_q.put(None)
+        worker.join()
+    if scatter_err:
+        raise scatter_err[0]
+    if strip_bufs:
+        raise RuntimeError("incomplete row strips after all chunks")
+    return D
+
+
+def all_pairs_distances(
+    features: np.ndarray | torch.Tensor,   # [K, L, d] padded segment features
+    lengths: np.ndarray,                   # [K] true frame counts
+    cfg: DTWConfig,
+    *,
+    device: torch.device | str = "cpu",
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Symmetric [K, K] DTW distance matrix over all segment pairs.
+
+    Every supported job goes to the tiled scheduler's diag lane route; the
+    routes not ported yet raise ``NotImplementedError`` instead of running
+    the DTW in plain torch."""
+    if cfg.band is None:
+        raise NotImplementedError(
+            "dtw.band=None (unbanded all-pairs DTW) needs kernels K2/K3, not "
+            "ported yet (ROADMAP.md Queue 2: K2 dtw_tile_pairs, K3 "
+            "dtw_tile_lane_full_pairs); set dtw.band"
+        )
+    if cfg.band_mode != "diag":
+        raise NotImplementedError(
+            "dtw.band_mode='widen' needs kernels K4-K7, not ported yet "
+            "(ROADMAP.md Queue 2); use dtw.band_mode=diag"
+        )
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtw.dtype={cfg.dtype!r}: the port's DTW runs in float32 only"
+        )
+    return all_pairs_distances_tiled(features, lengths, cfg, device=device, stats=stats)

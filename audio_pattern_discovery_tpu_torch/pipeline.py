@@ -1,0 +1,661 @@
+"""End-to-end discovery pipeline: the public entry point of the port.
+
+Port of ``audio_pattern_discovery_tpu/pipeline.py`` for the PCA embedder
+with diag-banded DTW.  A directory of WAV files in, pattern clusters + DTW
+alignments out, on one explicit torch ``device`` (default: the first CUDA
+device when there is one, else the CPU):
+
+1. WAV header probe and streaming ingest (host);
+2. spectrogram (device) and energy segmentation (host);
+3. PCA embedding: covariance and projection on the device, eigensolve on
+   the host;
+4. all-pairs DTW through the tiled scheduler and the K1 kernel;
+5. clustering (host C++ NN-chain);
+6. medoids and exemplar<->member alignments (plain-torch DTW with
+   directions on the device, backtrace on the host);
+7. artifacts.
+
+Paths that are not ported yet raise ``NotImplementedError`` naming the
+ROADMAP.md item that will port them (``check_supported``).
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from audio_pattern_discovery_tpu_torch.cluster.agglomerative import cluster_distance_matrix
+from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+from audio_pattern_discovery_tpu_torch.io.corpus import Clip, StreamingCorpus, pad_and_stack
+from audio_pattern_discovery_tpu_torch.io.wavio import write_wav
+from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
+from audio_pattern_discovery_tpu_torch.models.pca import encode_pca, fit_pca
+from audio_pattern_discovery_tpu_torch.ops.backtrace import paths_from_dirs
+from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch_with_dirs
+from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
+from audio_pattern_discovery_tpu_torch.ops.segmentation import Segment, segment_corpus
+from audio_pattern_discovery_tpu_torch.ops.spectrogram import num_frames, spectrogram_corpus
+from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def check_supported(cfg: PipelineConfig, update_from=None) -> None:
+    """Raise ``NotImplementedError`` for every configuration this port does
+    not run yet, before any work starts."""
+    ae, dt, sp = cfg.autoencoder, cfg.dtw, cfg.spectrogram
+    todo = []
+    if update_from is not None:
+        todo.append("--update / update_from (ROADMAP.md Queue 1, item 9)")
+    if ae.enabled and ae.method == "ae":
+        todo.append(
+            "autoencoder.method=ae (the trained AE; ROADMAP.md Queue 1, "
+            "item 8) — use -s autoencoder.method=pca"
+        )
+    if ae.enabled and ae.checkpoint:
+        todo.append("autoencoder.checkpoint (ROADMAP.md Queue 1, item 8)")
+    if ae.enabled and ae.context_frames > 0:
+        todo.append("autoencoder.context_frames > 0 (ops/context.py; ROADMAP.md Queue 1, item 6)")
+    if cfg.parallel.checkpoint_blocks:
+        todo.append("parallel.checkpoint_blocks (ROADMAP.md Queue 1, item 3)")
+    if sp.upload_codec == "mulaw8":
+        todo.append("spectrogram.upload_codec=mulaw8 (ROADMAP.md Queue 1, item 5)")
+    if dt.band is None:
+        todo.append("dtw.band=None (kernels K2/K3, ROADMAP.md Queue 2) — set dtw.band")
+    elif dt.band_mode != "diag":
+        todo.append("dtw.band_mode=widen (kernels K4-K7, ROADMAP.md Queue 2)")
+    if dt.dtype != "float32":
+        todo.append(f"dtw.dtype={dt.dtype!r} (float32 only)")
+    if todo:
+        raise NotImplementedError(
+            "not ported to audio_pattern_discovery_tpu_torch yet: " + "; ".join(todo)
+        )
+
+
+class _PreparedSignals:
+    """Lazy per-clip upload preparation over a StreamingCorpus.
+
+    Element i is clip i's samples ready for the device: "int16" for
+    all-PCM16 corpora (exact: read_wav is raw/32768 for PCM16, so
+    round(s*32768) round-trips bit-identically; the device divides by the
+    clip peak), "f32" otherwise (peak-normalized here when normalizing).
+    Peaks record into ``.peaks`` as clips load."""
+
+    def __init__(self, stream: StreamingCorpus, codec: str, normalize: bool):
+        self._stream = stream
+        self._codec = codec
+        self._normalize = normalize
+        self._cache: list[np.ndarray | None] = [None] * len(stream)
+        self.peaks = np.ones(len(stream), np.float32)
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    def _get(self, i: int) -> np.ndarray:
+        v = self._cache[i]
+        if v is None:
+            s = self._stream[i].samples
+            peak = max(float(np.abs(s).max()) if len(s) else 0.0, 1e-9)
+            self.peaks[i] = peak
+            if self._codec == "int16":
+                v = np.round(s * 32768.0).astype(np.int16)
+            elif self._normalize:
+                v = (s / peak).astype(np.float32)
+            else:
+                v = s
+            self._cache[i] = v
+        return v
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            start, stop, step = idx.indices(len(self._cache))
+            return [self._get(i) for i in range(start, stop, step)]
+        return self._get(idx)
+
+
+@dataclass
+class ClusterReport:
+    cluster_id: int
+    exemplar: int                      # segment index of the medoid
+    members: list[int]                 # segment indices
+    alignments: dict[int, list[tuple[int, int]]] = field(default_factory=dict)
+
+
+@dataclass
+class DiscoveryResult:
+    config: PipelineConfig
+    clips: list[Clip]
+    segments: list[Segment]
+    seg_features: np.ndarray           # [K, L, d] padded DTW features
+    seg_spectrograms: np.ndarray       # [K, L, bins] raw (log) spectrogram cuts
+    seg_lengths: np.ndarray            # [K]
+    distance_matrix: np.ndarray        # [K, K]
+    labels: np.ndarray                 # [K] flat cluster labels (0-based)
+    clusters: list[ClusterReport]
+    ae_losses: list[float]
+    counters: StageCounters
+
+    def manifest(self) -> dict:
+        """The cluster+alignment manifest."""
+        hop = self.config.spectrogram.hop_length
+        win = self.config.spectrogram.win_length
+        clusters = []
+        for rep in self.clusters:
+            members = []
+            for m in rep.members:
+                seg = self.segments[m]
+                clip = self.clips[seg.clip]
+                members.append(
+                    {
+                        "segment": m,
+                        "file": clip.path,
+                        "sample_rate": clip.sample_rate,
+                        "start_frame": seg.start_frame,
+                        "end_frame": seg.end_frame,
+                        "start_sample": seg.start_frame * hop,
+                        "end_sample": (seg.end_frame - 1) * hop + win,
+                        "is_exemplar": m == rep.exemplar,
+                    }
+                )
+            clusters.append(
+                {
+                    "cluster_id": rep.cluster_id,
+                    "exemplar": rep.exemplar,
+                    "members": members,
+                    "alignments": {
+                        str(m): path for m, path in rep.alignments.items()
+                    },
+                }
+            )
+        from audio_pattern_discovery_tpu_torch.cluster.metrics import cluster_quality
+
+        quality = cluster_quality(self.distance_matrix, self.labels)
+        for c in clusters:
+            c["quality"] = quality["clusters"].get(
+                int(self.labels[c["exemplar"]]), {}
+            )
+        return {
+            "n_clips": len(self.clips),
+            "n_segments": len(self.segments),
+            "n_clusters": len(self.clusters),
+            "silhouette_mean": quality["silhouette_mean"],
+            "clusters": clusters,
+            "ae_losses": [round(x, 6) for x in self.ae_losses],
+            "counters": self.counters.to_dict(),
+        }
+
+
+def extract_segment_features(
+    spectrograms: np.ndarray,      # [B, F, bins]
+    segments: list[Segment],
+    max_len: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Cut per-segment frame sequences and pad to [K, L, bins]."""
+    seqs = [
+        spectrograms[s.clip, s.start_frame : min(s.end_frame, s.start_frame + max_len)]
+        for s in segments
+    ]
+    return pad_and_stack(seqs, pad_to=max_len)
+
+
+def extract_segment_features_device(
+    specs_dev: torch.Tensor,       # [B, F, bins] on the device
+    segments: list[Segment],
+    max_len: int,
+) -> tuple[torch.Tensor, np.ndarray]:
+    """Device-side extract_segment_features: one batched gather + mask, so
+    the spectrogram corpus never crosses to the host (only segments do)."""
+    F = specs_dev.shape[1]
+    dev = specs_dev.device
+    clip_idx = np.array([s.clip for s in segments], np.int64)
+    starts = np.array([s.start_frame for s in segments], np.int64)
+    lengths = np.minimum(
+        np.array([s.end_frame - s.start_frame for s in segments], np.int32),
+        max_len,
+    )
+    frame_idx = np.minimum(starts[:, None] + np.arange(max_len)[None, :], F - 1)
+    seg = specs_dev[
+        torch.from_numpy(clip_idx).to(dev)[:, None], torch.from_numpy(frame_idx).to(dev)
+    ]
+    mask = torch.from_numpy(
+        np.arange(max_len)[None, :] < lengths[:, None]
+    ).to(dev)
+    return torch.where(mask[:, :, None], seg, 0.0), lengths
+
+
+def _medoid(D: np.ndarray, members: list[int]) -> int:
+    sub = D[np.ix_(members, members)]
+    return members[int(np.argmin(sub.sum(axis=1)))]
+
+
+def _feature_fingerprint(cfg: PipelineConfig) -> str:
+    """Hash of the config knobs that determine segment features and DTW
+    distance VALUES (same rule as the reference, so state.json files are
+    interchangeable): keys equal to their dataclass default are dropped,
+    and pure scheduling knobs are excluded."""
+    import dataclasses
+    import hashlib
+
+    def nondefault(section) -> dict:
+        d = dataclasses.asdict(section)
+        for f in dataclasses.fields(section):
+            default = (
+                f.default_factory()
+                if f.default_factory is not dataclasses.MISSING
+                else f.default
+            )
+            if f.name in d and d[f.name] == default:
+                d.pop(f.name)
+        return d
+
+    sp = nondefault(cfg.spectrogram)
+    for k in ("clip_batch", "chunk_frames", "max_resident_bytes", "resample"):
+        sp.pop(k, None)
+    dt = nondefault(cfg.dtw)
+    for k in ("pair_batch", "length_bucketing", "lane_stack"):
+        dt.pop(k, None)
+    ae = nondefault(cfg.autoencoder)
+    if cfg.autoencoder.enabled:
+        for k in ("checkpoint", "checkpoint_dir"):
+            ae.pop(k, None)
+    else:
+        ae = {"enabled": False}
+    payload = repr((sp, nondefault(cfg.segmentation), ae, dt))
+    return hashlib.sha1(payload.encode()).hexdigest()
+
+
+def _prepare_corpus(
+    cfg: PipelineConfig,
+    stream: StreamingCorpus,
+    counters: StageCounters,
+    log,
+    device: torch.device,
+):
+    """Codec selection -> spectrogram -> energy segmentation -> segment
+    frames.  Returns (clips, frame_counts, segments, seg_frames,
+    seg_frames_dev, seg_lengths); seg_frames_dev is the device copy."""
+    codec = "int16" if stream.all_pcm16 else "f32"
+    sigs = _PreparedSignals(stream, codec=codec, normalize=cfg.spectrogram.normalize_signal)
+    scales = sigs.peaks if codec == "int16" and cfg.spectrogram.normalize_signal else None
+    rates = np.unique(stream.sample_rates)
+    n_resampled = int(getattr(stream, "_resample_mask", np.zeros(0, bool)).sum())
+    if n_resampled:
+        orig = np.unique(stream.original_rates)
+        log.info(
+            f"resampling {n_resampled}/{len(stream)} clip(s) "
+            f"{sorted(int(r) for r in orig if r != cfg.spectrogram.sample_rate)}"
+            f" Hz -> {cfg.spectrogram.sample_rate} Hz (spectrogram.resample=auto)"
+        )
+    elif len(rates) > 1:
+        log.warning(
+            f"corpus mixes sample rates {rates.tolist()}: frame times and "
+            "DTW distances are not comparable across rates — set "
+            "spectrogram.resample=auto or resample to one rate (config "
+            f"expects {cfg.spectrogram.sample_rate} Hz)"
+        )
+    elif int(rates[0]) != cfg.spectrogram.sample_rate:
+        log.warning(
+            f"corpus sample rate {int(rates[0])} != configured "
+            f"spectrogram.sample_rate {cfg.spectrogram.sample_rate}; "
+            "window/hop lengths are in samples, so frame durations will "
+            "differ from the configured intent (spectrogram.resample=auto "
+            "converts instead)"
+        )
+    log.info(
+        f"probed headers of {len(stream)} clips"
+        + (" (PCM16: int16 device upload)" if codec == "int16" else "")
+    )
+    # The spectrogram corpus stays on the device when it fits the budget;
+    # only the energy matrix crosses to the host for segmentation.
+    f_max_est = max(
+        num_frames(int(n), cfg.spectrogram.win_length, cfg.spectrogram.hop_length)
+        for n in stream.sample_lengths
+    )
+    resident_bytes = 4 * len(stream) * f_max_est * cfg.spectrogram.feature_dim
+    on_device = resident_bytes <= cfg.spectrogram.max_resident_bytes
+    with counters.time_stage("spectrogram"):
+        specs_any, frame_counts, energies = spectrogram_corpus(
+            sigs,
+            cfg.spectrogram,
+            device=device,
+            clip_batch=cfg.spectrogram.clip_batch,
+            chunk_frames=cfg.spectrogram.chunk_frames,
+            return_device=on_device,
+            scales=scales,
+            sig_lengths=stream.sample_lengths,
+        )
+    clips = stream.materialize()
+
+    with counters.time_stage("segmentation"):
+        segments = segment_corpus(energies, frame_counts, cfg.segmentation)
+    if not segments:
+        return clips, frame_counts, segments, None, None, np.zeros(0, np.int32)
+    if on_device:
+        seg_frames_dev, seg_lengths = extract_segment_features_device(
+            specs_any, segments, cfg.dtw.max_seq_len
+        )
+        seg_frames = seg_frames_dev.cpu().numpy()
+    else:
+        seg_frames, seg_lengths = extract_segment_features(
+            specs_any, segments, cfg.dtw.max_seq_len
+        )
+        seg_frames_dev = torch.from_numpy(seg_frames).to(device)
+    return clips, frame_counts, segments, seg_frames, seg_frames_dev, seg_lengths
+
+
+def discover(
+    wav_dir: str | Path,
+    config: PipelineConfig | None = None,
+    out_dir: str | Path | None = None,
+    logger=None,
+    update_from: str | Path | None = None,
+    device: torch.device | str | None = None,
+) -> DiscoveryResult:
+    """Run the discovery pipeline over a directory of WAV files on
+    ``device`` (default: ``default_device()``)."""
+    cfg = (config or PipelineConfig()).validate()
+    check_supported(cfg, update_from)
+    device = torch.device(device) if device is not None else default_device()
+    log = logger or get_logger()
+    counters = StageCounters()
+    log.info(f"device {device}")
+
+    # ---- ingest (headers now, samples as the spectrogram stage needs them)
+    with counters.time_stage("ingest"):
+        stream = StreamingCorpus(
+            wav_dir,
+            resample_to=(
+                cfg.spectrogram.sample_rate
+                if cfg.spectrogram.resample == "auto"
+                else None
+            ),
+        )
+    counters.add("clips", len(stream))
+
+    clips, frame_counts, segments, seg_frames, seg_frames_dev, seg_lengths = (
+        _prepare_corpus(cfg, stream, counters, log, device)
+    )
+    counters.add("frames", float(frame_counts.sum()))
+    counters.add("segments", len(segments))
+    log.info(f"segmented into {len(segments)} candidates")
+    if len(segments) < 2:
+        raise ValueError(
+            f"only {len(segments)} segments found; loosen segmentation config"
+        )
+
+    # ---- embedding: PCA fit (covariance on device, eigh on host) + encode
+    ae_losses: list[float] = []
+    if cfg.autoencoder.enabled:
+        with counters.time_stage("embedding_fit"):
+            flat = np.concatenate(
+                [seg_frames[k, : seg_lengths[k]] for k in range(len(segments))]
+            )
+            scaler = FeatureScaler.fit(flat)
+            pca_state = fit_pca(
+                scaler.transform(flat).astype(np.float32),
+                cfg.autoencoder.latent_dim,
+                whiten=cfg.autoencoder.pca_whiten,
+                device=device,
+            )
+            log.info(
+                f"PCA embedding: {cfg.autoencoder.latent_dim} components "
+                f"capture {100 * float(pca_state.explained.sum()):.1f}% "
+                "of frame variance"
+            )
+        with counters.time_stage("embedding_encode"):
+            features_dev = encode_pca(pca_state, scaler.transform(seg_frames_dev))
+            features = features_dev.cpu().numpy()
+    else:
+        features_dev, features = seg_frames_dev, seg_frames
+    seg_frames_dev = None
+    counters.add("feature_dim", features.shape[-1])
+
+    # ---- all-pairs DTW (device, the hot loop)
+    launches0 = dtw_tile_lane_diag_pairs.launches
+    with counters.time_stage("dtw"):
+        D = all_pairs_distances(features_dev, seg_lengths, cfg.dtw, device=device)
+    features_dev = None
+    counters.add("dtw_kernel_launches", dtw_tile_lane_diag_pairs.launches - launches0)
+    n_pairs = len(segments) * (len(segments) - 1) // 2
+    counters.add("dtw_pairs", n_pairs)
+    dtw_s = counters.timings_s.get("dtw", 0.0)
+    if dtw_s > 0:
+        counters.add("dtw_pairs_per_sec", n_pairs / dtw_s)
+
+    # ---- clustering (host)
+    with counters.time_stage("clustering"):
+        ccfg = cfg.cluster
+        thr = ccfg.distance_threshold
+        if thr is None and ccfg.n_clusters is None:
+            from audio_pattern_discovery_tpu_torch.cluster.agglomerative import (
+                auto_cut_threshold,
+                cut_linkage,
+                linkage,
+            )
+
+            Z = linkage(D, ccfg.linkage, use_native=ccfg.use_native)
+            thr = auto_cut_threshold(
+                Z,
+                quantile=ccfg.auto_cut_quantile,
+                min_rel_gap=(
+                    ccfg.auto_cut_min_rel_gap if ccfg.auto_cut == "gap" else np.inf
+                ),
+            )
+            labels = cut_linkage(Z, D.shape[0], distance_threshold=thr)
+        else:
+            labels, _ = cluster_distance_matrix(
+                D,
+                ccfg.linkage,
+                distance_threshold=thr,
+                n_clusters=ccfg.n_clusters,
+                use_native=ccfg.use_native,
+            )
+    counters.add("clusters_raw", len(np.unique(labels)))
+
+    # ---- motif extraction + alignments
+    with counters.time_stage("extraction"):
+        clusters = _extract_clusters(D, labels, features, seg_lengths, cfg, device)
+    counters.add("clusters", len(clusters))
+    log.info(f"discovered {len(clusters)} pattern clusters")
+
+    result = DiscoveryResult(
+        config=cfg,
+        clips=clips,
+        segments=segments,
+        seg_features=features,
+        seg_spectrograms=seg_frames,
+        seg_lengths=seg_lengths,
+        distance_matrix=D,
+        labels=labels,
+        clusters=clusters,
+        ae_losses=ae_losses,
+        counters=counters,
+    )
+    if out_dir is not None:
+        write_artifacts(result, out_dir, log)
+    return result
+
+
+def _extract_clusters(
+    D: np.ndarray,
+    labels: np.ndarray,
+    features: np.ndarray,
+    seg_lengths: np.ndarray,
+    cfg: PipelineConfig,
+    device: torch.device,
+) -> list[ClusterReport]:
+    """Medoid exemplars + exemplar<->member alignments per cluster."""
+    reports: list[ClusterReport] = []
+    order = []
+    for lab in np.unique(labels):
+        members = np.flatnonzero(labels == lab).tolist()
+        if len(members) < cfg.cluster.min_cluster_size:
+            continue
+        order.append((len(members), -int(lab), members))
+    # Stable output ids: biggest clusters first.
+    order.sort(reverse=True)
+
+    for new_id, (_, _, members) in enumerate(order):
+        exemplar = _medoid(D, members)
+        rep = ClusterReport(cluster_id=new_id, exemplar=exemplar, members=members)
+        if cfg.output.write_alignments and len(members) > 1:
+            others = [m for m in members if m != exemplar]
+            rep.alignments = _cluster_alignments(
+                exemplar, others, features, seg_lengths, cfg, device
+            )
+        reports.append(rep)
+    return reports
+
+
+# The with-dirs DTW materializes ~16 bytes per DP cell; chunking keeps every
+# call under this budget.
+_ALIGN_BYTES_BUDGET = 512 * 1024 * 1024
+
+
+def _cluster_alignments(
+    exemplar: int,
+    others: list[int],
+    features: np.ndarray,
+    seg_lengths: np.ndarray,
+    cfg: PipelineConfig,
+    device: torch.device,
+) -> dict[int, list[tuple[int, int]]]:
+    """Exemplar<->member warping paths in bounded device memory: sequences
+    trimmed to the cluster's next-pow2 length, members chunked under
+    _ALIGN_BYTES_BUDGET (chunks padded to one power-of-two size with
+    exemplar self-alignments, discarded)."""
+    idx_all = np.asarray(others)
+    la_all = seg_lengths[np.full(len(others), exemplar)]
+    lb_all = seg_lengths[idx_all]
+    lmax = int(max(int(la_all.max()), int(lb_all.max()), 8))
+    L = min(features.shape[1], 1 << (lmax - 1).bit_length())
+
+    if L >= 512:
+        raise NotImplementedError(
+            f"alignments of segments {L} >= 512 frames need the checkpointed "
+            "backtrace (ops/backtrace_ckpt.py), not ported yet (ROADMAP.md "
+            "Queue 1, item 7); lower dtw.max_seq_len or set "
+            "output.write_alignments=false"
+        )
+
+    bytes_per_pair = 16 * (2 * L) * L
+    chunk = max(1, _ALIGN_BYTES_BUDGET // bytes_per_pair)
+    n = len(others)
+    n_chunk = 1 << (min(chunk, n).bit_length() - 1)
+
+    paths: list[list[tuple[int, int]]] = []
+    for s in range(0, n, n_chunk):
+        sel = idx_all[s : s + n_chunk]
+        m = len(sel)
+        pad_idx = np.concatenate([sel, np.full(n_chunk - m, exemplar)])
+        la = seg_lengths[np.full(n_chunk, exemplar)]
+        lb = seg_lengths[pad_idx]
+        _, dirs = dtw_batch_with_dirs(
+            torch.from_numpy(features[np.full(n_chunk, exemplar), :L]).to(device),
+            torch.from_numpy(features[pad_idx, :L]).to(device),
+            torch.from_numpy(la).to(device),
+            torch.from_numpy(lb).to(device),
+            metric=cfg.dtw.metric,
+            band=cfg.dtw.band,
+            auto_widen=cfg.dtw.auto_widen_band,
+            band_mode=cfg.dtw.band_mode,
+        )
+        paths.extend(paths_from_dirs(dirs.cpu().numpy()[:m], la[:m], lb[:m]))
+    return {m: p for m, p in zip(others, paths)}
+
+
+def write_artifacts(result: DiscoveryResult, out_dir: str | Path, log=None) -> None:
+    """Cluster manifest, distance matrix, state, label tracks, images, HTML
+    report and per-cluster audio snippets."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = result.config
+    manifest = result.manifest()
+    (out / cfg.output.manifest_name).write_text(json.dumps(manifest, indent=2))
+    np.save(out / "distance_matrix.npy", result.distance_matrix)
+    state = {
+        "version": 1,
+        "clip_paths": [str(Path(c.path).resolve()) for c in result.clips],
+        "sample_rates": [c.sample_rate for c in result.clips],
+        "segments": [
+            [s.clip, s.start_frame, s.end_frame] for s in result.segments
+        ],
+        "feature_fingerprint": _feature_fingerprint(cfg),
+        "band_mode": cfg.dtw.band_mode if cfg.dtw.band is not None else None,
+    }
+    (out / "state.json").write_text(json.dumps(state))
+    if cfg.output.write_features:
+        np.savez_compressed(
+            out / "features.npz",
+            features=result.seg_features,
+            lengths=result.seg_lengths,
+            labels=result.labels,
+        )
+    if cfg.output.write_label_tracks and result.clusters:
+        lab_dir = out / "labels"
+        lab_dir.mkdir(exist_ok=True)
+        hop = cfg.spectrogram.hop_length
+        win = cfg.spectrogram.win_length
+        per_clip: dict[int, list[tuple[float, float, str]]] = {}
+        for rep in result.clusters:
+            for m in rep.members:
+                seg = result.segments[m]
+                sr = result.clips[seg.clip].sample_rate
+                per_clip.setdefault(seg.clip, []).append(
+                    (
+                        seg.start_frame * hop / sr,
+                        ((seg.end_frame - 1) * hop + win) / sr,
+                        f"cluster{rep.cluster_id:03d}",
+                    )
+                )
+        for ci, rows in per_clip.items():
+            stem = Path(result.clips[ci].path).stem
+            (lab_dir / f"{stem}.txt").write_text(
+                "".join(
+                    f"{s:.6f}\t{e:.6f}\t{lab}\n" for s, e, lab in sorted(rows)
+                )
+            )
+    if cfg.output.write_images and result.clusters:
+        if importlib.util.find_spec("matplotlib") is None:
+            (log or get_logger()).warning(
+                "matplotlib is not installed: skipping the per-cluster "
+                "spectrogram images (output.write_images)"
+            )
+        else:
+            from audio_pattern_discovery_tpu_torch.io.images import write_cluster_images
+
+            write_cluster_images(
+                out / "images",
+                result.clusters,
+                result.seg_spectrograms,
+                result.seg_lengths,
+                max_per_cluster=cfg.output.max_images_per_cluster,
+            )
+    if cfg.output.write_html_report:
+        from audio_pattern_discovery_tpu_torch.io.report import write_html_report
+
+        write_html_report(out, manifest)
+    if cfg.output.write_snippets:
+        hop = cfg.spectrogram.hop_length
+        win = cfg.spectrogram.win_length
+        snip_dir = out / "snippets"
+        snip_dir.mkdir(exist_ok=True)
+        for rep in result.clusters:
+            for m in rep.members:
+                seg = result.segments[m]
+                clip = result.clips[seg.clip]
+                s0 = seg.start_frame * hop
+                s1 = min((seg.end_frame - 1) * hop + win, len(clip.samples))
+                write_wav(
+                    snip_dir / f"cluster{rep.cluster_id:03d}_seg{m:05d}.wav",
+                    clip.samples[s0:s1],
+                    clip.sample_rate,
+                )

@@ -1,0 +1,71 @@
+"""The port's PCA embedder and feature scaler against the JAX reference.
+
+Tolerances: 1e-4 relative on eigen-quantities and projections (both fit
+an fp32 scatter matrix, summed in different orders, then solve it in
+float64 on the host)."""
+
+import numpy as np
+import pytest
+import torch
+
+from audio_pattern_discovery_tpu.models.autoencoder import FeatureScaler as JScaler
+from audio_pattern_discovery_tpu.models.pca import encode_pca as j_encode
+from audio_pattern_discovery_tpu.models.pca import fit_pca as j_fit
+from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
+from audio_pattern_discovery_tpu_torch.models.pca import (
+    PCAState,
+    encode_pca,
+    fit_pca,
+    pca_state_from_numpy,
+)
+
+torch.set_num_threads(1)
+
+
+def _frames(seed, n=1500, d=20, k=4):
+    rng = np.random.default_rng(seed)
+    basis = np.linalg.qr(rng.normal(size=(d, d)))[0][:, :k]
+    z = rng.normal(size=(n, k)) * np.array([5.0, 4.0, 3.0, 2.0])[:k]
+    return (z @ basis.T + 0.05 * rng.normal(size=(n, d)) + 1.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("whiten", [True, False])
+def test_fit_matches_jax(whiten):
+    x = _frames(1)
+    got, want = fit_pca(x, 4, whiten=whiten), j_fit(x, 4, whiten=whiten)
+    np.testing.assert_allclose(got.mean, want.mean, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.components, want.components, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.scale, want.scale, rtol=1e-4)
+    np.testing.assert_allclose(got.explained, want.explained, rtol=1e-4, atol=1e-6)
+
+
+def test_encode_through_state_from_numpy_matches_jax():
+    x = _frames(2)
+    st_j = j_fit(x, 3)
+    st = pca_state_from_numpy(st_j.mean, st_j.components, st_j.scale, st_j.explained)
+    assert isinstance(st, PCAState) and st.components.dtype == np.float32
+    frames = x.reshape(30, 50, 20)                       # [K, L, d] like segments
+    got = encode_pca(st, torch.from_numpy(frames)).numpy()
+    want = j_encode(st_j, frames)
+    assert got.shape == (30, 50, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_scaler_matches_jax_on_host_and_tensors():
+    x = _frames(3)
+    s, s_j = FeatureScaler.fit(x), JScaler.fit(x)
+    np.testing.assert_array_equal(s.mean, s_j.mean)
+    np.testing.assert_array_equal(s.std, s_j.std)
+    np.testing.assert_array_equal(s.transform(x), s_j.transform(x))
+    np.testing.assert_allclose(s.transform(torch.from_numpy(x)).numpy(), s_j.transform(x),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_fit_is_deterministic_and_validates():
+    x = _frames(4)
+    a, b = fit_pca(x, 5), fit_pca(torch.from_numpy(x), 5)
+    np.testing.assert_array_equal(a.components, b.components)
+    with pytest.raises(ValueError, match="n_components"):
+        fit_pca(x, 21)
+    with pytest.raises(ValueError, match="frames"):
+        fit_pca(x[:1], 2)

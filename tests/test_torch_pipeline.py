@@ -1,0 +1,197 @@
+"""The port's whole slice on the CPU: discover() and the CLI against the
+committed golden and the JAX pipeline, import hygiene, and the routes that
+raise NotImplementedError.
+
+Golden tolerances are those of tests/test_pipeline_e2e.py (D at rtol 1e-4 /
+atol 1e-5, cluster partition exact)."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audio_pattern_discovery_tpu_torch.cli import main as cli_main
+from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+from audio_pattern_discovery_tpu_torch.pipeline import discover
+from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+GOLDEN = REPO / "tests" / "golden" / "GOLDEN_cpu_seed7_mfcc_pca.npz"
+
+
+def _golden_config(cls=PipelineConfig):
+    cfg = cls()
+    cfg.dtw.band = 16
+    cfg.spectrogram.feature = "mfcc"
+    cfg.spectrogram.n_mels = 48
+    cfg.spectrogram.n_mfcc = 16
+    cfg.autoencoder.method = "pca"
+    cfg.autoencoder.latent_dim = 8
+    cfg.output.write_snippets = False
+    cfg.output.write_images = False
+    cfg.output.write_html_report = False
+    return cfg
+
+
+def _partition(labels):
+    groups = {}
+    for i, lab in enumerate(labels):
+        groups.setdefault(int(lab), []).append(i)
+    return sorted(tuple(g) for g in groups.values())
+
+
+@pytest.fixture(scope="module")
+def seed7(tmp_path_factory):
+    d = tmp_path_factory.mktemp("seed7") / "corpus"
+    make_corpus(d, n_clips=12, n_motifs=3, seed=7)
+    return d
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_discover_matches_committed_golden(seed7, resident):
+    # resident=False: the spectrogram corpus assembles on the host (the
+    # path for corpora above spectrogram.max_resident_bytes).
+    cfg = _golden_config()
+    if not resident:
+        cfg.spectrogram.max_resident_bytes = 0
+    res = discover(seed7, cfg, device="cpu")
+    ref = np.load(GOLDEN)
+    assert res.distance_matrix.shape == ref["D"].shape
+    np.testing.assert_allclose(res.distance_matrix, ref["D"], rtol=1e-4, atol=1e-5)
+    assert _partition(res.labels) == _partition(ref["labels"])
+    # CPU tensors never reach the CUDA kernel.
+    assert res.counters.counts["dtw_kernel_launches"] == 0
+
+
+def test_discover_matches_jax_pipeline_stagewise(seed7):
+    # Same corpus through both packages: segment table, features and
+    # alignment paths agree, not only D and the labels.
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+    from audio_pattern_discovery_tpu.pipeline import discover as jdiscover
+
+    cfg = _golden_config()
+    cfg.dtw.max_seq_len = 64
+    jcfg = _golden_config(JCfg)
+    jcfg.dtw.max_seq_len = 64
+    got = discover(seed7, cfg, device="cpu")
+    want = jdiscover(seed7, jcfg)
+    assert [tuple(vars(s).values()) for s in got.segments] == [
+        tuple(vars(s).values()) for s in want.segments
+    ]
+    np.testing.assert_array_equal(got.seg_lengths, want.seg_lengths)
+    for k, n in enumerate(got.seg_lengths):
+        np.testing.assert_allclose(got.seg_features[k, :n], want.seg_features[k, :n],
+                                   rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.distance_matrix, want.distance_matrix,
+                               rtol=1e-4, atol=1e-5)
+    assert _partition(got.labels) == _partition(want.labels)
+    assert [(c.exemplar, c.members) for c in got.clusters] == [
+        (c.exemplar, c.members) for c in want.clusters
+    ]
+    for c_t, c_j in zip(got.clusters, want.clusters):
+        assert c_t.alignments == c_j.alignments
+
+
+def test_cli_writes_artifacts(seed7, tmp_path, capsys):
+    out = tmp_path / "out"
+    rc = cli_main([str(seed7), "-o", str(out), "-s", "dtw.band=16",
+                   "-s", "autoencoder.method=pca", "-s", "autoencoder.latent_dim=8",
+                   "-s", "output.write_images=false"])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out)
+    manifest = json.loads((out / "clusters.json").read_text())
+    assert manifest["n_clusters"] == summary["n_clusters"] >= 1
+    D = np.load(out / "distance_matrix.npy")
+    assert D.shape == (summary["n_segments"],) * 2
+    assert (out / "state.json").exists() and (out / "index.html").exists()
+    snippets = list((out / "snippets").glob("*.wav"))
+    assert len(snippets) == sum(len(c["members"]) for c in manifest["clusters"])
+    for cl in manifest["clusters"]:
+        for path in cl["alignments"].values():
+            assert path[0] == [0, 0]
+            for (i0, j0), (i1, j1) in zip(path, path[1:]):
+                assert (i1 - i0, j1 - j0) in {(1, 0), (0, 1), (1, 1)}
+
+
+def test_state_fingerprint_equals_jax(seed7, tmp_path):
+    # state.json is interchangeable between the packages.
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+    from audio_pattern_discovery_tpu.pipeline import _feature_fingerprint as jfp
+
+    from audio_pattern_discovery_tpu_torch.pipeline import _feature_fingerprint
+
+    assert _feature_fingerprint(_golden_config()) == jfp(_golden_config(JCfg))
+
+
+def test_dump_config_matches_reference(capsys):
+    assert cli_main(["--dump-config", "-s", "dtw.band=16"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+
+    assert got == json.loads(json.dumps(JCfg().override({"dtw.band": 16}).to_dict()))
+
+
+def test_port_never_imports_jax(tmp_path):
+    script = f"""
+import sys
+from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+from audio_pattern_discovery_tpu_torch.pipeline import discover
+import audio_pattern_discovery_tpu_torch.cli, audio_pattern_discovery_tpu_torch.ops.dtw_cuda
+make_corpus({str(tmp_path / 'c')!r}, n_clips=4, n_motifs=2, clip_seconds=1.5, seed=3)
+cfg = PipelineConfig().override({{"dtw.band": 8, "autoencoder.method": "pca",
+                                  "autoencoder.latent_dim": 4, "dtw.max_seq_len": 48}})
+r = discover({str(tmp_path / 'c')!r}, cfg, device="cpu")
+assert r.distance_matrix.shape[0] >= 2
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not any(m.startswith("audio_pattern_discovery_tpu.") or m == "audio_pattern_discovery_tpu"
+               for m in sys.modules)
+print("OK")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize(
+    "overrides,match",
+    [
+        ({"autoencoder.method": "ae"}, "autoencoder.method=ae"),
+        ({"dtw.band": None}, "K2/K3"),
+        ({"dtw.band_mode": "widen"}, "K4-K7"),
+        ({"autoencoder.checkpoint": True}, "autoencoder.checkpoint"),
+        ({"parallel.checkpoint_blocks": True}, "checkpoint_blocks"),
+        ({"spectrogram.upload_codec": "mulaw8"}, "mulaw8"),
+        ({"autoencoder.context_frames": 2}, "context_frames"),
+    ],
+)
+def test_unported_configs_raise(tmp_path, overrides, match):
+    cfg = PipelineConfig().override({"dtw.band": 16, "autoencoder.method": "pca", **overrides})
+    with pytest.raises(NotImplementedError, match=match):
+        discover(tmp_path, cfg, device="cpu")
+
+
+def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path):
+    cfg = _golden_config()
+    with pytest.raises(NotImplementedError, match="update"):
+        discover(seed7, cfg, update_from=tmp_path, device="cpu")
+    with pytest.raises(NotImplementedError, match="--update"):
+        cli_main([str(seed7), "-o", str(tmp_path), "--update", "-s", "dtw.band=16",
+                  "-s", "autoencoder.method=pca"])
+    for flag in (["--query", "x.wav"], ["--serve", "sock"]):
+        with pytest.raises(NotImplementedError, match="query"):
+            cli_main(flag)
+    from audio_pattern_discovery_tpu_torch.pipeline import _cluster_alignments
+
+    feats = np.zeros((3, 600, 2), np.float32)
+    with pytest.raises(NotImplementedError, match="512"):
+        _cluster_alignments(0, [1, 2], feats, np.array([600, 590, 580]), cfg, "cpu")
