@@ -4,7 +4,7 @@ Port of ``audio_pattern_discovery_tpu/cli.py``, trimmed to discovery: the
 same ``-c`` config file, ``-s section.key=value`` overrides and
 ``--dump-config``.  ``--update``, ``--query`` and ``--serve`` are accepted
 so that a command line written for the reference fails loudly here:
-they raise ``NotImplementedError`` (ROADMAP.md Queue 1, items 9 and 13).
+they raise ``NotImplementedError`` naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.serve or args.query:
         raise NotImplementedError(
             "--serve and --query are not ported to audio_pattern_discovery_tpu_torch "
-            "yet (ROADMAP.md Queue 1, items 9 and 13)"
+            'yet (ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"; '
+            'ROADMAP.md Queue 1: "Runtime extras")'
         )
     if args.wav_dir is None:
         build_parser().error("wav_dir is required (unless --dump-config)")

@@ -2,8 +2,9 @@
 
 The reference module (``audio_pattern_discovery_tpu/models/autoencoder.py``)
 also holds the dense autoencoder and its training loop; those are not
-ported yet (ROADMAP.md Queue 1, item 8).  ``FeatureScaler`` is ported here,
-alone, so it sits where its counterpart is.
+ported yet (ROADMAP.md Queue 1: "models/autoencoder.py and
+utils/checkpoint.py").  ``FeatureScaler`` is ported here, alone, so it
+sits where its counterpart is.
 """
 
 from __future__ import annotations

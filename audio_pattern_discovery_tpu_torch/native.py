@@ -1,56 +1,90 @@
 """ctypes bindings for the native C++ library (SURVEY.md SS3 row 11).
 
-Loads native/libapd_native.so, building it on first use if a compiler is
-available.  Every binding has a pure-Python fallback elsewhere in the
-package, so the framework degrades gracefully without a toolchain.
+Builds ``native/apd_native.cc`` (the reference's source, shared and never
+edited) into this package's own ``build/libapd_native.so`` at first use and
+loads it.  The build tries ``-fopenmp`` first and, where that fails (a
+compiler without libgomp), builds again without it: the source guards every
+OpenMP use with ``#ifdef _OPENMP``, so that library is the same code,
+single-threaded.  ``openmp`` records which library was loaded.  No
+``-march=native``, so a library built on one host runs on another.  Every
+binding has a pure-Python fallback elsewhere in the package, so the
+framework still runs without a compiler.
 
-Copy of ``audio_pattern_discovery_tpu/native.py``; only the import paths differ.
+The bindings are a copy of ``audio_pattern_discovery_tpu/native.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libapd_native.so"
+_SRC = Path(__file__).resolve().parent.parent / "native" / "apd_native.cc"
+LIB_PATH = Path(__file__).resolve().parent / "build" / "libapd_native.so"
+_CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 _lib: ctypes.CDLL | None = None
 _load_failed = False
+# True / False: the loaded library was / was not built with OpenMP; None:
+# no library is loaded.
+openmp: bool | None = None
 
 
-def _build() -> bool:
+def build_library(out: Path, *, use_openmp: bool = True) -> bool:
+    """Compile the library to ``out`` (with ``-fopenmp`` or without); True
+    on success.  The compiler writes a per-process temporary file that is
+    renamed into place, so concurrent builders never see a partial file."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    cmd = ["g++", *_CXXFLAGS, *(["-fopenmp"] if use_openmp else []), "-o", str(tmp), str(_SRC)]
     try:
-        subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
-            check=True,
-            capture_output=True,
-            timeout=300,
-        )
-        return _LIB_PATH.exists()
-    except Exception:
-        return _LIB_PATH.exists()
+        proc = subprocess.run(cmd, capture_output=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return False
+    os.replace(tmp, out)
+    return True
+
+
+def links_openmp(so: Path) -> bool:
+    """Whether a built library depends on libgomp (its dynamic section names
+    the OpenMP runtime only when it was linked with -fopenmp)."""
+    return b"libgomp" in so.read_bytes()
 
 
 def get_lib() -> ctypes.CDLL | None:
-    """The loaded library, or None if unavailable."""
-    global _lib, _load_failed
+    """The loaded library (built into ``LIB_PATH`` if missing or older than
+    its source), or None if no compiler can build it."""
+    global _lib, _load_failed, openmp
     if _lib is not None or _load_failed:
         return _lib
-    # Always invoke make (dependency-tracked, near-free when up to date) so
-    # source edits are never shadowed by a stale .so; a missing toolchain
-    # falls back to whatever binary exists.
-    if not _build():
-        _load_failed = True
-        return None
-    try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
-    except OSError:
-        _load_failed = True
-        return None
 
+    def load() -> ctypes.CDLL | None:
+        try:
+            return bind(ctypes.CDLL(str(LIB_PATH)))
+        except OSError:
+            return None
+
+    fresh = LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime
+    lib = load() if fresh else None
+    # A library that is missing, stale or does not load here (built on
+    # another host) is built again.
+    if lib is None and (build_library(LIB_PATH) or build_library(LIB_PATH, use_openmp=False)):
+        lib = load()
+    if lib is None:
+        _load_failed = True
+        return None
+    _lib = lib
+    openmp = links_openmp(LIB_PATH)
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded library."""
     lib.apd_dtw_batch.restype = None
     lib.apd_dtw_batch.argtypes = [
         ctypes.POINTER(ctypes.c_float),
@@ -117,8 +151,7 @@ def get_lib() -> ctypes.CDLL | None:
     lib.apd_strip_unpermute.argtypes = [
         FP, ctypes.c_int, ctypes.c_int64, IP, IP, FP,
     ]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def available() -> bool:

@@ -27,7 +27,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> (seconds, ptxas report) of the build this process ran, if any.
+# name -> (seconds, ptxas report) of the build this process ran, if any;
+# builds started together each report the seconds from their common start
+# until their compiler was collected.
 build_info: dict[str, tuple[float, str]] = {}
 
 
@@ -47,25 +49,40 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if stale."""
+    return load_all([name])[name]
+
+
+def load_all(names: list[str]) -> dict[str, ctypes.CDLL]:
+    """Load several libraries, running one ``nvcc`` per stale source, all
+    started together."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC_DIR / f"{name}.cu"
-        so = BUILD_DIR / f"lib{name}.so"
-        if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+        stale = []
+        for name in names:
+            src, so = CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+            if name not in _libs and (not so.exists() or so.stat().st_mtime < src.stat().st_mtime):
+                stale.append((name, src, so))
+        if stale:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {src.name} (exit {proc.returncode}):\n"
-                    f"{proc.stderr[-4000:]}"
-                )
-            os.replace(tmp, so)
-            build_info[name] = (time.perf_counter() - t0, proc.stderr.strip())
-        lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
-        return lib
+            procs = []
+            for name, src, so in stale:
+                tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                procs.append((name, src, so, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            failed = []
+            for name, src, so, tmp, proc in procs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed building {src.name} (exit "
+                                  f"{proc.returncode}):\n{err[-4000:]}")
+                    continue
+                os.replace(tmp, so)
+                build_info[name] = (time.perf_counter() - t0, err.strip())
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        return {name: _libs[name] for name in names}

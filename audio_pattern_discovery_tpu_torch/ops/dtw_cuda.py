@@ -1,13 +1,18 @@
-"""K1 on Hopper: diag-corridor banded DTW over tile-pairs.
+"""The tile-pair DTW kernels on Hopper: K1 (diag corridor), K2 (square
+tile) and K3 (full-width rows).
 
-Port of ``audio_pattern_discovery_tpu/ops/dtw_pallas.py``
-(``dtw_tile_lane_diag_pairs`` and its kernel ``_dtw_lane_diag_kernel``,
-plus the pure-math helpers ``diag_class_bounds`` and ``tile_rep_lengths``).
+Port of ``audio_pattern_discovery_tpu/ops/dtw_pallas.py``:
+``dtw_tile_lane_diag_pairs`` (kernel ``_dtw_lane_diag_kernel``, plus the
+pure-math helpers ``diag_class_bounds`` and ``tile_rep_lengths``),
+``dtw_tile_pairs`` (``_dtw_tile_kernel``) and ``dtw_tile_lane_full_pairs``
+(``_dtw_lane_full_kernel``).  Each wrapper launches its CUDA C++ kernel
+(``csrc/dtw_lane_diag.cu``, ``csrc/dtw_tile.cu``, ``csrc/dtw_lane_full.cu``)
+on CUDA tensors, counts the launch in its ``launches`` attribute, and runs
+its plain PyTorch twin (``*_ref``) on CPU tensors; it never falls back from
+one to the other.  Every kernel returns UNNORMALIZED distances and +inf for
+a pair outside its class contract, never a truncated distance.
 
-``dtw_tile_lane_diag_pairs`` launches the CUDA C++ kernel in
-``csrc/dtw_lane_diag.cu`` on CUDA tensors and runs the plain PyTorch twin
-``dtw_tile_lane_diag_pairs_ref`` on CPU tensors; it never falls back from
-one to the other.  Both compute the same thing: for U tile-pairs
+K1: ``dtw_tile_lane_diag_pairs`` computes, for U tile-pairs
 ``(ti_idx[u], tj_idx[u])`` of a length-sorted, padded corpus, the
 UNNORMALIZED diag-corridor DTW of A sequence ``ti_idx[u]*ti + r`` against B
 sequence ``tj_idx[u]*ti + c`` as ``out[u, r, c]``, each DP row held in a
@@ -18,9 +23,17 @@ in the call, ``wv_max`` >= the stripe half-width from ``diag_class_bounds``.
 With them met every corridor cell lies in the frame and the distance is
 exact; a pair whose corner cell falls outside the frame comes back +inf.
 
+K2 and K3 are exact DTW over the rectangle i < la, j < lb (K2 optionally
+banded).  Their twins evaluate the recurrence cell by cell (an
+anti-diagonal wavefront vectorized over the gathered pairs) from the same
+squared-difference costs as the kernels, so a twin and its kernel differ
+only by rounding.
+
 Not ported (TPU-only levers, measured null on the TPU): ``stack``,
 ``bgroup``, ``hoist_build``, ``dyn_roll=False`` with its ``kmax``, and the
-8-sublane / 128-lane padding.
+8-sublane / 128-lane padding; K2's ``su``, ``sv``, ``gram_precision``,
+``cmat_dtype``, ``build_repeats``, ``dp_repeats`` and ``hoist_masks``; K3's
+``unroll_rows``.
 """
 
 from __future__ import annotations
@@ -37,8 +50,9 @@ METRICS = {"euclidean": 0, "sqeuclidean": 1, "cosine": 2}
 # W * lanes floats and the staged A rows A_CHUNK_BYTES.
 _SMEM_BUDGET = 200 * 1024
 _A_CHUNK_BYTES = 16 * 1024
-# The plain twin builds [pairs, W, d] costs per row; tile-pairs go in
-# groups that keep that under this many elements.
+# The plain twins build [pairs, W, d] costs per DP row (K1) or per
+# anti-diagonal (K2, K3); pairs go in groups that keep that under this many
+# elements.
 _REF_MAX_ELEMS = 1 << 25
 
 
@@ -92,14 +106,18 @@ def lane_diag_frame(band: int, wv_max: int) -> tuple[int, int, int]:
 
 
 def _check_args(feats, lengths, tile_rep, ti_idx, tj_idx, ti, metric):
+    """(K, S, d) after checking shapes, dtypes and devices; ``tile_rep`` is
+    None for the kernels that take none (K2, K3)."""
     if feats.dim() != 3 or feats.dtype != torch.float32:
         raise ValueError(f"feats must be [K, S, d] float32, got {tuple(feats.shape)} {feats.dtype}")
     K, S, d = feats.shape
     if K % ti:
         raise ValueError(f"K={K} must be padded to a multiple of ti={ti}")
     nT = K // ti
-    for name, t, n in (("lengths", lengths, K), ("tile_rep", tile_rep, nT),
-                       ("ti_idx", ti_idx, None), ("tj_idx", tj_idx, None)):
+    named = [("lengths", lengths, K), ("ti_idx", ti_idx, None), ("tj_idx", tj_idx, None)]
+    if tile_rep is not None:
+        named.append(("tile_rep", tile_rep, nT))
+    for name, t, n in named:
         if t.dim() != 1 or t.dtype != torch.int32:
             raise ValueError(f"{name} must be a 1-D int32 tensor, got {tuple(t.shape)} {t.dtype}")
         if n is not None and t.shape[0] != n:
@@ -121,15 +139,16 @@ def _unit_frames(feats: torch.Tensor, metric: str) -> torch.Tensor:
 
 
 def _lanes(ti: int, W: int, d: int) -> tuple[int, int]:
-    """(threads per block, A rows staged per shared-memory chunk)."""
+    """(threads per block, A rows staged per shared-memory chunk) for a
+    kernel holding W floats of DP state per thread (K1's stripe, K2's row)."""
     a_chunk = max(1, _A_CHUNK_BYTES // (4 * d))
     lanes = min(ti, 128)
     while lanes > 32 and 4 * (W * lanes + a_chunk * d) > _SMEM_BUDGET:
         lanes //= 2
     if 4 * (W * lanes + a_chunk * d) > _SMEM_BUDGET:
         raise ValueError(
-            f"diag stripe of W={W} slots does not fit one block's shared "
-            f"memory ({_SMEM_BUDGET} bytes at {lanes} lanes)"
+            f"a DP state of {W} floats per thread does not fit one block's "
+            f"shared memory ({_SMEM_BUDGET} bytes at {lanes} lanes)"
         )
     return lanes, a_chunk
 
@@ -175,14 +194,13 @@ def dtw_tile_lane_diag_pairs(
     b = a.reshape(nT, ti, S, d).permute(0, 3, 2, 1).contiguous()   # [nT, d, S, ti]
     lengths, tile_rep = lengths.contiguous(), tile_rep.contiguous()
     ti_idx, tj_idx = ti_idx.contiguous(), tj_idx.contiguous()
-    err = _kernel()(
+    _launch(
+        "dtw_lane_diag", 7, 10,
         a.data_ptr(), b.data_ptr(), lengths.data_ptr(), tile_rep.data_ptr(),
         ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
         S, d, ti, U, rows, int(band), wv, METRICS[metric], lanes, a_chunk,
-        torch.cuda.current_stream(feats.device).cuda_stream,
+        stream=torch.cuda.current_stream(feats.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"dtw_lane_diag kernel launch failed: CUDA error {err}")
     dtw_tile_lane_diag_pairs.launches += 1
     return out
 
@@ -190,15 +208,18 @@ def dtw_tile_lane_diag_pairs(
 dtw_tile_lane_diag_pairs.launches = 0
 
 
-def _kernel():
+def _launch(name: str, n_ptrs: int, n_ints: int, *args, stream: int) -> None:
+    """Call ``apd_<name>`` of ``lib<name>.so`` (built at first use): n_ptrs
+    pointers, n_ints ints, then the stream; raise on a CUDA error."""
     from audio_pattern_discovery_tpu_torch.ops import _build
 
-    lib = _build.load("dtw_lane_diag")
-    fn = lib.apd_dtw_lane_diag
+    fn = getattr(_build.load(name), f"apd_{name}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    return fn
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def dtw_tile_lane_diag_pairs_ref(
@@ -306,3 +327,304 @@ def _gather_or_inf(prev, idx, W):
     shape = prev.shape
     g = torch.gather(prev, -1, torch.clamp(idx, 0, W - 1).expand(shape))
     return torch.where(ok.expand(shape), g, INF)
+
+
+# ------------------------------------------------------------------ K2, K3
+
+# Shared memory of one H100 SM, and what the hardware reserves per block.
+_SM_SMEM = 228 * 1024
+_BLOCK_RESERVED = 1024
+
+
+def _tile_lanes(ti: int, S: int, d: int) -> tuple[int, int]:
+    """(threads per block, A rows per staged chunk) for K2.
+
+    K2 is bound by latency at its low occupancy (each thread holds an
+    S-float DP row in shared memory), so the launch maximizes the threads
+    resident on an SM: a 4 KB A chunk, and the block width (128, 64 or 32)
+    that fits the most threads, the widest on a tie.  Measured on the H100:
+    4 -> 6 resident warps made the kernel 1.46x faster at S=256 and S=128,
+    with bitwise-equal results."""
+    a_chunk = max(1, 4096 // (4 * d))
+    best = None
+    for lanes in sorted({min(ti, w) for w in (128, 64, 32)}, reverse=True):
+        smem = 4 * (S * lanes + a_chunk * d)
+        if smem > _SMEM_BUDGET:
+            continue
+        resident = min(_SM_SMEM // (smem + _BLOCK_RESERVED), 32, 2048 // lanes) * lanes
+        if best is None or resident > best[0]:
+            best = (resident, lanes)
+    if best is None:
+        raise ValueError(
+            f"a DP row of {S} floats per thread does not fit one block's shared "
+            f"memory ({_SMEM_BUDGET} bytes at 32 lanes)"
+        )
+    return best[1], a_chunk
+
+
+
+def dtw_tile_pairs(
+    feats: torch.Tensor,       # [K, S, d] f32 padded corpus
+    lengths: torch.Tensor,     # [K] i32 (pad entries: length 1)
+    ti_idx: torch.Tensor,      # [U] i32 tile-row (A) indices
+    tj_idx: torch.Tensor,      # [U] i32 tile-col (B) indices
+    *,
+    ti: int = 128,
+    band: int | None = None,
+    auto_widen: bool = True,
+    metric: str = "euclidean",
+    rows: int | None = None,
+    scan_steps: int | None = None,
+) -> torch.Tensor:
+    """K2: square-tile DTW for U tile-pairs -> [U, ti, ti] f32 (unnormalized).
+
+    ``out[u, r, c]`` is the DTW of A sequence ``ti_idx[u]*ti + r`` against B
+    sequence ``tj_idx[u]*ti + c`` over the cells i < la, j < lb,
+    |j - i| <= wv, with wv = S unbanded, ``max(band, |la - lb|)`` with
+    ``auto_widen``, else ``band``.  ``rows`` must cover every A length of
+    the call: a longer A sequence comes back +inf.  ``scan_steps`` is
+    accepted so the signature matches the JAX kernel, and ignored: it bounds
+    the depth of the TPU kernel's Hillis-Steele row scan, while the CUDA
+    kernel and the twin walk each row cell by cell, which needs no depth.
+
+    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    tensors take the plain twin.  Any other device raises."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    if band is not None and int(band) < 0:
+        raise ValueError(f"band={band} must be >= 0 or None")
+    if feats.device.type == "cpu":
+        return dtw_tile_pairs_ref(
+            feats, lengths, ti_idx, tj_idx, ti=ti, band=band,
+            auto_widen=auto_widen, metric=metric, rows=rows,
+        )
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    if not 1 <= ti <= 1024:
+        raise ValueError(f"ti={ti} must be in [1, 1024] (one thread per B lane)")
+    rows = S if rows is None else min(int(rows), S)
+    U = ti_idx.shape[0]
+    out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
+    if U == 0:
+        return out
+    lanes, a_chunk = _tile_lanes(ti, S, d)
+    a = _unit_frames(feats, metric).contiguous()
+    b = a.reshape(K // ti, ti, S, d).permute(0, 3, 2, 1).contiguous()   # [nT, d, S, ti]
+    lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
+    _launch(
+        "dtw_tile", 6, 10,
+        a.data_ptr(), b.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
+        tj_idx.data_ptr(), out.data_ptr(),
+        S, d, ti, U, rows, -1 if band is None else int(band), int(bool(auto_widen)),
+        METRICS[metric], lanes, a_chunk,
+        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+    )
+    dtw_tile_pairs.launches += 1
+    return out
+
+
+dtw_tile_pairs.launches = 0
+
+
+def dtw_tile_pairs_ref(
+    feats: torch.Tensor,
+    lengths: torch.Tensor,
+    ti_idx: torch.Tensor,
+    tj_idx: torch.Tensor,
+    *,
+    ti: int = 128,
+    band: int | None = None,
+    auto_widen: bool = True,
+    metric: str = "euclidean",
+    rows: int | None = None,
+    scan_steps: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch twin of K2 on the device of ``feats``: the same
+    signature and contracts (``scan_steps`` ignored, +inf past ``rows``)."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    rows = S if rows is None else min(int(rows), S)
+    return _tile_pairs_wavefront(
+        feats, lengths, ti_idx, tj_idx, ti=ti, rows=rows, cols=S, metric=metric,
+        band=band, auto_widen=auto_widen,
+    )
+
+
+def lane_full_width(width: int, S: int) -> int:
+    """K3's class width W: ``width`` rounded up to a multiple of 8, at most S."""
+    W = 8 * -(-int(width) // 8)
+    if not 1 <= W <= S:
+        raise ValueError(f"width={width} must be in [1, S={S}]")
+    return W
+
+
+def _full_warps(ti: int, W: int, d: int) -> int:
+    """Warps (one pair each) per block of the K3 kernel: two padded rows of
+    32*(ceil(W/32)+1) floats and one A frame per warp, at most 8 warps."""
+    per_warp = 4 * (2 * 32 * (-(-W // 32) + 1) + d)
+    warps = min(8, ti, _SMEM_BUDGET // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"two DP rows of width {W} do not fit one block's shared memory "
+            f"({_SMEM_BUDGET} bytes)"
+        )
+    return warps
+
+
+def dtw_tile_lane_full_pairs(
+    feats: torch.Tensor,       # [K, S, d] f32 padded corpus
+    lengths: torch.Tensor,     # [K] i32 (pad entries: length 1)
+    ti_idx: torch.Tensor,      # [U] i32 tile-row (A) indices
+    tj_idx: torch.Tensor,      # [U] i32 tile-col (B) indices
+    *,
+    ti: int,
+    width: int,
+    metric: str = "euclidean",
+    rows: int | None = None,
+) -> torch.Tensor:
+    """K3: exact unbanded DTW for U tile-pairs with full-width DP rows ->
+    [U, ti, ti] f32 (unnormalized).
+
+    Class contracts: ``width`` (rounded up to a multiple of 8, at most S)
+    must cover every B length and ``rows`` every A length of the call; a
+    pair beyond either comes back +inf.
+
+    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    tensors take the plain twin.  Any other device raises."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    W = lane_full_width(width, S)
+    if feats.device.type == "cpu":
+        return dtw_tile_lane_full_pairs_ref(
+            feats, lengths, ti_idx, tj_idx, ti=ti, width=width, metric=metric, rows=rows,
+        )
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    rows = S if rows is None else min(int(rows), S)
+    U = ti_idx.shape[0]
+    out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
+    if U == 0:
+        return out
+    warps = _full_warps(ti, W, d)
+    a = _unit_frames(feats, metric).contiguous()
+    bt = a.permute(0, 2, 1).contiguous()                                # [K, d, S]
+    lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
+    _launch(
+        "dtw_lane_full", 6, 8,
+        a.data_ptr(), bt.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
+        tj_idx.data_ptr(), out.data_ptr(),
+        S, d, ti, U, rows, W, METRICS[metric], warps,
+        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+    )
+    dtw_tile_lane_full_pairs.launches += 1
+    return out
+
+
+dtw_tile_lane_full_pairs.launches = 0
+
+
+def dtw_tile_lane_full_pairs_ref(
+    feats: torch.Tensor,
+    lengths: torch.Tensor,
+    ti_idx: torch.Tensor,
+    tj_idx: torch.Tensor,
+    *,
+    ti: int,
+    width: int,
+    metric: str = "euclidean",
+    rows: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch twin of K3 on the device of ``feats``: the same
+    signature and contracts (+inf past ``width`` or ``rows``)."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    rows = S if rows is None else min(int(rows), S)
+    return _tile_pairs_wavefront(
+        feats, lengths, ti_idx, tj_idx, ti=ti, rows=rows, cols=lane_full_width(width, S),
+        metric=metric, band=None, auto_widen=False,
+    )
+
+
+def _tile_pairs_wavefront(feats, lengths, ti_idx, tj_idx, *, ti, rows, cols, metric,
+                          band, auto_widen):
+    """[U, ti, ti]: the DTW of A sequence ti_idx[u]*ti + r against B
+    sequence tj_idx[u]*ti + c on a grid of ``rows`` x ``cols`` cells; a pair
+    that does not fit the grid (or has an empty sequence) is +inf.  Each
+    tile-pair runs in blocks of A rows sized to keep the per-diagonal cost
+    build under _REF_MAX_ELEMS elements."""
+    x = _unit_frames(feats, metric)
+    d = x.shape[2]
+    lens = lengths.long()
+    dev = x.device
+    U = ti_idx.shape[0]
+    out = torch.full((U, ti, ti), INF, dtype=torch.float32, device=dev)
+    lane = torch.arange(ti, device=dev)
+    for u, (I, J) in enumerate(zip(ti_idx.tolist(), tj_idx.tolist())):
+        a_ids, b_ids = I * ti + lane, J * ti + lane
+        la_all, lb = lens[a_ids], lens[b_ids]
+        n_c = min(cols, int(lb.max()))
+        if n_c < 1:
+            continue
+        b_seq = x[b_ids, :n_c]                                    # [ti, n_c, d]
+        r_step = max(1, _REF_MAX_ELEMS // (ti * n_c * d))
+        for r0 in range(0, ti, r_step):
+            la = la_all[r0 : r0 + r_step]
+            n_r = min(rows, int(la.max()))
+            if n_r < 1:
+                continue
+            out[u, r0 : r0 + r_step] = _wavefront_block(
+                x[a_ids[r0 : r0 + r_step], :n_r], b_seq, la, lb, rows=rows, cols=cols,
+                metric=metric, band=band, auto_widen=auto_widen,
+            )
+    return out
+
+
+def _wavefront_block(a_seq, b_seq, la, lb, *, rows, cols, metric, band, auto_widen):
+    """[R, C] DTW of every A sequence (a_seq [R, N, d]) against every B
+    sequence (b_seq [C, M, d]), evaluated cell by cell along anti-diagonals
+    k = i + j: D[i, j] = c[i, j] + min(D[i-1, j-1], D[i-1, j], D[i, j-1]),
+    with the costs of diagonal k built from squared differences as the
+    kernels build them.  Cells outside i < la, j < lb (and the band) are
+    +inf; pairs beyond ``rows`` or ``cols`` are +inf."""
+    R, N, _ = a_seq.shape
+    C, M, _ = b_seq.shape
+    dev = a_seq.device
+    la2, lb2 = la[:, None], lb[None, :]
+    ok = (la2 >= 1) & (lb2 >= 1) & (la2 <= rows) & (lb2 <= cols)
+    res = torch.full((R, C), INF, dtype=torch.float32, device=dev)
+    if not bool(ok.any()):
+        return res
+    k_star = la2 + lb2 - 2
+    if band is None:
+        wv = None
+    elif auto_widen:
+        wv = torch.clamp(torch.abs(la2 - lb2), min=int(band))[..., None]
+    else:
+        wv = int(band)
+    read = torch.clamp(lb - 1, 0, M - 1)[None, :, None].expand(R, C, 1)
+    inf_col = torch.full((R, C, 1), INF, device=dev)
+    prev = torch.full((R, C, M), INF, device=dev)
+    prev2 = prev
+    cols_all = torch.arange(M, device=dev)
+    for k in range(int(k_star[ok].max()) + 1):
+        j_lo, j_hi = max(0, k - N + 1), min(M, k + 1)
+        jj = cols_all[j_lo:j_hi]
+        ii = k - jj
+        a_k = a_seq[:, ii][:, None]                               # [R, 1, m, d]
+        b_k = b_seq[:, j_lo:j_hi][None]                           # [1, C, m, d]
+        if metric == "cosine":
+            cost = 1.0 - torch.sum(a_k * b_k, dim=-1)
+        else:
+            cost = torch.sum((a_k - b_k) ** 2, dim=-1)
+            if metric == "euclidean":
+                cost = torch.sqrt(cost)
+        valid = (ii < la[:, None, None]) & (jj < lb[None, :, None])   # [R, C, m]
+        if wv is not None:
+            valid = valid & (torch.abs(jj - ii) <= wv)
+        c = torch.full((R, C, M), INF, device=dev)
+        c[..., j_lo:j_hi] = torch.where(valid, cost, INF)
+        diag = torch.cat([inf_col, prev2[..., :-1]], dim=-1)
+        left = torch.cat([inf_col, prev[..., :-1]], dim=-1)
+        pred = torch.minimum(torch.minimum(diag, prev), left)
+        if k == 0:
+            pred[..., 0] = 0.0                                    # D[-1, -1] = 0
+        cur = c + pred
+        res = torch.where(k_star == k, torch.gather(cur, -1, read)[..., 0], res)
+        prev2, prev = prev, cur
+    return torch.where(ok, res, INF)

@@ -13,7 +13,8 @@ Tiling is simpler than the reference's: clips go in groups of
 ``clip_batch``, each group padded to its longest clip, and the frames of a
 group in chunks of ``chunk_frames``.  Frames do not straddle chunks (framing
 is a view of the whole clip), so the result equals a single-shot call.
-The mu-law upload codec is not ported (ROADMAP.md Queue 1, item 5).
+The mu-law upload codec is not ported (ROADMAP.md Queue 1: "ops/context.py
+and the mu-law upload codec").
 """
 
 from __future__ import annotations

@@ -1,19 +1,28 @@
-"""All-pairs DTW: tiled diag-lane scheduling over one device.
+"""All-pairs DTW: tiled scheduling over one device.
 
 Port of ``audio_pattern_discovery_tpu/parallel/pair_scheduler.py``
-(``all_pairs_distances`` -> ``all_pairs_distances_tiled``, lane route with
-``band_mode="diag"``).  Kept from the reference: the length sort and tile
-padding, the per-tile-pair static classes (``make_tile_lane_diag_class_fn``
-quantized on ``_ws_level_diag``, thin classes merged by
-``_merge_thin_classes``), power-of-two chunking of each class, the
-long-side-on-rows orientation, and the fused native scatter with
-``path_len`` normalization on a worker thread.  The executor of a chunk is
-the K1 wrapper ``ops.dtw_cuda.dtw_tile_lane_diag_pairs``: the CUDA kernel
-for a CUDA device, its plain twin for the CPU.
+(``all_pairs_distances`` -> ``all_pairs_distances_tiled``) for three
+routes, each a tile-pair kernel of ``ops/dtw_cuda.py`` (the CUDA kernel on a
+CUDA device, its plain twin on the CPU):
 
-Not ported yet: unbanded jobs (K2/K3) and ``band_mode="widen"`` (K4-K7)
-raise ``NotImplementedError`` naming the ROADMAP.md item; block persistence,
-retries and incremental ``known=`` reuse are left out (ROADMAP.md Queue 1).
+- ``"diag"`` (``band_mode="diag"``): K1 ``dtw_tile_lane_diag_pairs``, classes
+  from ``make_tile_lane_diag_class_fn``, long side on DP rows;
+- ``"tile"`` (``band=None``, padded length <= 256): K2 ``dtw_tile_pairs``,
+  classes from ``make_tile_pair_class_fn``;
+- ``"full"`` (``band=None``, 256 < padded length <= 4096): K3
+  ``dtw_tile_lane_full_pairs``, classes from ``make_tile_lane_full_class_fn``.
+
+Kept from the reference: the length sort, the padding of the corpus to
+whole tiles and of the time axis to a multiple of 128, the per-tile-pair
+static classes with thin classes merged by ``_merge_thin_classes``,
+power-of-two chunking of each class, and the fused native scatter with
+``path_len`` normalization on a worker thread.  The TPU's VMEM/SMEM gates
+of the routes are not ported: the port's kernels take any feature width.
+
+Not ported yet: ``band_mode="widen"`` (K4-K7) and unbanded jobs past 4096
+frames (``ops/dtw_long.py``) raise ``NotImplementedError`` naming their
+ROADMAP.md item; block persistence, retries and incremental ``known=``
+reuse are left out (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from audio_pattern_discovery_tpu_torch.config import DTWConfig
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     diag_class_bounds,
     dtw_tile_lane_diag_pairs,
+    dtw_tile_lane_full_pairs,
+    dtw_tile_pairs,
     tile_rep_lengths,
 )
 
@@ -45,6 +56,42 @@ _DIRECT_SCATTER_BYTES = 2 * 1024**3
 # the wider classes of bigger tiles, so tiles are small.  D does not depend
 # on ti: every class contract is exact.
 DEFAULT_TI = {"cuda": 128, "cpu": 16}
+
+# Unbanded routes by padded length (reference: tile_geometry covers S <= 256,
+# MAX_STRIPE_SEQ_LEN = 4096 caps the full-width lane kernel).
+TILE_MAX_LEN = 256
+FULL_MAX_LEN = 4096
+
+
+def padded_len(L: int) -> int:
+    """The time axis padded to a multiple of 128, as the reference pads it."""
+    return 128 * -(-int(L) // 128)
+
+
+def route_for(L: int, cfg: DTWConfig) -> str:
+    """The tile-pair route of a job with sequences padded to L frames:
+    "diag" (K1), "tile" (K2) or "full" (K3); NotImplementedError for the
+    routes not ported yet."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtw.dtype={cfg.dtype!r}: the port's DTW runs in float32 only"
+        )
+    if cfg.band is not None:
+        if cfg.band_mode != "diag":
+            raise NotImplementedError(
+                "dtw.band_mode='widen' needs kernels K4-K7, not ported yet (ROADMAP.md "
+                'Queue 2: "K4 — dtw_tile_lane_pairs"); use dtw.band_mode=diag'
+            )
+        return "diag"
+    Lp = padded_len(L)
+    if Lp <= TILE_MAX_LEN:
+        return "tile"
+    if Lp <= FULL_MAX_LEN:
+        return "full"
+    raise NotImplementedError(
+        f"unbanded DTW of {L} frames (past {FULL_MAX_LEN}) needs the blocked wavefront "
+        '(ROADMAP.md Queue 1: "ops/dtw_long.py"), not ported yet'
+    )
 
 
 def _ws_level_diag(wv_req: int) -> int:
@@ -86,6 +133,70 @@ def make_tile_lane_diag_class_fn(
             band, int(tmin[i]), int(tmax[i]), int(tmin[j]), int(tmax[j])
         )
         return rows_cls, _ws_level_diag(min(wv_req, Lp))
+
+    return pair_class
+
+
+def make_tile_pair_class_fn(
+    lens_sorted: np.ndarray,   # [nT*ti] lengths in tile order (pad: 1)
+    nT: int,
+    ti: int,
+    Lp: int,
+    band: int | None,
+    auto_widen: bool,
+) -> Callable[[int, int], tuple[int, int]]:
+    """(I, J) tile-pair -> (rows_cls, scan_cls) for the square tile kernel
+    (exact port of the reference).
+
+    rows covers the A tile's max length (the length sort makes A the
+    shorter side) on a Lp//8 ladder; scan_cls is the reference's banded
+    scan depth (full_scan for band=None), a contract of the TPU's row scan
+    that the port's K2 accepts and does not need.  The widening bound is
+    taken over both orientations, as in the reference."""
+    tmin = np.array([lens_sorted[t * ti : (t + 1) * ti].min() for t in range(nT)])
+    tmax = np.array([lens_sorted[t * ti : (t + 1) * ti].max() for t in range(nT)])
+    full_scan = max(1, (Lp - 1).bit_length())
+    small_scan = min(6, full_scan)
+    rq = max(16, Lp // 8)
+
+    def pair_class(i: int, j: int) -> tuple[int, int]:
+        rows_cls = min(Lp, rq * -(-int(tmax[i]) // rq))
+        if band is None:
+            scan_cls = full_scan
+        else:
+            wv_req = int(band)
+            if auto_widen:
+                wv_req = max(wv_req, int(tmax[j]) - int(tmin[i]), int(tmax[i]) - int(tmin[j]))
+            need = max(1, (2 * min(wv_req, Lp)).bit_length())
+            scan_cls = small_scan if need <= small_scan else full_scan
+        return rows_cls, scan_cls
+
+    return pair_class
+
+
+def make_tile_lane_full_class_fn(
+    lens_sorted: np.ndarray,   # [nT*ti] lengths in tile order (pad: 1)
+    nT: int,
+    ti: int,
+    Lp: int,
+    n_real: int,
+) -> Callable[[int, int], tuple[int, int]]:
+    """(I, J) tile-pair -> (rows_cls, width_cls) for the full-width lane
+    kernel (exact port of the reference): rows covers the A tile's max REAL
+    length, width the B tile's, each quantized UP on the Lp//8 ladder.  Both
+    are >=-monotone contracts, so _merge_thin_classes stays correct."""
+    tmax = np.empty(nT, np.int64)
+    for t in range(nT):
+        real = lens_sorted[t * ti : min((t + 1) * ti, n_real)]
+        if len(real) == 0:
+            real = lens_sorted[t * ti : (t + 1) * ti]
+        tmax[t] = real.max()
+    rq = max(16, Lp // 8)
+
+    def pair_class(i: int, j: int) -> tuple[int, int]:
+        rows_cls = min(Lp, rq * -(-int(tmax[i]) // rq))
+        width_cls = min(Lp, rq * -(-int(tmax[j]) // rq))
+        return rows_cls, width_cls
 
     return pair_class
 
@@ -143,27 +254,27 @@ def all_pairs_distances_tiled(
     chunk_programs: int = 64,
     stats: dict | None = None,
 ) -> np.ndarray:
-    """Symmetric [K, K] diag-banded DTW matrix through the K1 tile kernel.
+    """Symmetric [K, K] DTW matrix through the tile-pair kernel of the job's
+    route (``route_for``).
 
     Sequences are length-sorted and padded to whole tiles, uploaded once,
-    and every upper-triangle tile-pair runs as one K1 tile-pair (ti*ti
+    and every upper-triangle tile-pair runs as one kernel tile-pair (ti*ti
     pairs).  Tile-pairs are grouped by static class and launched in chunks
     of ``chunk_programs``; on a CUDA device up to eight chunks are in flight
     while a worker thread scatters finished blocks into D.
 
-    ``stats`` receives host seconds per activity (dispatch, collect: waiting
-    for a chunk's copy, scatter, upload) and, on a CUDA device,
-    ``kernel_s``: the K1 launches' device time from CUDA events around
-    each launch."""
+    ``stats`` receives the route, host seconds per activity (dispatch,
+    collect: waiting for a chunk's copy, scatter, upload), whether the
+    native scatter ran and with OpenMP, and, on a CUDA device, ``kernel_s``:
+    the kernel launches' device time from CUDA events around each launch."""
     device = torch.device(device)
-    if cfg.band is None or cfg.band_mode != "diag":
-        raise ValueError("all_pairs_distances_tiled takes diag-banded jobs only")
     K, L, d = features.shape
+    route = route_for(L, cfg)
     lengths = np.asarray(lengths, dtype=np.int32)
     if K < 2:
         return np.zeros((K, K), dtype=np.float32)
     ti = int(ti or DEFAULT_TI[device.type])
-    Lp = L
+    Lp = padded_len(L)
     Kp = -(-K // ti) * ti
     direct = K * K * 4 <= _DIRECT_SCATTER_BYTES
     D = np.zeros((K, K), dtype=np.float32)
@@ -178,23 +289,50 @@ def all_pairs_distances_tiled(
             torch.as_tensor(perm, device=device)
         ]
         feats_p = torch.zeros((Kp, Lp, d), dtype=torch.float32, device=device)
-        feats_p[:K] = feats
+        feats_p[:K, :L] = feats
     else:
         fp = np.zeros((Kp, Lp, d), np.float32)
-        fp[:K] = features[perm]
+        fp[:K, :L] = features[perm]
         feats_p = torch.from_numpy(fp).to(device)
     lens_dev = torch.from_numpy(lens_p).to(device)
-    rep_dev = torch.from_numpy(tile_rep_lengths(lens_p, nT, ti, K)).to(device)
+    rep_dev = None
+    if route == "diag":
+        rep_dev = torch.from_numpy(tile_rep_lengths(lens_p, nT, ti, K)).to(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     upload_s = time.perf_counter() - t_up
 
-    pair_class = make_tile_lane_diag_class_fn(lens_p, nT, ti, Lp, int(cfg.band), K)
-    # Long side on DP rows (tiles are length-sorted, so J >= I is the longer
-    # tile): the corridor's per-row half-width is then exactly `band`, and
-    # the class stripes stay narrow.  The scatter writes both triangles of
-    # every block, so (J, I) blocks land like (I, J) ones.
-    pairs_list = [(j, i) for i in range(nT) for j in range(i, nT)]
+    pairs_list = [(i, j) for i in range(nT) for j in range(i, nT)]
+    if route == "diag":
+        pair_class = make_tile_lane_diag_class_fn(lens_p, nT, ti, Lp, int(cfg.band), K)
+        # Long side on DP rows (tiles are length-sorted, so J >= I is the
+        # longer tile): the corridor's per-row half-width is then exactly
+        # `band`, and the class stripes stay narrow.  The scatter writes
+        # both triangles of every block, so (J, I) blocks land like (I, J)
+        # ones.  K2 and K3 keep the shorter A tile on rows: their rows and
+        # width class keys assume it.
+        pairs_list = [(j, i) for i, j in pairs_list]
+    elif route == "tile":
+        pair_class = make_tile_pair_class_fn(lens_p, nT, ti, Lp, cfg.band, cfg.auto_widen_band)
+    else:
+        pair_class = make_tile_lane_full_class_fn(lens_p, nT, ti, Lp, K)
+
+    def launch(ii: torch.Tensor, jj: torch.Tensor, cls: tuple[int, ...]) -> torch.Tensor:
+        if route == "diag":
+            return dtw_tile_lane_diag_pairs(
+                feats_p, lens_dev, rep_dev, ii, jj, ti=ti, band=int(cfg.band),
+                wv_max=cls[1], metric=cfg.metric, rows=cls[0],
+            )
+        if route == "tile":
+            return dtw_tile_pairs(
+                feats_p, lens_dev, ii, jj, ti=ti, band=cfg.band,
+                auto_widen=cfg.auto_widen_band, metric=cfg.metric, rows=cls[0],
+                scan_steps=cls[1],
+            )
+        return dtw_tile_lane_full_pairs(
+            feats_p, lens_dev, ii, jj, ti=ti, width=cls[1], metric=cfg.metric, rows=cls[0],
+        )
+
     by_class: dict[tuple[int, ...], list[tuple[int, int]]] = {}
     for pij in pairs_list:
         by_class.setdefault(pair_class(*pij), []).append(pij)
@@ -216,8 +354,8 @@ def all_pairs_distances_tiled(
     if stats is None:
         stats = {}
     stats.update(
-        dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, kernel_s=0.0, upload_s=upload_s,
-        blocks=len(chunks), pairs=K * (K - 1) // 2, tiled=True, lane=True,
+        route=route, dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, kernel_s=0.0,
+        upload_s=upload_s, blocks=len(chunks), pairs=K * (K - 1) // 2, tiled=True,
         tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
     )
 
@@ -225,6 +363,7 @@ def all_pairs_distances_tiled(
     ls_f = lens_p.astype(np.float32)
     use_native = native.available() and os.environ.get("APD_NO_NATIVE_SCATTER", "") != "1"
     stats["native_scatter"] = use_native
+    stats["native_openmp"] = bool(use_native and native.openmp)
     inv = None if direct else np.argsort(perm)
     strip_bufs: dict[int, np.ndarray] = {}
     strip_left: dict[int, int] = {}
@@ -328,12 +467,7 @@ def all_pairs_distances_tiled(
             if on_cuda:
                 events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 events[0].record()
-            blocks = dtw_tile_lane_diag_pairs(
-                feats_p, lens_dev, rep_dev,
-                torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device),
-                ti=ti, band=int(cfg.band), wv_max=cls[1], metric=cfg.metric,
-                rows=cls[0],
-            )
+            blocks = launch(torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device), cls)
             if on_cuda:
                 events[1].record()
                 host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
@@ -366,22 +500,7 @@ def all_pairs_distances(
 ) -> np.ndarray:
     """Symmetric [K, K] DTW distance matrix over all segment pairs.
 
-    Every supported job goes to the tiled scheduler's diag lane route; the
-    routes not ported yet raise ``NotImplementedError`` instead of running
-    the DTW in plain torch."""
-    if cfg.band is None:
-        raise NotImplementedError(
-            "dtw.band=None (unbanded all-pairs DTW) needs kernels K2/K3, not "
-            "ported yet (ROADMAP.md Queue 2: K2 dtw_tile_pairs, K3 "
-            "dtw_tile_lane_full_pairs); set dtw.band"
-        )
-    if cfg.band_mode != "diag":
-        raise NotImplementedError(
-            "dtw.band_mode='widen' needs kernels K4-K7, not ported yet "
-            "(ROADMAP.md Queue 2); use dtw.band_mode=diag"
-        )
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtw.dtype={cfg.dtype!r}: the port's DTW runs in float32 only"
-        )
+    Every supported job goes to the tiled scheduler (``route_for`` picks the
+    kernel); the routes not ported yet raise ``NotImplementedError`` instead
+    of running the DTW in plain torch."""
     return all_pairs_distances_tiled(features, lengths, cfg, device=device, stats=stats)

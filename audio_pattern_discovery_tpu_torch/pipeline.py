@@ -1,18 +1,20 @@
 """End-to-end discovery pipeline: the public entry point of the port.
 
 Port of ``audio_pattern_discovery_tpu/pipeline.py`` for the PCA embedder
-with diag-banded DTW.  A directory of WAV files in, pattern clusters + DTW
-alignments out, on one explicit torch ``device`` (default: the first CUDA
-device when there is one, else the CPU):
+with diag-banded or unbanded DTW.  A directory of WAV files in, pattern
+clusters + DTW alignments out, on one explicit torch ``device`` (default:
+the first CUDA device when there is one, else the CPU):
 
 1. WAV header probe and streaming ingest (host);
 2. spectrogram (device) and energy segmentation (host);
 3. PCA embedding: covariance and projection on the device, eigensolve on
    the host;
-4. all-pairs DTW through the tiled scheduler and the K1 kernel;
+4. all-pairs DTW through the tiled scheduler and its kernel: K1 for a diag
+   band, K2 (segments up to 256 frames) or K3 (up to 4096) unbanded;
 5. clustering (host C++ NN-chain);
 6. medoids and exemplar<->member alignments (plain-torch DTW with
-   directions on the device, backtrace on the host);
+   directions on the device, checkpointed for segments of 512 frames or
+   more, backtrace on the host);
 7. artifacts.
 
 Paths that are not ported yet raise ``NotImplementedError`` naming the
@@ -36,12 +38,23 @@ from audio_pattern_discovery_tpu_torch.io.wavio import write_wav
 from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
 from audio_pattern_discovery_tpu_torch.models.pca import encode_pca, fit_pca
 from audio_pattern_discovery_tpu_torch.ops.backtrace import paths_from_dirs
+from audio_pattern_discovery_tpu_torch.ops.backtrace_ckpt import dtw_paths_checkpointed
 from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch_with_dirs
-from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
+from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+    dtw_tile_lane_diag_pairs,
+    dtw_tile_lane_full_pairs,
+    dtw_tile_pairs,
+)
 from audio_pattern_discovery_tpu_torch.ops.segmentation import Segment, segment_corpus
 from audio_pattern_discovery_tpu_torch.ops.spectrogram import num_frames, spectrogram_corpus
-from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
+    all_pairs_distances,
+    route_for,
+)
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
+
+# The all-pairs DTW kernels whose launches discover() counts.
+DTW_KERNELS = (dtw_tile_lane_diag_pairs, dtw_tile_pairs, dtw_tile_lane_full_pairs)
 
 
 def default_device() -> torch.device:
@@ -52,28 +65,29 @@ def check_supported(cfg: PipelineConfig, update_from=None) -> None:
     """Raise ``NotImplementedError`` for every configuration this port does
     not run yet, before any work starts."""
     ae, dt, sp = cfg.autoencoder, cfg.dtw, cfg.spectrogram
+    ae_item = 'ROADMAP.md Queue 1: "models/autoencoder.py and utils/checkpoint.py"'
+    update_item = 'ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"'
+    context_item = 'ROADMAP.md Queue 1: "ops/context.py and the mu-law upload codec"'
     todo = []
     if update_from is not None:
-        todo.append("--update / update_from (ROADMAP.md Queue 1, item 9)")
+        todo.append(f"--update / update_from ({update_item})")
     if ae.enabled and ae.method == "ae":
         todo.append(
-            "autoencoder.method=ae (the trained AE; ROADMAP.md Queue 1, "
-            "item 8) — use -s autoencoder.method=pca"
+            f"autoencoder.method=ae (the trained AE; {ae_item}) — use -s autoencoder.method=pca"
         )
     if ae.enabled and ae.checkpoint:
-        todo.append("autoencoder.checkpoint (ROADMAP.md Queue 1, item 8)")
+        todo.append(f"autoencoder.checkpoint ({ae_item})")
     if ae.enabled and ae.context_frames > 0:
-        todo.append("autoencoder.context_frames > 0 (ops/context.py; ROADMAP.md Queue 1, item 6)")
+        todo.append(f"autoencoder.context_frames > 0 ({context_item})")
     if cfg.parallel.checkpoint_blocks:
-        todo.append("parallel.checkpoint_blocks (ROADMAP.md Queue 1, item 3)")
+        todo.append(f"parallel.checkpoint_blocks ({update_item})")
     if sp.upload_codec == "mulaw8":
-        todo.append("spectrogram.upload_codec=mulaw8 (ROADMAP.md Queue 1, item 5)")
-    if dt.band is None:
-        todo.append("dtw.band=None (kernels K2/K3, ROADMAP.md Queue 2) — set dtw.band")
-    elif dt.band_mode != "diag":
-        todo.append("dtw.band_mode=widen (kernels K4-K7, ROADMAP.md Queue 2)")
-    if dt.dtype != "float32":
-        todo.append(f"dtw.dtype={dt.dtype!r} (float32 only)")
+        todo.append(f"spectrogram.upload_codec=mulaw8 ({context_item})")
+    # The DTW route depends only on the padded segment length, max_seq_len.
+    try:
+        route_for(dt.max_seq_len, dt)
+    except NotImplementedError as exc:
+        todo.append(str(exc))
     if todo:
         raise NotImplementedError(
             "not ported to audio_pattern_discovery_tpu_torch yet: " + "; ".join(todo)
@@ -419,11 +433,14 @@ def discover(
     counters.add("feature_dim", features.shape[-1])
 
     # ---- all-pairs DTW (device, the hot loop)
-    launches0 = dtw_tile_lane_diag_pairs.launches
+    launches0 = [k.launches for k in DTW_KERNELS]
     with counters.time_stage("dtw"):
         D = all_pairs_distances(features_dev, seg_lengths, cfg.dtw, device=device)
     features_dev = None
-    counters.add("dtw_kernel_launches", dtw_tile_lane_diag_pairs.launches - launches0)
+    launched = [k.launches - n0 for k, n0 in zip(DTW_KERNELS, launches0)]
+    counters.add("dtw_kernel_launches", sum(launched))
+    for k, n in zip(DTW_KERNELS, launched):
+        counters.add(f"launches.{k.__name__}", n)
     n_pairs = len(segments) * (len(segments) - 1) // 2
     counters.add("dtw_pairs", n_pairs)
     dtw_s = counters.timings_s.get("dtw", 0.0)
@@ -461,9 +478,11 @@ def discover(
     counters.add("clusters_raw", len(np.unique(labels)))
 
     # ---- motif extraction + alignments
+    ckpt0 = dtw_paths_checkpointed.calls
     with counters.time_stage("extraction"):
         clusters = _extract_clusters(D, labels, features, seg_lengths, cfg, device)
     counters.add("clusters", len(clusters))
+    counters.add("alignments_checkpointed", dtw_paths_checkpointed.calls - ckpt0)
     log.info(f"discovered {len(clusters)} pattern clusters")
 
     result = DiscoveryResult(
@@ -531,7 +550,9 @@ def _cluster_alignments(
     """Exemplar<->member warping paths in bounded device memory: sequences
     trimmed to the cluster's next-pow2 length, members chunked under
     _ALIGN_BYTES_BUDGET (chunks padded to one power-of-two size with
-    exemplar self-alignments, discarded)."""
+    exemplar self-alignments, discarded).  Long sequences (L >= 512) take
+    the checkpointed backtrace (ops/backtrace_ckpt.py), which gives the same
+    paths without a [B, N+M-1, M] direction tensor."""
     idx_all = np.asarray(others)
     la_all = seg_lengths[np.full(len(others), exemplar)]
     lb_all = seg_lengths[idx_all]
@@ -539,12 +560,17 @@ def _cluster_alignments(
     L = min(features.shape[1], 1 << (lmax - 1).bit_length())
 
     if L >= 512:
-        raise NotImplementedError(
-            f"alignments of segments {L} >= 512 frames need the checkpointed "
-            "backtrace (ops/backtrace_ckpt.py), not ported yet (ROADMAP.md "
-            "Queue 1, item 7); lower dtw.max_seq_len or set "
-            "output.write_alignments=false"
+        paths = dtw_paths_checkpointed(
+            torch.from_numpy(features[np.full(len(others), exemplar), :L]).to(device),
+            torch.from_numpy(features[idx_all, :L]).to(device),
+            la_all,
+            lb_all,
+            metric=cfg.dtw.metric,
+            band=cfg.dtw.band,
+            auto_widen=cfg.dtw.auto_widen_band,
+            band_mode=cfg.dtw.band_mode,
         )
+        return {m: p for m, p in zip(others, paths)}
 
     bytes_per_pair = 16 * (2 * L) * L
     chunk = max(1, _ALIGN_BYTES_BUDGET // bytes_per_pair)

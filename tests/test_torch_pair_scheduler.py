@@ -114,12 +114,94 @@ def test_tiny_corpus():
 @pytest.mark.parametrize(
     "cfg,match",
     [
-        (DTWConfig(band=None), "K2/K3"),
+        (DTWConfig(band=None, max_seq_len=8192), "ops/dtw_long.py"),
         (DTWConfig(band=4, band_mode="widen"), "K4-K7"),
         (DTWConfig(band=4, dtype="bfloat16"), "float32"),
     ],
 )
 def test_unported_routes_raise(cfg, match):
-    feats, lens = _case(17, K=4)
+    feats, lens = _case(17, K=4, L=cfg.max_seq_len if cfg.band is None else 32)
     with pytest.raises(NotImplementedError, match=match):
         tps.all_pairs_distances(feats, lens, cfg)
+
+
+@pytest.mark.parametrize(
+    "L,route",
+    [(8, "tile"), (200, "tile"), (256, "tile"), (257, "full"), (1024, "full"),
+     (4096, "full"), (4097, None)],
+)
+def test_unbanded_route_by_length(L, route):
+    # The reference's routing: the time axis padded to a multiple of 128,
+    # the square tile kernel up to 256, the full-width kernel up to 4096.
+    cfg = DTWConfig(band=None)
+    if route is None:
+        with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
+            tps.route_for(L, cfg)
+    else:
+        assert tps.route_for(L, cfg) == route
+    assert tps.route_for(L, DTWConfig(band=4, band_mode="diag")) == "diag"
+
+
+def test_unbanded_class_fns_equal_jax():
+    rng = np.random.default_rng(18)
+    for trial in range(12):
+        ti, nT = 8, int(rng.integers(2, 9))
+        K = nT * ti - int(rng.integers(0, ti))
+        Lp = 256 if trial % 2 else 1024
+        lens_p = np.ones(nT * ti, np.int32)
+        lens_p[:K] = np.sort(rng.integers(2, Lp + 1, K))
+        band = None if trial % 3 == 0 else int(rng.integers(1, 40))
+        pairs = [(i, j) for i in range(nT) for j in range(i, nT)]
+        fns = [
+            (tps.make_tile_pair_class_fn(lens_p, nT, ti, Lp, band, bool(trial % 2)),
+             jps.make_tile_pair_class_fn(lens_p, nT, ti, Lp, band, bool(trial % 2))),
+            (tps.make_tile_lane_full_class_fn(lens_p, nT, ti, Lp, K),
+             jps.make_tile_lane_full_class_fn(lens_p, nT, ti, Lp, K)),
+        ]
+        for t_fn, j_fn in fns:
+            t_cls, j_cls = {}, {}
+            for p in pairs:
+                assert t_fn(*p) == j_fn(*p)
+                t_cls.setdefault(t_fn(*p), []).append(p)
+                j_cls.setdefault(j_fn(*p), []).append(p)
+            tps._merge_thin_classes(t_cls)
+            jps._merge_thin_classes(j_cls)
+            assert t_cls == j_cls
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_unbanded_tile_route_matches_jax_tiled(metric):
+    # tests/test_dtw_tile.py::test_tiled_scheduler_matches_legacy with
+    # band=None: the JAX square tile kernel against the port's K2 route.
+    feats, lens = _case(19, K=40, L=32, d=5, lo=6)
+    jcfg = JCfg(band=None, normalize="path_len", metric=metric)
+    want = jps.all_pairs_distances_tiled(feats, lens, jcfg, interpret=True,
+                                         geometry=(16, 4, 8))
+    stats = {}
+    got = tps.all_pairs_distances_tiled(
+        feats, lens, DTWConfig(band=None, normalize="path_len", metric=metric), stats=stats)
+    assert stats["route"] == "tile"
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(np.diag(got), 0.0)
+    np.testing.assert_array_equal(got, got.T)
+
+
+def test_unbanded_full_route_matches_jax_tiled():
+    # tests/test_dtw_lane_full.py::test_full_scheduler_matches_legacy with
+    # a padded length that takes the port's K3 route (L > 256), against the
+    # JAX full-width lane kernel and the legacy per-pair path.  The real
+    # lengths stay short: the JAX kernel's interpret mode pays per DP row.
+    rng = np.random.default_rng(20)
+    feats = rng.normal(0, 1, (10, 264, 3)).astype(np.float32)
+    lens = rng.integers(12, 48, 10).astype(np.int32)
+    jcfg = JCfg(band=None, normalize="path_len")
+    want = jps.all_pairs_distances_tiled(feats, lens, jcfg, interpret=True,
+                                         geometry=(4, 0, 0), lane=True)
+    stats = {}
+    got = tps.all_pairs_distances_tiled(feats, lens, DTWConfig(band=None, normalize="path_len"),
+                                        ti=4, stats=stats)
+    assert stats["route"] == "full"
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    legacy = jps.all_pairs_distances(feats, lens, jcfg, tiled=False)
+    np.testing.assert_allclose(got, legacy, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(np.diag(got), 0.0)

@@ -166,7 +166,7 @@ print("OK")
     "overrides,match",
     [
         ({"autoencoder.method": "ae"}, "autoencoder.method=ae"),
-        ({"dtw.band": None}, "K2/K3"),
+        ({"dtw.band": None, "dtw.max_seq_len": 8192}, "ops/dtw_long.py"),
         ({"dtw.band_mode": "widen"}, "K4-K7"),
         ({"autoencoder.checkpoint": True}, "autoencoder.checkpoint"),
         ({"parallel.checkpoint_blocks": True}, "checkpoint_blocks"),
@@ -190,8 +190,77 @@ def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path):
     for flag in (["--query", "x.wav"], ["--serve", "sock"]):
         with pytest.raises(NotImplementedError, match="query"):
             cli_main(flag)
+    # Alignments of 512 frames or more no longer raise: they run through
+    # the checkpointed backtrace and give the one-shot paths.
+    from audio_pattern_discovery_tpu_torch.ops.backtrace import paths_from_dirs
+    from audio_pattern_discovery_tpu_torch.ops.backtrace_ckpt import dtw_paths_checkpointed
+    from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch_with_dirs
     from audio_pattern_discovery_tpu_torch.pipeline import _cluster_alignments
 
-    feats = np.zeros((3, 600, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="512"):
-        _cluster_alignments(0, [1, 2], feats, np.array([600, 590, 580]), cfg, "cpu")
+    rng = np.random.default_rng(8)
+    lens = np.array([600, 590, 580], np.int32)
+    feats = rng.normal(0, 1, (3, 600, 2)).astype(np.float32)
+    for k in range(3):
+        feats[k, lens[k]:] = 0.0
+    before = dtw_paths_checkpointed.calls
+    got = _cluster_alignments(0, [1, 2], feats, lens, cfg, "cpu")
+    assert dtw_paths_checkpointed.calls == before + 1
+    _, dirs = dtw_batch_with_dirs(
+        torch.from_numpy(feats[[0, 0]]), torch.from_numpy(feats[[1, 2]]),
+        torch.from_numpy(lens[[0, 0]]), torch.from_numpy(lens[[1, 2]]), band=16,
+        band_mode=cfg.dtw.band_mode,
+    )
+    want = paths_from_dirs(dirs.numpy(), lens[[0, 0]], lens[[1, 2]])
+    assert [got[1], got[2]] == want
+
+
+def test_discover_unbanded_matches_jax_pipeline(seed7):
+    # The default DTW (dtw.band=None) through K2's route on the CPU against
+    # the JAX package's discover() with the same config, in this process.
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+    from audio_pattern_discovery_tpu.pipeline import discover as jdiscover
+
+    cfg, jcfg = _golden_config(), _golden_config(JCfg)
+    cfg.dtw.band = jcfg.dtw.band = None
+    got = discover(seed7, cfg, device="cpu")
+    want = jdiscover(seed7, jcfg)
+    np.testing.assert_allclose(got.distance_matrix, want.distance_matrix,
+                               rtol=1e-4, atol=1e-5)
+    assert _partition(got.labels) == _partition(want.labels)
+    assert got.counters.counts["dtw_kernel_launches"] == 0
+    for c_t, c_j in zip(got.clusters, want.clusters):
+        assert c_t.alignments == c_j.alignments
+
+
+def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
+    # Every NotImplementedError of the port names its ROADMAP.md item by a
+    # quoted title, and every quoted title is in ROADMAP.md.
+    import re
+
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    roadmap = (REPO / "ROADMAP.md").read_text().replace("`", "")
+    base = {"dtw.band": 16, "autoencoder.method": "pca"}
+    calls = [
+        lambda o=o: discover(tmp_path, PipelineConfig().override({**base, **o}), device="cpu")
+        for o in (
+            {"autoencoder.method": "ae"}, {"autoencoder.checkpoint": True},
+            {"autoencoder.context_frames": 2}, {"parallel.checkpoint_blocks": True},
+            {"spectrogram.upload_codec": "mulaw8"}, {"dtw.band_mode": "widen"},
+            {"dtw.band": None, "dtw.max_seq_len": 5000},
+        )
+    ]
+    calls += [
+        lambda: discover(seed7, _golden_config(), update_from=tmp_path, device="cpu"),
+        lambda: cli_main(["--serve", "sock"]),
+        lambda: all_pairs_distances(np.zeros((2, 4200, 2), np.float32), [4200, 4100],
+                                    DTWConfig(band=None)),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError) as info:
+            call()
+        titles = re.findall(r'ROADMAP\.md Queue \d: "([^"]+)"', str(info.value))
+        assert titles, str(info.value)
+        for title in titles:
+            assert title in roadmap, title
