@@ -1,16 +1,23 @@
-"""The tile-pair DTW kernels on Hopper: K1 (diag corridor), K2 (square
-tile) and K3 (full-width rows).
+"""The DTW kernels on Hopper: the tile-pair kernels K1 (diag corridor), K2
+(square tile), K3 (full-width rows), K4 (widen stripe, thread per pair) and
+K5 (widen stripe, warp per pair), and the per-pair kernels K6 (full rows)
+and K7 (widen stripe) over gathered pairs.
 
 Port of ``audio_pattern_discovery_tpu/ops/dtw_pallas.py``:
 ``dtw_tile_lane_diag_pairs`` (kernel ``_dtw_lane_diag_kernel``, plus the
 pure-math helpers ``diag_class_bounds`` and ``tile_rep_lengths``),
-``dtw_tile_pairs`` (``_dtw_tile_kernel``) and ``dtw_tile_lane_full_pairs``
-(``_dtw_lane_full_kernel``).  Each wrapper launches its CUDA C++ kernel
-(``csrc/dtw_lane_diag.cu``, ``csrc/dtw_tile.cu``, ``csrc/dtw_lane_full.cu``)
-on CUDA tensors, counts the launch in its ``launches`` attribute, and runs
-its plain PyTorch twin (``*_ref``) on CPU tensors; it never falls back from
-one to the other.  Every kernel returns UNNORMALIZED distances and +inf for
-a pair outside its class contract, never a truncated distance.
+``dtw_tile_pairs`` (``_dtw_tile_kernel``), ``dtw_tile_lane_full_pairs``
+(``_dtw_lane_full_kernel``), ``dtw_tile_lane_pairs`` (``_dtw_lane_kernel``),
+``dtw_tile_stripe_pairs`` (``_dtw_tile_stripe_kernel``), ``dtw_batch_pallas``
+(``_dtw_rowscan_kernel``) and ``_dtw_batch_stripe`` (``_dtw_stripe_kernel``),
+with the host helpers ``stripe_width``, ``scan_len_diff_classes`` and
+``pallas_supported``.  Each wrapper launches its CUDA C++ kernel
+(``csrc/<name>.cu``) on CUDA tensors, counts the launch in its ``launches``
+attribute, and runs its plain PyTorch twin (``*_ref``) on CPU tensors; it
+never falls back from one to the other.  The tile-pair kernels return
+UNNORMALIZED distances; the per-pair wrappers normalize as the reference's
+do.  A pair outside its class contract comes back +inf, never a truncated
+distance.
 
 K1: ``dtw_tile_lane_diag_pairs`` computes, for U tile-pairs
 ``(ti_idx[u], tj_idx[u])`` of a length-sorted, padded corpus, the
@@ -29,11 +36,20 @@ anti-diagonal wavefront vectorized over the gathered pairs) from the same
 squared-difference costs as the kernels, so a twin and its kernel differ
 only by rounding.
 
+K4, K5 and K7 hold each DP row in an unsheared stripe frame (slot s of row
+i is column i + s - (wv+1)) of the exact width 2*wv+2, where the reference
+rounds it up to 8 or 128 slots: a pair whose half-width exceeds the class
+bound wv then comes back +inf, where the reference's rounded frame could
+read a truncated value.  Their twins, and K6's, evaluate the same banded
+recurrence cell by cell.
+
 Not ported (TPU-only levers, measured null on the TPU): ``stack``,
 ``bgroup``, ``hoist_build``, ``dyn_roll=False`` with its ``kmax``, and the
 8-sublane / 128-lane padding; K2's ``su``, ``sv``, ``gram_precision``,
 ``cmat_dtype``, ``build_repeats``, ``dp_repeats`` and ``hoist_masks``; K3's
-``unroll_rows``.
+and K4's ``unroll_rows``; K5's ``su``, ``sv``, ``panel_rows``,
+``build_repeats``, ``dp_repeats`` and ``unroll_rows``; K6's and K7's
+``pair_block``.
 """
 
 from __future__ import annotations
@@ -51,7 +67,7 @@ METRICS = {"euclidean": 0, "sqeuclidean": 1, "cosine": 2}
 _SMEM_BUDGET = 200 * 1024
 _A_CHUNK_BYTES = 16 * 1024
 # The plain twins build [pairs, W, d] costs per DP row (K1) or per
-# anti-diagonal (K2, K3); pairs go in groups that keep that under this many
+# anti-diagonal (K2-K7); pairs go in groups that keep that under this many
 # elements.
 _REF_MAX_ELEMS = 1 << 25
 
@@ -98,9 +114,10 @@ def tile_rep_lengths(lens_sorted: np.ndarray, nT: int, ti: int,
     return rep
 
 
-def lane_diag_frame(band: int, wv_max: int) -> tuple[int, int, int]:
-    """(wv, off, W): the stripe half-width actually used (never below the
-    band), the slot of the frame centre, and the frame width 2*wv+2."""
+def stripe_frame(band: int, wv_max: int) -> tuple[int, int, int]:
+    """(wv, off, W) of the K1, K4, K5 and K7 stripe frames: the half-width
+    actually used (never below the band), the slot of the frame centre, and
+    the frame width 2*wv+2."""
     wv = max(int(band), int(wv_max))
     return wv, wv + 1, 2 * wv + 2
 
@@ -182,7 +199,7 @@ def dtw_tile_lane_diag_pairs(
         raise ValueError(f"unsupported device {feats.device}")
     if not 1 <= ti <= 1024:
         raise ValueError(f"ti={ti} must be in [1, 1024] (one thread per B lane)")
-    wv, _, W = lane_diag_frame(band, wv_max)
+    wv, _, W = stripe_frame(band, wv_max)
     rows = S if rows is None else min(int(rows), S)
     U = ti_idx.shape[0]
     out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
@@ -213,6 +230,8 @@ def _launch(name: str, n_ptrs: int, n_ints: int, *args, stream: int) -> None:
     pointers, n_ints ints, then the stream; raise on a CUDA error."""
     from audio_pattern_discovery_tpu_torch.ops import _build
 
+    if len(args) != n_ptrs + n_ints:
+        raise TypeError(f"apd_{name} takes {n_ptrs} pointers and {n_ints} ints, got {len(args)} arguments")
     fn = getattr(_build.load(name), f"apd_{name}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -246,7 +265,7 @@ def dtw_tile_lane_diag_pairs_ref(
     c and m = min(diag, up).  That reorders float additions relative to the
     kernel's slot-by-slot chain (a few ulps of the row sum)."""
     K, S, d = _check_args(feats, lengths, tile_rep, ti_idx, tj_idx, ti, metric)
-    wv, off, W = lane_diag_frame(band, wv_max)
+    wv, off, W = stripe_frame(band, wv_max)
     rows = S if rows is None else min(int(rows), S)
     x = _unit_frames(feats, metric)
     U = ti_idx.shape[0]
@@ -628,3 +647,468 @@ def _wavefront_block(a_seq, b_seq, la, lb, *, rows, cols, metric, band, auto_wid
         res = torch.where(k_star == k, torch.gather(cur, -1, read)[..., 0], res)
         prev2, prev = prev, cur
     return torch.where(ok, res, INF)
+
+
+# ------------------------------------------------------------------ K4, K5
+
+
+def _check_widen(band, wv_max):
+    if band is None or int(band) < 0:
+        raise ValueError(f"band={band}: the widen stripe kernels require a band >= 0")
+    return stripe_frame(band, wv_max)
+
+
+def dtw_tile_lane_pairs(
+    feats: torch.Tensor,       # [K, S, d] f32 padded corpus
+    lengths: torch.Tensor,     # [K] i32 (pad entries: length 1)
+    ti_idx: torch.Tensor,      # [U] i32 tile-row (A) indices
+    tj_idx: torch.Tensor,      # [U] i32 tile-col (B) indices
+    *,
+    ti: int,
+    band: int,
+    wv_max: int,
+    auto_widen: bool = True,
+    metric: str = "euclidean",
+    rows: int | None = None,
+) -> torch.Tensor:
+    """K4: widen-banded DTW for U tile-pairs -> [U, ti, ti] f32 (unnormalized).
+
+    ``out[u, r, c]`` is the DTW of A sequence ``ti_idx[u]*ti + r`` against B
+    sequence ``tj_idx[u]*ti + c`` over the cells i < la, j < lb,
+    |j - i| <= pw, pw = ``max(band, |la - lb|)`` with ``auto_widen``, else
+    ``band``.  Class contracts: ``rows`` >= every A length and ``wv_max`` >=
+    every real pair's pw; a pair beyond either comes back +inf.
+
+    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    tensors take the plain twin.  Any other device raises."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    wv, _, W = _check_widen(band, wv_max)
+    if feats.device.type == "cpu":
+        return dtw_tile_lane_pairs_ref(
+            feats, lengths, ti_idx, tj_idx, ti=ti, band=band, wv_max=wv_max,
+            auto_widen=auto_widen, metric=metric, rows=rows,
+        )
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    if not 1 <= ti <= 1024:
+        raise ValueError(f"ti={ti} must be in [1, 1024] (one thread per B lane)")
+    rows = S if rows is None else min(int(rows), S)
+    U = ti_idx.shape[0]
+    out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
+    if U == 0:
+        return out
+    lanes, a_chunk = _lanes(ti, W, d)
+    a = _unit_frames(feats, metric).contiguous()
+    b = a.reshape(K // ti, ti, S, d).permute(0, 3, 2, 1).contiguous()   # [nT, d, S, ti]
+    lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
+    _launch(
+        "dtw_lane", 6, 11,
+        a.data_ptr(), b.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
+        tj_idx.data_ptr(), out.data_ptr(),
+        S, d, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric],
+        lanes, a_chunk,
+        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+    )
+    dtw_tile_lane_pairs.launches += 1
+    return out
+
+
+dtw_tile_lane_pairs.launches = 0
+
+
+def dtw_tile_lane_pairs_ref(
+    feats: torch.Tensor,
+    lengths: torch.Tensor,
+    ti_idx: torch.Tensor,
+    tj_idx: torch.Tensor,
+    *,
+    ti: int,
+    band: int,
+    wv_max: int,
+    auto_widen: bool = True,
+    metric: str = "euclidean",
+    rows: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch twin of K4, and of K5 (the same function and
+    contracts): the banded recurrence cell by cell over each tile-pair, then
+    +inf for every pair whose half-width exceeds the class bound."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    wv, _, _ = _check_widen(band, wv_max)
+    rows = S if rows is None else min(int(rows), S)
+    out = _tile_pairs_wavefront(
+        feats, lengths, ti_idx, tj_idx, ti=ti, rows=rows, cols=S, metric=metric,
+        band=int(band), auto_widen=auto_widen,
+    )
+    if auto_widen:
+        lens = lengths.long()
+        lane = torch.arange(ti, device=feats.device)
+        la = lens[ti_idx.long()[:, None] * ti + lane][:, :, None]
+        lb = lens[tj_idx.long()[:, None] * ti + lane][:, None, :]
+        out = torch.where(torch.abs(la - lb) > wv, INF, out)
+    return out
+
+
+def dtw_tile_stripe_pairs(
+    feats: torch.Tensor,       # [K, S, d] f32 padded corpus
+    lengths: torch.Tensor,     # [K] i32 (pad entries: length 1)
+    ti_idx: torch.Tensor,      # [U] i32 tile-row (A) indices
+    tj_idx: torch.Tensor,      # [U] i32 tile-col (B) indices
+    *,
+    ti: int,
+    band: int,
+    wv_max: int,
+    auto_widen: bool = True,
+    metric: str = "euclidean",
+    rows: int | None = None,
+) -> torch.Tensor:
+    """K5: K4's function and contracts with one warp per pair, each pair
+    walking only its own band: faster than K4 for wide class stripes ->
+    [U, ti, ti] f32 (unnormalized).
+
+    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    tensors take the plain twin (K4's).  Any other device raises."""
+    K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
+    wv, _, _ = _check_widen(band, wv_max)
+    if feats.device.type == "cpu":
+        return dtw_tile_lane_pairs_ref(
+            feats, lengths, ti_idx, tj_idx, ti=ti, band=band, wv_max=wv_max,
+            auto_widen=auto_widen, metric=metric, rows=rows,
+        )
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    rows = S if rows is None else min(int(rows), S)
+    U = ti_idx.shape[0]
+    out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
+    if U == 0:
+        return out
+    warps = _full_warps(ti, 2 * wv + 1, d)
+    a = _unit_frames(feats, metric).contiguous()
+    bt = a.permute(0, 2, 1).contiguous()                                # [K, d, S]
+    lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
+    _launch(
+        "dtw_tile_stripe", 6, 10,
+        a.data_ptr(), bt.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
+        tj_idx.data_ptr(), out.data_ptr(),
+        S, d, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric], warps,
+        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+    )
+    dtw_tile_stripe_pairs.launches += 1
+    return out
+
+
+dtw_tile_stripe_pairs.launches = 0
+
+
+# ------------------------------------------------------------------ K6, K7
+
+# The per-pair kernels' ranges (reference: the square kernel's VMEM ceiling
+# and the stripe kernel's ceiling).
+MAX_KERNEL_SEQ_LEN = 1024
+MAX_STRIPE_SEQ_LEN = 4096
+
+
+def stripe_width(seq_len: int, band: int | None, auto_widen: bool,
+                 max_len_diff: int | None) -> int | None:
+    """Stripe width (a multiple of 128) of the per-pair stripe route, or
+    None where it does not apply (exact port of the reference's routing
+    rule): it needs a band with a static widen bound and a stripe at most a
+    quarter of the row (``4*W <= seq_len``).  The port's K7 holds the exact
+    width 2*wv+2 inside it."""
+    if band is None:
+        return None
+    if auto_widen:
+        if max_len_diff is None:
+            return None
+        wv_max = max(int(band), int(max_len_diff))
+    else:
+        wv_max = int(band)
+    w = 128 * (-(-(2 * wv_max + 2) // 128))
+    if 4 * w > seq_len:
+        return None
+    return w
+
+
+def scan_len_diff_classes(seq_len: int, band: int | None, auto_widen: bool) -> list[int]:
+    """Upper-inclusive |len_a - len_b| thresholds that split a bucket's pairs
+    into groups with one per-pair route each (exact port): the class bound
+    is the ``max_len_diff`` the per-pair scheduler passes."""
+    if band is None or not auto_widen:
+        return [seq_len]
+    bounds: list[int] = []
+    prev = stripe_width(seq_len, band, auto_widen, 0)
+    for dd in range(1, seq_len + 1):
+        w = stripe_width(seq_len, band, auto_widen, dd)
+        if w != prev:
+            bounds.append(dd - 1)
+            prev = w
+    bounds.append(seq_len)
+    return bounds
+
+
+def pallas_supported(seq_len: int, band: int | None, auto_widen: bool,
+                     max_len_diff: int | None) -> bool:
+    """Whether ``dtw_batch_pallas`` takes this bucket: K6 up to
+    MAX_KERNEL_SEQ_LEN, K7 where the stripe applies up to MAX_STRIPE_SEQ_LEN."""
+    if seq_len <= MAX_KERNEL_SEQ_LEN:
+        return True
+    w = stripe_width(seq_len, band, auto_widen, max_len_diff)
+    return w is not None and seq_len <= MAX_STRIPE_SEQ_LEN
+
+
+def _check_pairs(a, b, len_a, len_b, metric, normalize) -> tuple[int, int, int, int]:
+    """(B, R, S, d) of a gathered pair batch after checking it."""
+    if a.dim() != 3 or b.dim() != 3 or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"a, b must be [B, R, d] and [B, S, d] float32, got "
+                         f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} {b.dtype}")
+    B, R, d = a.shape
+    if b.shape[0] != B or b.shape[2] != d:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} disagree on B or d")
+    for name, t in (("len_a", len_a), ("len_b", len_b)):
+        if t.shape != (B,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be [{B}] int32, got {tuple(t.shape)} {t.dtype}")
+        if t.device != a.device or b.device != a.device:
+            raise ValueError(f"{name} and b must be on {a.device}")
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if normalize not in ("none", "path_len"):
+        raise ValueError(f"unknown normalize {normalize!r}")
+    return B, R, b.shape[1], d
+
+
+def _normalized(dist, len_a, len_b, normalize):
+    """path_len divides by la + lb (an out-of-frame +inf stays +inf)."""
+    if normalize == "path_len":
+        return dist / (len_a + len_b).to(torch.float32)
+    return dist
+
+
+def dtw_batch_pallas(
+    a: torch.Tensor,           # [B, R, d] f32, the shorter side of each pair
+    b: torch.Tensor,           # [B, S, d] f32, R <= S
+    len_a: torch.Tensor,       # [B] i32 (every len_a <= R)
+    len_b: torch.Tensor,       # [B] i32
+    *,
+    metric: str = "euclidean",
+    band: int | None = None,
+    auto_widen: bool = True,
+    normalize: str = "none",
+    max_len_diff: int | None = None,
+) -> torch.Tensor:
+    """K6: per-pair DTW over gathered pairs -> [B] f32, normalized as
+    ``normalize`` says (the reference's drop-in for ``dtw_batch``).
+
+    Unbanded or widen-banded (pw = ``max(band, |la - lb|)`` with
+    ``auto_widen``).  Where ``stripe_width`` applies and S <= 4096 it routes
+    to K7 (``_dtw_batch_stripe``), as the reference does; otherwise S must be
+    at most 1024.  ``max_len_diff`` is a static bound on |la - lb| over the
+    batch: a pair beyond it comes back +inf on the stripe route.
+
+    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    tensors take the plain twin.  Any other device raises."""
+    B, R, S, d = _check_pairs(a, b, len_a, len_b, metric, normalize)
+    if R > S:
+        raise ValueError("pass the shorter sequence first (R <= S)")
+    if band is not None and int(band) < 0:
+        raise ValueError(f"band={band} must be >= 0 or None")
+    if stripe_width(S, band, auto_widen, max_len_diff) is not None and S <= MAX_STRIPE_SEQ_LEN:
+        return _dtw_batch_stripe(
+            a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen,
+            normalize=normalize, max_len_diff=max_len_diff,
+        )
+    if S > MAX_KERNEL_SEQ_LEN:
+        raise ValueError(
+            f"padded length {S} > {MAX_KERNEL_SEQ_LEN} and the stripe route does not "
+            "apply (it needs a band with a static max_len_diff bound)"
+        )
+    if a.device.type == "cpu":
+        return dtw_batch_pallas_ref(
+            a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen,
+            normalize=normalize,
+        )
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    out = torch.empty((B,), dtype=torch.float32, device=a.device)
+    if B == 0:
+        return out
+    warps = _full_warps(8, S, d)
+    af = _unit_frames(a, metric).contiguous()
+    bt = _unit_frames(b, metric).permute(0, 2, 1).contiguous()          # [B, d, S]
+    len_a, len_b = len_a.contiguous(), len_b.contiguous()
+    _launch(
+        "dtw_rowscan", 5, 8,
+        af.data_ptr(), bt.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
+        B, R, S, d, -1 if band is None else int(band), int(bool(auto_widen)),
+        METRICS[metric], warps,
+        stream=torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    dtw_batch_pallas.launches += 1
+    return _normalized(out, len_a, len_b, normalize)
+
+
+dtw_batch_pallas.launches = 0
+
+
+def dtw_batch_pallas_ref(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    len_a: torch.Tensor,
+    len_b: torch.Tensor,
+    *,
+    metric: str = "euclidean",
+    band: int | None = None,
+    auto_widen: bool = True,
+    normalize: str = "none",
+) -> torch.Tensor:
+    """Plain PyTorch twin of K6 on the device of ``a``: the same contracts
+    (+inf past R rows), cell by cell."""
+    _check_pairs(a, b, len_a, len_b, metric, normalize)
+    dist = _pairs_wavefront(a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen)
+    return _normalized(dist, len_a, len_b, normalize)
+
+
+def _stripe_half_width(band, auto_widen, max_len_diff) -> int:
+    """K7's class half-width wv, with its frame check."""
+    if band is None or int(band) < 0:
+        raise ValueError(f"band={band}: the stripe kernel requires a band >= 0")
+    if auto_widen:
+        if max_len_diff is None:
+            raise ValueError("the stripe kernel with auto_widen needs max_len_diff")
+        return max(int(band), int(max_len_diff))
+    return int(band)
+
+
+def _dtw_batch_stripe(
+    a: torch.Tensor,           # [B, R, d] f32
+    b: torch.Tensor,           # [B, S, d] f32
+    len_a: torch.Tensor,       # [B] i32
+    len_b: torch.Tensor,       # [B] i32
+    *,
+    metric: str = "euclidean",
+    band: int,
+    auto_widen: bool = True,
+    normalize: str = "none",
+    max_len_diff: int | None = None,
+) -> torch.Tensor:
+    """K7: per-pair widen-banded DTW in a stripe frame over gathered pairs
+    -> [B] f32, normalized as ``normalize`` says.
+
+    Only where ``stripe_width`` applies.  The class half-width is
+    wv = ``max(band, max_len_diff)`` with ``auto_widen``, else ``band``; a
+    pair whose own half-width exceeds it comes back +inf.
+
+    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    tensors take the plain twin.  Any other device raises."""
+    B, R, S, d = _check_pairs(a, b, len_a, len_b, metric, normalize)
+    wv = _stripe_half_width(band, auto_widen, max_len_diff)
+    if stripe_width(S, band, auto_widen, max_len_diff) is None:
+        raise ValueError(f"the stripe route does not apply at S={S}, band={band}, "
+                         f"max_len_diff={max_len_diff}")
+    if a.device.type == "cpu":
+        return _dtw_batch_stripe_ref(
+            a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen,
+            normalize=normalize, max_len_diff=max_len_diff,
+        )
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    out = torch.empty((B,), dtype=torch.float32, device=a.device)
+    if B == 0:
+        return out
+    # One warp (one pair per thread) per block; its stripes and A rows take
+    # at most 4 * (1024 + d) * 32 bytes where the stripe route applies.
+    lanes = 32
+    at = _unit_frames(a, metric).permute(2, 1, 0).contiguous()          # [d, R, B]
+    bt = _unit_frames(b, metric).permute(2, 1, 0).contiguous()          # [d, S, B]
+    len_a, len_b = len_a.contiguous(), len_b.contiguous()
+    _launch(
+        "dtw_stripe", 5, 9,
+        at.data_ptr(), bt.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
+        B, R, S, d, int(band), wv, int(bool(auto_widen)), METRICS[metric], lanes,
+        stream=torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _dtw_batch_stripe.launches += 1
+    return _normalized(out, len_a, len_b, normalize)
+
+
+_dtw_batch_stripe.launches = 0
+
+
+def _dtw_batch_stripe_ref(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    len_a: torch.Tensor,
+    len_b: torch.Tensor,
+    *,
+    metric: str = "euclidean",
+    band: int,
+    auto_widen: bool = True,
+    normalize: str = "none",
+    max_len_diff: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch twin of K7 on the device of ``a``: the banded
+    recurrence cell by cell, +inf where a pair's half-width exceeds wv."""
+    _check_pairs(a, b, len_a, len_b, metric, normalize)
+    wv = _stripe_half_width(band, auto_widen, max_len_diff)
+    dist = _pairs_wavefront(a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen)
+    if auto_widen:
+        dist = torch.where(torch.abs(len_a.long() - len_b.long()) > wv, INF, dist)
+    return _normalized(dist, len_a, len_b, normalize)
+
+
+def _pairs_wavefront(a, b, len_a, len_b, *, metric, band, auto_widen):
+    """[B] unnormalized DTW of a[p, :la] against b[p, :lb] over the banded
+    cells (``_wavefront_block``'s recurrence and costs, one pair per row of
+    the wavefront), in groups of pairs that keep the per-diagonal cost build
+    under _REF_MAX_ELEMS elements.  A pair longer than its padded sequence
+    (or empty) is +inf."""
+    a, b = _unit_frames(a, metric), _unit_frames(b, metric)
+    B, N, d = a.shape
+    M = b.shape[1]
+    dev = a.device
+    la_all, lb_all = len_a.long(), len_b.long()
+    out = torch.full((B,), INF, dtype=torch.float32, device=dev)
+    step = max(1, _REF_MAX_ELEMS // (max(N, M) * d))
+    cols = torch.arange(M, device=dev)
+    for p0 in range(0, B, step):
+        la, lb = la_all[p0 : p0 + step], lb_all[p0 : p0 + step]
+        G = la.shape[0]
+        ok = (la >= 1) & (lb >= 1) & (la <= N) & (lb <= M)
+        if not bool(ok.any()):
+            continue
+        k_star = la + lb - 2
+        if band is None:
+            wv = None
+        elif auto_widen:
+            wv = torch.clamp(torch.abs(la - lb), min=int(band))[:, None]
+        else:
+            wv = int(band)
+        read = torch.clamp(lb - 1, 0, M - 1)[:, None]
+        inf_col = torch.full((G, 1), INF, device=dev)
+        prev = torch.full((G, M), INF, device=dev)
+        prev2 = prev
+        res = torch.full((G,), INF, device=dev)
+        a_g, b_g = a[p0 : p0 + step], b[p0 : p0 + step]
+        for k in range(int(k_star[ok].max()) + 1):
+            j_lo, j_hi = max(0, k - N + 1), min(M, k + 1)
+            jj = cols[j_lo:j_hi]
+            ii = k - jj
+            if metric == "cosine":
+                cost = 1.0 - torch.sum(a_g[:, ii] * b_g[:, j_lo:j_hi], dim=-1)
+            else:
+                cost = torch.sum((a_g[:, ii] - b_g[:, j_lo:j_hi]) ** 2, dim=-1)
+                if metric == "euclidean":
+                    cost = torch.sqrt(cost)
+            valid = (ii < la[:, None]) & (jj < lb[:, None])             # [G, m]
+            if wv is not None:
+                valid = valid & (torch.abs(jj - ii) <= wv)
+            c = torch.full((G, M), INF, device=dev)
+            c[:, j_lo:j_hi] = torch.where(valid, cost, INF)
+            diag = torch.cat([inf_col, prev2[:, :-1]], dim=-1)
+            left = torch.cat([inf_col, prev[:, :-1]], dim=-1)
+            pred = torch.minimum(torch.minimum(diag, prev), left)
+            if k == 0:
+                pred[:, 0] = 0.0                                        # D[-1, -1] = 0
+            cur = c + pred
+            res = torch.where(k_star == k, torch.gather(cur, 1, read)[:, 0], res)
+            prev2, prev = prev, cur
+        out[p0 : p0 + step] = torch.where(ok, res, INF)
+    return out

@@ -1,12 +1,17 @@
-"""All-pairs DTW: tiled scheduling over one device.
+"""All-pairs DTW: tiled and per-pair scheduling over one device.
 
-Port of ``audio_pattern_discovery_tpu/parallel/pair_scheduler.py``
-(``all_pairs_distances`` -> ``all_pairs_distances_tiled``) for three
-routes, each a tile-pair kernel of ``ops/dtw_cuda.py`` (the CUDA kernel on a
-CUDA device, its plain twin on the CPU):
+Port of ``audio_pattern_discovery_tpu/parallel/pair_scheduler.py``.
+``all_pairs_distances`` sends a job to the tiled scheduler
+(``all_pairs_distances_tiled``, the default) or, with ``tiled=False``, to the
+per-pair scheduler.  The tiled routes are each a tile-pair kernel of
+``ops/dtw_cuda.py`` (the CUDA kernel on a CUDA device, its plain twin on the
+CPU):
 
 - ``"diag"`` (``band_mode="diag"``): K1 ``dtw_tile_lane_diag_pairs``, classes
   from ``make_tile_lane_diag_class_fn``, long side on DP rows;
+- ``"widen"`` (``band_mode="widen"``): classes from
+  ``make_tile_stripe_class_fn``, each launched on K4 ``dtw_tile_lane_pairs``
+  or K5 ``dtw_tile_stripe_pairs`` by the card's own gate (``widen_kernel``);
 - ``"tile"`` (``band=None``, padded length <= 256): K2 ``dtw_tile_pairs``,
   classes from ``make_tile_pair_class_fn``;
 - ``"full"`` (``band=None``, 256 < padded length <= 4096): K3
@@ -17,12 +22,20 @@ whole tiles and of the time axis to a multiple of 128, the per-tile-pair
 static classes with thin classes merged by ``_merge_thin_classes``,
 power-of-two chunking of each class, and the fused native scatter with
 ``path_len`` normalization on a worker thread.  The TPU's VMEM/SMEM gates
-of the routes are not ported: the port's kernels take any feature width.
+of the routes are not ported; the widen route's K4/K5 gate is the card's
+own, per class.
 
-Not ported yet: ``band_mode="widen"`` (K4-K7) and unbanded jobs past 4096
-frames (``ops/dtw_long.py``) raise ``NotImplementedError`` naming their
-ROADMAP.md item; block persistence, retries and incremental ``known=``
-reuse are left out (ROADMAP.md Queue 1).
+The per-pair scheduler is the reference's legacy loop: pairs bucketed by
+length (``enumerate_pair_blocks``), gathered per block, K6
+(``dtw_batch_pallas``) or K7 (``_dtw_batch_stripe``) for widen and unbanded
+blocks, the plain ``ops/dtw.dtw_batch`` for diag blocks (the reference has
+no kernel there), blocks padded to a power of two, a window of blocks in
+flight, and ``D += D.T``.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
+item: unbanded jobs past 4096 frames and per-pair buckets past the kernels'
+ranges (``ops/dtw_long.py``); block persistence, retries and incremental
+``known=`` reuse.
 """
 
 from __future__ import annotations
@@ -38,11 +51,18 @@ import torch
 
 from audio_pattern_discovery_tpu_torch import native
 from audio_pattern_discovery_tpu_torch.config import DTWConfig
+from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+    MAX_KERNEL_SEQ_LEN,
     diag_class_bounds,
+    dtw_batch_pallas,
     dtw_tile_lane_diag_pairs,
     dtw_tile_lane_full_pairs,
+    dtw_tile_lane_pairs,
     dtw_tile_pairs,
+    dtw_tile_stripe_pairs,
+    pallas_supported,
+    scan_len_diff_classes,
     tile_rep_lengths,
 )
 
@@ -68,30 +88,60 @@ def padded_len(L: int) -> int:
     return 128 * -(-int(L) // 128)
 
 
-def route_for(L: int, cfg: DTWConfig) -> str:
-    """The tile-pair route of a job with sequences padded to L frames:
-    "diag" (K1), "tile" (K2) or "full" (K3); NotImplementedError for the
-    routes not ported yet."""
+_LONG_ITEM = 'ROADMAP.md Queue 1: "ops/dtw_long.py"'
+_UPDATE_ITEM = 'ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"'
+
+
+def _check_dtype(cfg: DTWConfig) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError(
-            f"dtw.dtype={cfg.dtype!r}: the port's DTW runs in float32 only"
+            f"dtw.dtype={cfg.dtype!r}: the port's DTW runs in float32 only "
+            '(ROADMAP.md Queue 1: "dtw.dtype=bfloat16")'
         )
-    if cfg.band is not None:
-        if cfg.band_mode != "diag":
-            raise NotImplementedError(
-                "dtw.band_mode='widen' needs kernels K4-K7, not ported yet (ROADMAP.md "
-                'Queue 2: "K4 — dtw_tile_lane_pairs"); use dtw.band_mode=diag'
-            )
+
+
+def route_for(L: int, cfg: DTWConfig) -> str:
+    """The tile-pair route of a job with sequences padded to L frames:
+    "diag" (K1), "widen" (K4 and K5), "tile" (K2) or "full" (K3);
+    NotImplementedError for the routes not ported yet."""
+    _check_dtype(cfg)
+    if cfg.band is not None and cfg.band_mode == "diag":
         return "diag"
     Lp = padded_len(L)
-    if Lp <= TILE_MAX_LEN:
-        return "tile"
-    if Lp <= FULL_MAX_LEN:
-        return "full"
-    raise NotImplementedError(
-        f"unbanded DTW of {L} frames (past {FULL_MAX_LEN}) needs the blocked wavefront "
-        '(ROADMAP.md Queue 1: "ops/dtw_long.py"), not ported yet'
-    )
+    if Lp > FULL_MAX_LEN:
+        kind = "unbanded" if cfg.band is None else "widen-banded"
+        raise NotImplementedError(
+            f"{kind} DTW of {L} frames (past {FULL_MAX_LEN}) needs the blocked wavefront "
+            f"({_LONG_ITEM}), not ported yet"
+        )
+    if cfg.band is not None:
+        return "widen"
+    return "tile" if Lp <= TILE_MAX_LEN else "full"
+
+
+# The widest class stripe (2*wv+2 slots) that K4 takes; wider classes go to
+# K5.  Measured on the H100 (PERF.md section 6), 10 tile-pairs at S=128: K4 is
+# 1.6x faster at 34 slots, the two tie at 58-66, K5 is 1.6x faster at 98
+# and 2.2x at 130.  K4 walks the class's whole stripe per thread, K5 only
+# each pair's own band, one warp per pair.
+LANE_MAX_W = 64
+
+
+def widen_kernel(wv_cls: int) -> Callable:
+    """The card's own K4/K5 gate for one widen class of half-width
+    ``wv_cls`` (the reference gates whole jobs on TPU VMEM/SMEM instead)."""
+    return dtw_tile_lane_pairs if 2 * int(wv_cls) + 2 <= LANE_MAX_W else dtw_tile_stripe_pairs
+
+
+def _ws_width(wv: int) -> int:
+    """K4 class stripe width (16-multiple) covering half-widths <= wv."""
+    return 16 * -(-(2 * int(wv) + 2) // 16)
+
+
+def _ws_level(wv_req: int) -> int:
+    """Quantize a required half-width UP to its K4 class level (7, 15, 23,
+    ...)."""
+    return (_ws_width(wv_req) - 2) // 2
 
 
 def _ws_level_diag(wv_req: int) -> int:
@@ -133,6 +183,45 @@ def make_tile_lane_diag_class_fn(
             band, int(tmin[i]), int(tmax[i]), int(tmin[j]), int(tmax[j])
         )
         return rows_cls, _ws_level_diag(min(wv_req, Lp))
+
+    return pair_class
+
+
+def make_tile_stripe_class_fn(
+    lens_sorted: np.ndarray,   # [nT*ti] lengths in tile order (pad: 1)
+    nT: int,
+    ti: int,
+    Lp: int,
+    band: int,
+    auto_widen: bool,
+    n_real: int,
+) -> Callable[[int, int], tuple[int, int]]:
+    """(I, J) tile-pair -> (rows_cls, wv_cls) for K4 and K5: the reference's
+    function with its K4 ladder (``_ws_level``); the reference's 128-slot
+    K5 ladder is a TPU lane width, and the port's K5 sizes its shared memory
+    by the class, so both kernels share the 16-slot ladder.
+
+    rows covers the A tile's max REAL length on a Lp//8 ladder; wv is the
+    widened half-width bound over both orientations, quantized UP.  Tile
+    ranges exclude pad entries (``n_real``): pads (length 1) would widen the
+    last tile's classes to ~Lp, and pad pairs' +inf outputs are never
+    scattered.  Both components are >=-monotone contracts, so
+    _merge_thin_classes stays correct."""
+    tmin = np.empty(nT, np.int64)
+    tmax = np.empty(nT, np.int64)
+    for t in range(nT):
+        real = lens_sorted[t * ti : min((t + 1) * ti, n_real)]
+        if len(real) == 0:
+            real = lens_sorted[t * ti : (t + 1) * ti]
+        tmin[t], tmax[t] = real.min(), real.max()
+    rq = max(16, Lp // 8)
+
+    def pair_class(i: int, j: int) -> tuple[int, int]:
+        rows_cls = min(Lp, rq * -(-int(tmax[i]) // rq))
+        wv_req = int(band)
+        if auto_widen:
+            wv_req = max(wv_req, int(tmax[j]) - int(tmin[i]), int(tmax[i]) - int(tmin[j]))
+        return rows_cls, _ws_level(min(wv_req, Lp))
 
     return pair_class
 
@@ -253,9 +342,13 @@ def all_pairs_distances_tiled(
     ti: int | None = None,
     chunk_programs: int = 64,
     stats: dict | None = None,
+    lane: bool | None = None,
+    stripe: bool | None = None,
 ) -> np.ndarray:
-    """Symmetric [K, K] DTW matrix through the tile-pair kernel of the job's
-    route (``route_for``).
+    """Symmetric [K, K] DTW matrix through the tile-pair kernels of the
+    job's route (``route_for``).  On the widen route ``widen_kernel`` picks
+    K4 or K5 per class; ``lane=True`` or ``stripe=True`` forces K4 or K5 for
+    every class, as the reference's overrides force its kernels.
 
     Sequences are length-sorted and padded to whole tiles, uploaded once,
     and every upper-triangle tile-pair runs as one kernel tile-pair (ti*ti
@@ -271,6 +364,15 @@ def all_pairs_distances_tiled(
     K, L, d = features.shape
     route = route_for(L, cfg)
     lengths = np.asarray(lengths, dtype=np.int32)
+    forced = None
+    if lane is not None or stripe is not None:
+        use_lane = bool(lane) if lane is not None else not stripe
+        if route != "widen" or (stripe is not None and bool(stripe) == use_lane):
+            raise ValueError(
+                f"lane={lane}, stripe={stripe}: these pick one widen kernel, K4 or K5 "
+                f"(this job's route is {route!r})"
+            )
+        forced = dtw_tile_lane_pairs if use_lane else dtw_tile_stripe_pairs
     if K < 2:
         return np.zeros((K, K), dtype=np.float32)
     ti = int(ti or DEFAULT_TI[device.type])
@@ -309,9 +411,13 @@ def all_pairs_distances_tiled(
         # longer tile): the corridor's per-row half-width is then exactly
         # `band`, and the class stripes stay narrow.  The scatter writes
         # both triangles of every block, so (J, I) blocks land like (I, J)
-        # ones.  K2 and K3 keep the shorter A tile on rows: their rows and
-        # width class keys assume it.
+        # ones.  K2-K5 keep the shorter A tile on rows: their rows class key
+        # assumes it.
         pairs_list = [(j, i) for i, j in pairs_list]
+    elif route == "widen":
+        pair_class = make_tile_stripe_class_fn(
+            lens_p, nT, ti, Lp, int(cfg.band), cfg.auto_widen_band, K,
+        )
     elif route == "tile":
         pair_class = make_tile_pair_class_fn(lens_p, nT, ti, Lp, cfg.band, cfg.auto_widen_band)
     else:
@@ -322,6 +428,12 @@ def all_pairs_distances_tiled(
             return dtw_tile_lane_diag_pairs(
                 feats_p, lens_dev, rep_dev, ii, jj, ti=ti, band=int(cfg.band),
                 wv_max=cls[1], metric=cfg.metric, rows=cls[0],
+            )
+        if route == "widen":
+            kernel = forced or widen_kernel(cls[1])
+            return kernel(
+                feats_p, lens_dev, ii, jj, ti=ti, band=int(cfg.band), wv_max=cls[1],
+                auto_widen=cfg.auto_widen_band, metric=cfg.metric, rows=cls[0],
             )
         if route == "tile":
             return dtw_tile_pairs(
@@ -497,10 +609,197 @@ def all_pairs_distances(
     *,
     device: torch.device | str = "cpu",
     stats: dict | None = None,
+    tiled: bool | None = None,
+    bucket_step: int = 32,
+    block_dir=None,
+    known=None,
+    max_retries: int = 0,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW distance matrix over all segment pairs.
 
-    Every supported job goes to the tiled scheduler (``route_for`` picks the
-    kernel); the routes not ported yet raise ``NotImplementedError`` instead
-    of running the DTW in plain torch."""
+    ``tiled`` None or True: the tiled scheduler (``route_for`` picks the
+    kernel).  ``tiled=False``: the per-pair scheduler
+    (``all_pairs_distances_per_pair``), the reference's legacy path.  Block
+    persistence (``block_dir``), incremental reuse (``known``) and retries
+    (``max_retries``) are not ported and raise ``NotImplementedError``."""
+    if block_dir is not None or known is not None or max_retries:
+        raise NotImplementedError(
+            "block persistence (block_dir), incremental reuse (known=) and block "
+            f"retries (max_retries) are not ported yet ({_UPDATE_ITEM})"
+        )
+    if tiled is False:
+        return all_pairs_distances_per_pair(
+            features, lengths, cfg, device=device, bucket_step=bucket_step, stats=stats,
+        )
     return all_pairs_distances_tiled(features, lengths, cfg, device=device, stats=stats)
+
+
+def bucket_lengths(lengths: np.ndarray, step: int, max_len: int) -> np.ndarray:
+    """Smallest multiple of ``step`` >= each length (capped at max_len)."""
+    b = np.minimum(-(-lengths // step) * step, max_len)
+    return np.maximum(b, step)
+
+
+def enumerate_pair_blocks(
+    lengths: np.ndarray,
+    pair_batch: int,
+    bucket_step: int,
+    max_len: int,
+    band: int | None = None,
+    auto_widen: bool = True,
+):
+    """Yield (row_cap, bucket_len, max_len_diff, ii, jj) blocks covering the
+    upper triangle (exact port of the reference, without its incremental
+    ``new_from`` filter).
+
+    Every pair is oriented shorter-first (ii the shorter sequence).  Pairs
+    are bucketed by the longer side's padded length and sub-bucketed by the
+    shorter side's (at most two row capacities per column bucket), then
+    grouped by their |len_i - len_j| routing class
+    (``scan_len_diff_classes``), whose bound is the emitted
+    ``max_len_diff``.  Order: column bucket, row bucket, class ascending;
+    pairs in the row-major order of each length-sorted group pair."""
+    lengths = np.asarray(lengths)
+    buckets = bucket_lengths(lengths, bucket_step, max_len)
+    order = np.argsort(lengths, kind="stable").astype(np.int32)
+    b_sorted = buckets[order]
+    uniq = [int(b) for b in np.unique(buckets)]
+    groups = {b: order[b_sorted == b] for b in uniq}
+
+    for bb in uniq:
+        gb = groups[bb]
+        half = min(bb, max(bucket_step, -(-(bb // 2) // bucket_step) * bucket_step))
+        classes = scan_len_diff_classes(bb, band, auto_widen)
+        for ba in uniq:
+            if ba > bb:
+                break
+            ga = groups[ba]
+            rb = half if (ba <= half < bb) else bb
+            if ba == bb:
+                n = len(gb)
+                if n < 2:
+                    continue
+                counts = np.arange(n - 1, 0, -1)
+                iu = np.repeat(np.arange(n - 1, dtype=np.int32), counts)
+                ju = np.concatenate([np.arange(i + 1, n, dtype=np.int32) for i in range(n - 1)])
+                ii, jj = gb[iu], gb[ju]
+            else:
+                if not (len(ga) and len(gb)):
+                    continue
+                ii = np.repeat(ga, len(gb))
+                jj = np.tile(gb, len(ga))
+            if len(classes) == 1:
+                splits = [(int(classes[0]), ii, jj)]
+            else:
+                dd = lengths[jj] - lengths[ii]                 # >= 0
+                cls = np.searchsorted(np.asarray(classes), dd)
+                splits = []
+                for c, bound in enumerate(classes):
+                    m = cls == c
+                    if m.any():
+                        splits.append((int(bound), ii[m], jj[m]))
+            for bound, ic, jc in splits:
+                for s in range(0, len(ic), pair_batch):
+                    yield rb, bb, bound, ic[s : s + pair_batch], jc[s : s + pair_batch]
+
+
+def all_pairs_distances_per_pair(
+    features: np.ndarray | torch.Tensor,   # [K, L, d] padded segment features
+    lengths: np.ndarray,                   # [K] true frame counts
+    cfg: DTWConfig,
+    *,
+    device: torch.device | str = "cpu",
+    bucket_step: int = 32,
+    stats: dict | None = None,
+) -> np.ndarray:
+    """Symmetric [K, K] DTW matrix through the per-pair scheduler (port of
+    the reference's legacy loop in ``all_pairs_distances``).
+
+    Blocks from ``enumerate_pair_blocks`` gather their pairs on the device
+    and run ``_dtw_block``'s routing: widen and unbanded blocks go to
+    ``dtw_batch_pallas`` (K6, or K7 where the stripe applies; their twins on
+    the CPU), diag blocks to the plain ``ops/dtw.dtw_batch``; a bucket past
+    the kernels' ranges raises.  Each block is padded to a power of two with
+    self-pairs of sequence 0 (discarded), up to ten blocks are in flight,
+    each pair lands in one triangle, and ``D += D.T`` closes the matrix.
+    The kernels normalize inside, so the scatter does not."""
+    _check_dtype(cfg)
+    device = torch.device(device)
+    K, L, d = features.shape
+    lengths = np.asarray(lengths, dtype=np.int32)
+    D = np.zeros((K, K), dtype=np.float32)
+    if K < 2:
+        return D
+    diag = cfg.band is not None and cfg.band_mode == "diag"
+    step = min(bucket_step, L) if cfg.length_bucketing else L
+    if isinstance(features, torch.Tensor):
+        feats_dev = features.to(device=device, dtype=torch.float32)
+    else:
+        feats_dev = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(device)
+    lens_dev = torch.from_numpy(lengths).to(device)
+    # The corpus's own pair count rounded to 8, at most pair_batch; the
+    # plain twins on the CPU build per-diagonal costs, so blocks stay small.
+    n_all_pairs = K * (K - 1) // 2
+    B = int(min(cfg.pair_batch, max(8, -(-n_all_pairs // 8) * 8)))
+    if device.type == "cpu":
+        B = min(B, 1024)
+    # Per-block gather budget: [B, bucket, d] operands on each side.
+    gather_budget = 2 << 30
+    if stats is None:
+        stats = {}
+    stats.update(
+        route="per_pair", dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, enumerate_s=0.0,
+        blocks=0, pad_pairs=0, pairs=n_all_pairs, tiled=False,
+    )
+
+    def run_block(row_cap, bucket, mld, ii, jj):
+        a, b = feats_dev[ii, :row_cap], feats_dev[jj, :bucket]
+        la, lb = lens_dev[ii], lens_dev[jj]
+        kw = dict(metric=cfg.metric, band=cfg.band, auto_widen=cfg.auto_widen_band,
+                  normalize=cfg.normalize)
+        if not diag and pallas_supported(bucket, cfg.band, cfg.auto_widen_band, mld):
+            return dtw_batch_pallas(a, b, la, lb, max_len_diff=mld, **kw)
+        if bucket > MAX_KERNEL_SEQ_LEN:
+            raise NotImplementedError(
+                f"a per-pair bucket of {bucket} frames outside the kernels' ranges needs the "
+                f"blocked wavefront ({_LONG_ITEM}), not ported yet"
+            )
+        return dtw_batch(a, b, la, lb, band_mode=cfg.band_mode, **kw)
+
+    pending: list[tuple[np.ndarray, np.ndarray, torch.Tensor]] = []
+
+    def collect_one():
+        ii, jj, vals = pending.pop(0)
+        t0 = time.perf_counter()
+        host = vals.cpu().numpy()[: len(ii)]
+        stats["collect_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        D[ii, jj] = host
+        stats["scatter_s"] += time.perf_counter() - t0
+
+    t_enum = time.perf_counter()
+    for row_cap, bucket, mld, ii_all, jj_all in enumerate_pair_blocks(
+        lengths, B, step, L, band=cfg.band, auto_widen=cfg.auto_widen_band,
+    ):
+        cap = max(512, gather_budget // (bucket * d * 8))
+        for s in range(0, len(ii_all), cap):
+            ii, jj = ii_all[s : s + cap], jj_all[s : s + cap]
+            stats["enumerate_s"] += time.perf_counter() - t_enum
+            stats["blocks"] += 1
+            B_blk = min(B, max(8, 1 << (len(ii) - 1).bit_length()))
+            ii_pad = np.zeros(B_blk, dtype=np.int64)
+            jj_pad = np.zeros(B_blk, dtype=np.int64)
+            ii_pad[: len(ii)], jj_pad[: len(jj)] = ii, jj
+            stats["pad_pairs"] += B_blk - len(ii)
+            t0 = time.perf_counter()
+            vals = run_block(row_cap, bucket, mld, torch.from_numpy(ii_pad).to(device),
+                             torch.from_numpy(jj_pad).to(device))
+            stats["dispatch_s"] += time.perf_counter() - t0
+            pending.append((ii, jj, vals))
+            if len(pending) >= 10:
+                collect_one()
+            t_enum = time.perf_counter()
+    while pending:
+        collect_one()
+    D += D.T
+    return D

@@ -1,7 +1,7 @@
 """End-to-end discovery pipeline: the public entry point of the port.
 
 Port of ``audio_pattern_discovery_tpu/pipeline.py`` for the PCA embedder
-with diag-banded or unbanded DTW.  A directory of WAV files in, pattern
+with diag-banded, widen-banded or unbanded DTW.  A directory of WAV files in, pattern
 clusters + DTW alignments out, on one explicit torch ``device`` (default:
 the first CUDA device when there is one, else the CPU):
 
@@ -10,7 +10,8 @@ the first CUDA device when there is one, else the CPU):
 3. PCA embedding: covariance and projection on the device, eigensolve on
    the host;
 4. all-pairs DTW through the tiled scheduler and its kernel: K1 for a diag
-   band, K2 (segments up to 256 frames) or K3 (up to 4096) unbanded;
+   band, K4 or K5 for a widen band, K2 (segments up to 256 frames) or K3 (up
+   to 4096) unbanded;
 5. clustering (host C++ NN-chain);
 6. medoids and exemplar<->member alignments (plain-torch DTW with
    directions on the device, checkpointed for segments of 512 frames or
@@ -41,9 +42,13 @@ from audio_pattern_discovery_tpu_torch.ops.backtrace import paths_from_dirs
 from audio_pattern_discovery_tpu_torch.ops.backtrace_ckpt import dtw_paths_checkpointed
 from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch_with_dirs
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+    _dtw_batch_stripe,
+    dtw_batch_pallas,
     dtw_tile_lane_diag_pairs,
     dtw_tile_lane_full_pairs,
+    dtw_tile_lane_pairs,
     dtw_tile_pairs,
+    dtw_tile_stripe_pairs,
 )
 from audio_pattern_discovery_tpu_torch.ops.segmentation import Segment, segment_corpus
 from audio_pattern_discovery_tpu_torch.ops.spectrogram import num_frames, spectrogram_corpus
@@ -53,8 +58,11 @@ from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
 )
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
 
-# The all-pairs DTW kernels whose launches discover() counts.
-DTW_KERNELS = (dtw_tile_lane_diag_pairs, dtw_tile_pairs, dtw_tile_lane_full_pairs)
+# The all-pairs DTW kernels whose launches discover() counts (K1-K7).
+DTW_KERNELS = (
+    dtw_tile_lane_diag_pairs, dtw_tile_pairs, dtw_tile_lane_full_pairs, dtw_tile_lane_pairs,
+    dtw_tile_stripe_pairs, dtw_batch_pallas, _dtw_batch_stripe,
+)
 
 
 def default_device() -> torch.device:

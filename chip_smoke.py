@@ -1,15 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1,12,13]
 
 Phases (each one passes or the script exits non-zero, and prints its
-seconds):
+seconds; ``--phases`` runs a subset, phase 1 always):
 
 1. device: a CUDA card is required; prints its name and power limit and
-   builds the kernels K1, K2 and K3 from
-   ``audio_pattern_discovery_tpu_torch/csrc`` (one nvcc each, started
-   together);
+   builds the kernels K1-K7 from ``audio_pattern_discovery_tpu_torch/csrc``
+   (one nvcc each, started together);
 2. K1 against its plain PyTorch twin on the card at the config-4 tile shape
    (d=16, S=128, band=16, lengths 64-128; euclidean on 10 tile-pairs,
    sqeuclidean and cosine on 2), plus an out-of-frame call that must come
@@ -39,7 +38,25 @@ seconds):
 11. config 4 unbanded through the scheduler (K2); prints pairs/s, the
    kernel's device time and the scatter's seconds, checks 64 pairs against
    the plain torch DTW and 8 against the oracle; the native scatter must
-   have run.
+   have run;
+12. K4 against its twin at the config-4 widen shape (S=128, d=16, band 16,
+   lengths 64-128, ti=128, 10 tile-pairs; sqeuclidean, cosine and a hard
+   band on 2), plus a ``rows`` and a ``wv_max`` shortfall that must be +inf
+   on exactly the cut pairs;
+13. K5 against its twin at S=1024 (d=16, lengths 257-1024, 3 tile-pairs),
+   plus both shortfalls on one tile-pair;
+14. config 4 widen (band 16) through the scheduler: narrow classes on K4,
+   wide ones on K5, both must launch; 64 pairs against the plain torch DTW
+   and 8 against the oracle; the native scatter must have run;
+15. long units widen (band 16, phase 10's corpus, alignments off) through
+   ``discover()``: the job must take K5; 8 distances against the oracle;
+16. K6 and K7 against their twins on gathered pairs (S=128 and S=1024), then
+   the per-pair route ``all_pairs_distances(tiled=False)`` on a K=2,048
+   slice of the config-4 corpus and on a job of lengths 900-1024: K6 and K7
+   must both launch, and D must equal the tiled widen D;
+17. the CLI on the length-varied corpus with a widen band (one wide class:
+   K5), on the card and with the card hidden (CPU): D at rtol 1e-4 / atol
+   1e-5, partition exact.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Everything else goes to
@@ -48,8 +65,10 @@ earlier lines.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import tempfile
@@ -69,6 +88,10 @@ KERNELS = {   # source name -> (entry function, kernel body it replaces)
     "dtw_lane_diag": ("dtw_tile_lane_diag_pairs", f"{PALLAS}:1747"),
     "dtw_tile": ("dtw_tile_pairs", f"{PALLAS}:570"),
     "dtw_lane_full": ("dtw_tile_lane_full_pairs", f"{PALLAS}:2307"),
+    "dtw_lane": ("dtw_tile_lane_pairs", f"{PALLAS}:1497"),
+    "dtw_tile_stripe": ("dtw_tile_stripe_pairs", f"{PALLAS}:1060"),
+    "dtw_rowscan": ("dtw_batch_pallas", f"{PALLAS}:148"),
+    "dtw_stripe": ("_dtw_batch_stripe", f"{PALLAS}:261"),
 }
 # Kernel vs plain twin: both compute each pair in fp32 from the same
 # squared-difference costs; the twin evaluates each DP row's left-to-right
@@ -86,6 +109,13 @@ K2_RTOL, K2_ATOL = 4e-5, 1e-4
 # cell by cell), so each side is within n * 2^-24 of the exact sum and the
 # two within 2 (la+lb) * 2^-24 + d * 2^-24 relative: 2.5e-4 at S=1024.
 K3_RTOL, K3_ATOL = 2.5e-4, 1e-3
+# K4 and K7 walk each row cell by cell like K2 (the same bound: (d + n)
+# 2^-24 relative for a path of n <= la+lb terms; 1.3e-4 at S=1024 for K7);
+# K5 and K6 reassociate along each row with K3's warp scan (K3's bound).
+K4_RTOL, K4_ATOL = 4e-5, 1e-4
+K7_RTOL, K7_ATOL = 1.5e-4, 1e-3
+K5_RTOL, K5_ATOL = K3_RTOL, K3_ATOL
+K6_RTOL, K6_ATOL = K3_RTOL, K3_ATOL
 
 
 def fail(msg: str) -> None:
@@ -132,7 +162,7 @@ def phase1(dev) -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load_all(list(KERNELS))
-    log(f"phase 1: K1, K2, K3 loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1: K1-K7 loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         secs, ptxas = _build.build_info.get(name, (0.0, "(already built)"))
         log(f"  {name}.cu built in {secs:.2f} s")
@@ -291,49 +321,10 @@ def phase4(tmp: Path) -> dict:
 
 def phase5(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
-    from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
-    from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
-    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 
-    K, S, d, band = 10_240, 128, 16, 16
-    feats, lens = config4_corpus(K, S, d, seed=4, dev=dev)
-    lens_np = lens.cpu().numpy()
-    cfg = DTWConfig(band=band, band_mode="diag", normalize="path_len")
-    stats: dict = {}
-    dtw_tile_lane_diag_pairs.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    D = all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats)
-    wall = time.perf_counter() - t0
-    launches = dtw_tile_lane_diag_pairs.launches
-    n_pairs = K * (K - 1) // 2
-    if not np.isfinite(D).all():
-        fail("phase 5: non-finite distances in D")
-    rng = np.random.default_rng(5)
-    ia = rng.integers(0, K, 64)
-    ib = (ia + rng.integers(1, K, 64)) % K
-    sel_a = torch.from_numpy(ia).to(dev)
-    sel_b = torch.from_numpy(ib).to(dev)
-    want = dtw_batch(feats[sel_a], feats[sel_b], lens[sel_a], lens[sel_b], band=band,
-                     band_mode="diag", normalize="path_len").cpu().numpy()
-    got = D[ia, ib]
-    if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
-        fail(f"phase 5: D disagrees with plain dtw_batch (max abs {np.abs(got - want).max()})")
-    f_np = feats.cpu().numpy()
-    for a, b in zip(ia[:8], ib[:8]):
-        ref = dtw_oracle(f_np[a, :lens_np[a]], f_np[b, :lens_np[b]], band=band,
-                         band_mode="diag", normalize="path_len")
-        if not np.isclose(D[a, b], ref, rtol=1e-4, atol=1e-5):
-            fail(f"phase 5: D[{a},{b}]={D[a, b]} vs oracle {ref}")
-    if not stats["native_scatter"]:
-        fail("phase 5: the scheduler scattered with NumPy: the native library did not load")
-    s = {k: round(v, 3) if isinstance(v, float) else v for k, v in stats.items()}
-    log(f"phase 5: config 4 all-pairs K={K}: {n_pairs} pairs in {wall:.2f} s = "
-        f"{n_pairs / wall:.0f} pairs/s; K1 device time {stats['kernel_s']:.3f} s "
-        f"({stats['kernel_s'] / wall:.1%} of wall), launches {launches}; 64 pairs match plain "
-        f"dtw_batch, 8 match the oracle; stats {s}")
-    return {}
+    cfg = DTWConfig(band=16, band_mode="diag", normalize="path_len")
+    config4_all_pairs("phase 5", dev, cfg, (dtw_tile_lane_diag_pairs,), "diag", seed=5)
 
 
 def sorted_corpus(K: int, S: int, d: int, lo: int, hi: int, seed: int, dev):
@@ -506,16 +497,35 @@ def phase9(dev, tmp: Path) -> dict:
     return {}
 
 
-def phase10(dev, tmp: Path) -> dict:
-    from audio_pattern_discovery_tpu_torch.config import PipelineConfig
-    from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_full_pairs
-    from audio_pattern_discovery_tpu_torch.pipeline import discover
+def long_units_corpus(tmp: Path) -> Path:
+    """24 clips of 20 s at 44.1 kHz with 3 motifs of 3-5 s (made once)."""
     from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
 
     corpus = tmp / "long_units"
-    make_corpus(corpus, n_clips=24, n_motifs=3, occurrences_per_clip=2, clip_seconds=20.0,
-                motif_seconds=(3.0, 5.0), sample_rate=44_100, seed=10)
+    if not corpus.exists():
+        make_corpus(corpus, n_clips=24, n_motifs=3, occurrences_per_clip=2, clip_seconds=20.0,
+                    motif_seconds=(3.0, 5.0), sample_rate=44_100, seed=10)
+    return corpus
+
+
+def oracle_pairs(f, n, ia, ib, **kw) -> list[float]:
+    """The NumPy oracle on pairs (ia[k], ib[k]) of padded features f with
+    lengths n, path_len-normalized: it walks its float64 DP cell by cell in
+    Python (~3 s for a pair of 700-frame segments), so 8 worker processes
+    share the pairs."""
+    from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
+
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(partial(dtw_oracle, normalize="path_len", **kw),
+                             [f[a, :n[a]] for a in ia], [f[b, :n[b]] for b in ib]))
+
+
+def phase10(dev, tmp: Path) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_full_pairs
+    from audio_pattern_discovery_tpu_torch.pipeline import discover
+
+    corpus = long_units_corpus(tmp)
     cfg = PipelineConfig().override({
         "segmentation.max_len_frames": 1024, "dtw.max_seq_len": 1024,
         "autoencoder.method": "pca", "output.write_images": False,
@@ -536,12 +546,7 @@ def phase10(dev, tmp: Path) -> dict:
     rng = np.random.default_rng(10)
     ia = rng.integers(0, len(n), 16)
     ib = (ia + rng.integers(1, len(n), 16)) % len(n)
-    # The oracle walks its float64 DP cell by cell in Python (~3 s for a
-    # pair of 700-frame segments): 8 worker processes share the pairs.
-    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as pool:
-        wants = list(pool.map(partial(dtw_oracle, normalize="path_len"),
-                              [f[a, :n[a]] for a in ia], [f[b, :n[b]] for b in ib]))
-    for a, b, want in zip(ia, ib, wants):
+    for a, b, want in zip(ia, ib, oracle_pairs(f, n, ia, ib)):
         if not np.isclose(D[a, b], want, rtol=K3_RTOL, atol=1e-5):
             fail(f"phase 10: D[{a},{b}]={D[a, b]} vs oracle {want}")
     t = {k: round(v, 3) for k, v in res.counters.timings_s.items()}
@@ -552,53 +557,329 @@ def phase10(dev, tmp: Path) -> dict:
     return {"launches": launches}
 
 
-def phase11(dev) -> dict:
-    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int) -> list[int]:
+    """All pairs of the config-4 corpus (K=10,240, S=128, d=16, lengths
+    64-128) through the scheduler: the route, each kernel's launches (all
+    must run), 64 pairs against the plain torch DTW and 8 against the
+    oracle, native scatter.  Returns the launches."""
     from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
     from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_pairs
     from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 
     K, S, d = 10_240, 128, 16
     feats, lens = config4_corpus(K, S, d, seed=4, dev=dev)
     lens_np = lens.cpu().numpy()
-    cfg = DTWConfig(band=None, normalize="path_len")
     stats: dict = {}
-    dtw_tile_pairs.launches = 0
+    for k in kernels:
+        k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     D = all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats)
     wall = time.perf_counter() - t0
-    launches = dtw_tile_pairs.launches
+    launches = [k.launches for k in kernels]
+    names = ", ".join(f"{k.__name__} {n}" for k, n in zip(kernels, launches))
     n_pairs = K * (K - 1) // 2
-    if launches < 1 or stats["route"] != "tile":
-        fail(f"phase 11: the job took route {stats['route']} with {launches} K2 launches")
+    if min(launches) < 1 or stats["route"] != route:
+        fail(f"{tag}: the job took route {stats['route']} with launches {names}")
     if not stats["native_scatter"]:
-        fail("phase 11: the scheduler scattered with NumPy: the native library did not load")
+        fail(f"{tag}: the scheduler scattered with NumPy: the native library did not load")
     if not np.isfinite(D).all():
-        fail("phase 11: non-finite distances in D")
-    rng = np.random.default_rng(11)
+        fail(f"{tag}: non-finite distances in D")
+    rng = np.random.default_rng(seed)
     ia = rng.integers(0, K, 64)
     ib = (ia + rng.integers(1, K, 64)) % K
     sel_a, sel_b = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
+    band = dict(band=cfg.band, band_mode=cfg.band_mode)
     want = dtw_batch(feats[sel_a], feats[sel_b], lens[sel_a], lens[sel_b],
-                     normalize="path_len").cpu().numpy()
+                     normalize="path_len", **band).cpu().numpy()
     if not np.allclose(D[ia, ib], want, rtol=1e-4, atol=1e-5):
-        fail(f"phase 11: D disagrees with plain dtw_batch (max abs {np.abs(D[ia, ib] - want).max()})")
+        fail(f"{tag}: D disagrees with plain dtw_batch (max abs {np.abs(D[ia, ib] - want).max()})")
     f_np = feats.cpu().numpy()
     for a, b in zip(ia[:8], ib[:8]):
-        ref = dtw_oracle(f_np[a, :lens_np[a]], f_np[b, :lens_np[b]], normalize="path_len")
+        ref = dtw_oracle(f_np[a, :lens_np[a]], f_np[b, :lens_np[b]], normalize="path_len", **band)
         if not np.isclose(D[a, b], ref, rtol=1e-4, atol=1e-5):
-            fail(f"phase 11: D[{a},{b}]={D[a, b]} vs oracle {ref}")
+            fail(f"{tag}: D[{a},{b}]={D[a, b]} vs oracle {ref}")
     s = {k: round(v, 3) if isinstance(v, float) else v for k, v in stats.items()}
-    log(f"phase 11: config 4 unbanded all-pairs K={K}: {n_pairs} pairs in {wall:.2f} s = "
-        f"{n_pairs / wall:.0f} pairs/s; K2 device time {stats['kernel_s']:.3f} s "
-        f"({stats['kernel_s'] / wall:.1%} of wall), launches {launches}; 64 pairs match plain "
-        f"dtw_batch, 8 match the oracle; stats {s}")
-    return {}
+    mode = "unbanded" if cfg.band is None else f"band {cfg.band}, {cfg.band_mode}"
+    log(f"{tag}: config 4 all-pairs K={K} ({mode}): {n_pairs} pairs in "
+        f"{wall:.2f} s = {n_pairs / wall:.0f} pairs/s; kernel device time "
+        f"{stats['kernel_s']:.3f} s ({stats['kernel_s'] / wall:.1%} of wall), launches {names}; "
+        f"64 pairs match plain dtw_batch, 8 match the oracle; stats {s}")
+    return launches
+
+
+def phase11(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_pairs
+
+    config4_all_pairs("phase 11", dev, DTWConfig(band=None, normalize="path_len"),
+                      (dtw_tile_pairs,), "tile", seed=11)
+
+
+def shortfall(tag: str, cut, full, over) -> None:
+    """A contract shortfall: +inf on exactly the cut pairs (``over``), and the
+    other pairs bitwise equal to the call without it."""
+    if not (bool(over.any()) and bool((~over).any())):
+        fail(f"{tag}: the shortfall cuts no pair or every pair")
+    if not (bool(torch.isinf(cut[over]).all()) and bool(torch.equal(cut[~over], full[~over]))):
+        fail(f"{tag}: the shortfall did not give +inf on exactly the cut pairs")
+
+
+def phase12(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_pairs,
+        dtw_tile_lane_pairs_ref,
+    )
+
+    ti, nT, S, d, band = 128, 4, 128, 16, 16
+    feats, lens = sorted_corpus(ti * nT, S, d, 64, 128, seed=12, dev=dev)
+    tmin, tmax = tile_ranges(lens.cpu().numpy(), nT, ti)
+    pairs = [(i, j) for i in range(nT) for j in range(i, nT)]
+    ii = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
+    jj = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
+    wv = max(band, max(tmax) - min(tmin))
+    kw = dict(ti=ti, band=band, wv_max=wv, rows=max(tmax))
+    got = dtw_tile_lane_pairs(feats, lens, ii, jj, **kw)
+    torch.cuda.synchronize()
+    want = dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw)
+    if not bool(torch.isfinite(got).all()):
+        fail("phase 12: K4 returned non-finite distances inside the class contract")
+    max_abs = agree("phase 12 (euclidean)", got, want, K4_RTOL, K4_ATOL)
+    # A diagonal and the widest cross tile-pair for the other metrics and a
+    # hard band (+inf where the corner is out of the band).
+    sub = (ii[[0, 3]], jj[[0, 3]])
+    for extra in (dict(metric="sqeuclidean"), dict(metric="cosine"), dict(auto_widen=False)):
+        agree(f"phase 12 ({extra})", dtw_tile_lane_pairs(feats, lens, *sub, **kw, **extra),
+              dtw_tile_lane_pairs_ref(feats, lens, *sub, **kw, **extra), K4_RTOL, K4_ATOL)
+    # rows below half the A tile of (1, 2); wv_max below half the widened
+    # half-widths of (0, 3).
+    r_cut = int(torch.sort(lens[ti:2 * ti]).values[ti // 2])
+    cut = dtw_tile_lane_pairs(feats, lens, ii[[5]], jj[[5]], **{**kw, "rows": r_cut})[0]
+    shortfall("phase 12 (rows)", cut, got[5], (lens[ti:2 * ti] > r_cut)[:, None].expand_as(cut))
+    diffs = (lens[:ti, None] - lens[None, 3 * ti:]).abs()
+    w_cut = max(band, int(diffs.float().median()))
+    cut = dtw_tile_lane_pairs(feats, lens, ii[[3]], jj[[3]], **{**kw, "wv_max": w_cut})[0]
+    shortfall("phase 12 (wv_max)", cut, got[3], diffs > w_cut)
+    ms = cuda_ms(lambda: dtw_tile_lane_pairs(feats, lens, ii, jj, **kw), 20)
+    plain_ms = cuda_ms(lambda: dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw), 1, warm=False)
+    n_pairs = len(pairs) * ti * ti
+    log(f"phase 12: K4 vs plain on {len(pairs)} tile-pairs ({n_pairs} pairs, S={S}, band {band}, "
+        f"wv_max {wv}, W={2 * wv + 2}): max abs err {max_abs:.3g} (rtol {K4_RTOL}, atol "
+        f"{K4_ATOL}); sqeuclidean, cosine and a hard band agree; rows and wv_max shortfalls "
+        f"+inf on exactly the cut pairs")
+    log(f"phase 12: K4 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
+        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase13(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_pairs_ref,
+        dtw_tile_stripe_pairs,
+    )
+
+    ti, nT, S, d, band = 128, 2, 1024, 16, 16
+    feats, lens = sorted_corpus(ti * nT, S, d, 257, 1024, seed=13, dev=dev)
+    tmin, tmax = tile_ranges(lens.cpu().numpy(), nT, ti)
+    ii = torch.tensor([0, 0, 1], dtype=torch.int32, device=dev)
+    jj = torch.tensor([0, 1, 1], dtype=torch.int32, device=dev)
+    wv = max(band, max(tmax) - min(tmin))
+    kw = dict(ti=ti, band=band, wv_max=wv, rows=max(tmax))
+    got = dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(got).all()):
+        fail("phase 13: K5 returned non-finite distances inside the class contract")
+    max_abs = agree("phase 13", got, want, K5_RTOL, K5_ATOL)
+    r_cut = (tmin[0] + tmax[0]) // 2
+    cut = dtw_tile_stripe_pairs(feats, lens, ii[[1]], jj[[1]], **{**kw, "rows": r_cut})[0]
+    shortfall("phase 13 (rows)", cut, got[1], (lens[:ti] > r_cut)[:, None].expand_as(cut))
+    diffs = (lens[:ti, None] - lens[None, ti:]).abs()
+    w_cut = max(band, int(diffs.float().median()))
+    cut = dtw_tile_stripe_pairs(feats, lens, ii[[1]], jj[[1]], **{**kw, "wv_max": w_cut})[0]
+    shortfall("phase 13 (wv_max)", cut, got[1], diffs > w_cut)
+    ms = cuda_ms(lambda: dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw), 3)
+    n_pairs = 3 * ti * ti
+    log(f"phase 13: K5 vs plain on 3 tile-pairs ({n_pairs} pairs, S={S}, band {band}, wv_max "
+        f"{wv}): max abs err {max_abs:.3g} (rtol {K5_RTOL}, atol {K5_ATOL}); rows and wv_max "
+        f"shortfalls +inf on exactly the cut pairs")
+    log(f"phase 13: K5 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
+        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase14(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_pairs,
+        dtw_tile_stripe_pairs,
+    )
+
+    cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
+    k4, k5 = config4_all_pairs("phase 14", dev, cfg, (dtw_tile_lane_pairs, dtw_tile_stripe_pairs),
+                               "widen", seed=14)
+    return {"launches": k4}
+
+
+def phase15(dev, tmp: Path) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_stripe_pairs
+    from audio_pattern_discovery_tpu_torch.pipeline import discover
+
+    cfg = PipelineConfig().override({
+        "segmentation.max_len_frames": 1024, "dtw.max_seq_len": 1024, "dtw.band": 16,
+        "dtw.band_mode": "widen", "autoencoder.method": "pca", "output.write_images": False,
+        "output.write_alignments": False,
+    })
+    dtw_tile_stripe_pairs.launches = 0
+    t0 = time.perf_counter()
+    res = discover(long_units_corpus(tmp), cfg, out_dir=tmp / "long_units_widen_out", device=dev)
+    wall = time.perf_counter() - t0
+    launches = dtw_tile_stripe_pairs.launches
+    if launches < 1:
+        fail("phase 15: the long-unit widen job never launched K5")
+    D, f, n = res.distance_matrix, res.seg_features, res.seg_lengths
+    if not np.isfinite(D).all() or len(res.clusters) < 1:
+        fail("phase 15: non-finite distances or no clusters")
+    rng = np.random.default_rng(15)
+    ia = rng.integers(0, len(n), 8)
+    ib = (ia + rng.integers(1, len(n), 8)) % len(n)
+    for a, b, want in zip(ia, ib, oracle_pairs(f, n, ia, ib, band=16, band_mode="widen")):
+        if not np.isclose(D[a, b], want, rtol=K5_RTOL, atol=1e-5):
+            fail(f"phase 15: D[{a},{b}]={D[a, b]} vs oracle {want}")
+    t = {k: round(v, 3) for k, v in res.counters.timings_s.items()}
+    log(f"phase 15: long units widen ({len(n)} segments of {int(n.min())}-{int(n.max())} frames, "
+        f"{len(res.clusters)} clusters): K5 launches {launches}, 8 distances match the oracle; "
+        f"discover() wall {wall:.2f} s (alignments off); stages {t}")
+    return {"launches": launches}
+
+
+def phase16(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        _dtw_batch_stripe,
+        _dtw_batch_stripe_ref,
+        dtw_batch_pallas,
+        dtw_batch_pallas_ref,
+    )
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    # K6 at the config-4 shape: 4096 gathered pairs, shorter side first.
+    feats, lens = config4_corpus(10_240, 128, 16, seed=4, dev=dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    ia = torch.randint(0, 2048, (4096,), generator=g, device=dev)
+    ib = torch.randint(0, 2048, (4096,), generator=g, device=dev)
+    swap = lens[ia] > lens[ib]
+    ia, ib = torch.where(swap, ib, ia), torch.where(swap, ia, ib)
+    args6 = (feats[ia], feats[ib], lens[ia], lens[ib])
+    k6 = {}
+    for tag, kw in (("widen", dict(band=16)), ("unbanded", dict(band=None))):
+        got = dtw_batch_pallas(*args6, **kw)
+        torch.cuda.synchronize()
+        err = agree(f"phase 16 (K6 {tag})", got, dtw_batch_pallas_ref(*args6, **kw),
+                    K6_RTOL, K6_ATOL)
+        k6.setdefault("max_abs_err", err)
+    k6["ms"] = cuda_ms(lambda: dtw_batch_pallas(*args6, band=16), 20)
+    k6["plain_ms"] = cuda_ms(lambda: dtw_batch_pallas_ref(*args6, band=16), 1, warm=False)
+    # K7 at a long bucket: 512 gathered pairs of 900-1024 frames, S=1024,
+    # in the max_len_diff class 63 (a 128-slot stripe on the reference).
+    B, S, d = 512, 1024, 16
+    la = torch.randint(900, 961, (B,), generator=g, device=dev, dtype=torch.int32)
+    lb = la + torch.randint(0, 64, (B,), generator=g, device=dev, dtype=torch.int32)
+    a = torch.randn((B, S, d), generator=g, device=dev)
+    b = torch.randn((B, S, d), generator=g, device=dev)
+    args7 = (a, b, la, lb)
+    got7 = _dtw_batch_stripe(*args7, band=16, max_len_diff=63)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want7 = _dtw_batch_stripe_ref(*args7, band=16, max_len_diff=63)
+    torch.cuda.synchronize()
+    k7 = {"plain_ms": (time.perf_counter() - t0) * 1e3}
+    k7["max_abs_err"] = agree("phase 16 (K7)", got7, want7, K7_RTOL, K7_ATOL)
+    shortfall("phase 16 (K7 max_len_diff)", _dtw_batch_stripe(*args7, band=16, max_len_diff=31),
+              got7, (la - lb).abs() > 31)
+    k7["ms"] = cuda_ms(lambda: _dtw_batch_stripe(*args7, band=16, max_len_diff=63), 5)
+    log(f"phase 16: K6 vs plain on 4096 gathered pairs (S=128, widen band 16 and unbanded): max "
+        f"abs err {k6['max_abs_err']:.3g} (rtol {K6_RTOL}, atol {K6_ATOL}); K6 {k6['ms']:.3f} "
+        f"ms/call, plain {k6['plain_ms']:.3f} ms/call")
+    log(f"phase 16: K7 vs plain on {B} gathered pairs (S={S}, band 16, max_len_diff 63): max abs "
+        f"err {k7['max_abs_err']:.3g} (rtol {K7_RTOL}, atol {K7_ATOL}); max_len_diff shortfall "
+        f"+inf on exactly the cut pairs; K7 {k7['ms']:.3f} ms/call, plain {k7['plain_ms']:.3f} "
+        f"ms/call")
+
+    # The per-pair route: a K=2,048 slice of the config-4 corpus and a job of
+    # 256 sequences of 900-1024 frames, each against the tiled widen D.
+    long_feats, long_lens = sorted_corpus(256, 1024, 16, 900, 1024, seed=16, dev=dev)
+    cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
+    dtw_batch_pallas.launches = _dtw_batch_stripe.launches = 0
+    walls = []
+    for f, n in ((feats[:2048], lens[:2048]), (long_feats, long_lens)):
+        n_np = n.cpu().numpy()
+        stats: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D = all_pairs_distances(f, n_np, cfg, device=dev, tiled=False, stats=stats)
+        walls.append((time.perf_counter() - t0, stats["blocks"]))
+        tiled = all_pairs_distances(f, n_np, cfg, device=dev)
+        if not np.isfinite(D).all() or not np.allclose(D, tiled, rtol=1e-4, atol=1e-5):
+            fail(f"phase 16: per-pair D differs from the tiled widen D (max abs "
+                 f"{np.abs(D - tiled).max()})")
+    k6["launches"], k7["launches"] = dtw_batch_pallas.launches, _dtw_batch_stripe.launches
+    if k6["launches"] < 1 or k7["launches"] < 1:
+        fail(f"phase 16: the per-pair route launched K6 {k6['launches']} and K7 "
+             f"{k7['launches']} times; both must run")
+    n1, n2 = 2048 * 2047 // 2, 256 * 255 // 2
+    log(f"phase 16: per-pair route, config-4 slice K=2048: {n1} pairs in {walls[0][0]:.2f} s = "
+        f"{n1 / walls[0][0]:.0f} pairs/s ({walls[0][1]} blocks); lengths 900-1024 K=256: {n2} "
+        f"pairs in {walls[1][0]:.2f} s = {n2 / walls[1][0]:.0f} pairs/s ({walls[1][1]} blocks); "
+        f"K6 launches {k6['launches']}, K7 launches {k7['launches']}; D equals the tiled widen D")
+    return {"k6": k6, "k7": k7}
+
+
+def phase17(tmp: Path) -> dict:
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    corpus = tmp / "lenvar"
+    make_corpus(corpus, n_clips=10, n_motifs=3, motif_seconds=(0.15, 0.6), seed=11)
+    runs = {}
+    for where, env in (("card", None), ("cpu", {"CUDA_VISIBLE_DEVICES": ""})):
+        out = tmp / f"lenvar_widen_{where}"
+        cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus), "-o",
+               str(out), "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
+               "-s", "autoencoder.method=pca"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                              env=None if env is None else {**os.environ, **env})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 17: CLI on the {where} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        manifest = json.loads((out / "clusters.json").read_text())
+        runs[where] = (json.loads(proc.stdout), np.load(out / "distance_matrix.npy"),
+                       sorted(tuple(sorted(m["segment"] for m in c["members"]))
+                              for c in manifest["clusters"]), wall)
+    (s_gpu, D, part, wall), (s_cpu, D_cpu, part_cpu, wall_cpu) = runs["card"], runs["cpu"]
+    launches = int(s_gpu["counts"].get("launches.dtw_tile_stripe_pairs", 0))
+    if launches < 1 or s_cpu["counts"].get("dtw_kernel_launches", 0) != 0:
+        fail(f"phase 17: K5 launches on the card {launches}, kernel launches on the CPU "
+             f"{s_cpu['counts'].get('dtw_kernel_launches')}")
+    if D.shape != D_cpu.shape or not np.allclose(D, D_cpu, rtol=1e-4, atol=1e-5):
+        fail(f"phase 17: the card's D differs from the CPU's (max abs {np.abs(D - D_cpu).max()})")
+    if part != part_cpu:
+        fail("phase 17: the card's cluster partition differs from the CPU's")
+    log(f"phase 17: CLI widen on the length-varied corpus ({s_gpu['n_segments']} segments, "
+        f"{len(part)} clusters): card {wall:.2f} s with {launches} K5 launches, CPU "
+        f"{wall_cpu:.2f} s; D max abs err {np.abs(D - D_cpu).max():.3g}, partition equal")
+    return {"launches": launches}
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phase numbers to run (phase 1 always runs)")
+    only = {int(p) for p in parser.parse_args().phases.split(",") if p}
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card only")
     dev = torch.device("cuda", 0)
@@ -607,7 +888,12 @@ def main() -> int:
     kernels = {name: {"name": fn, "route": "cuda", "source": f"{CSRC}/{name}.cu",
                       "replaces": replaces}
                for name, (fn, replaces) in KERNELS.items()}
-    k1, k2, k3 = (kernels[name] for name in KERNELS)
+    k1, k2, k3, k4, k5, k6, k7 = (kernels[name] for name in KERNELS)
+
+    def per_pair(res: dict) -> None:
+        k6.update(res["k6"])
+        k7.update(res["k7"])
+
     with tempfile.TemporaryDirectory(prefix="apd_smoke_") as tmp_dir:
         tmp = Path(tmp_dir)
         phases = [
@@ -622,11 +908,21 @@ def main() -> int:
             lambda: phase9(dev, tmp),
             lambda: k3.update(phase10(dev, tmp)),
             lambda: phase11(dev),
+            lambda: k4.update(phase12(dev)),
+            lambda: k5.update(phase13(dev)),
+            lambda: k4.update(phase14(dev)),
+            lambda: k5.update(phase15(dev, tmp)),
+            lambda: per_pair(phase16(dev)),
+            lambda: phase17(tmp),
         ]
+        t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):
+            if n > 1 and only and n not in only:
+                continue
             t0 = time.perf_counter()
             run()
             log(f"phase {n}: passed in {time.perf_counter() - t0:.1f} s")
+        log(f"all phases: {time.perf_counter() - t_all:.1f} s")
     if "jax" in sys.modules:
         fail("JAX was imported")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -115,12 +115,12 @@ def test_tiny_corpus():
     "cfg,match",
     [
         (DTWConfig(band=None, max_seq_len=8192), "ops/dtw_long.py"),
-        (DTWConfig(band=4, band_mode="widen"), "K4-K7"),
+        (DTWConfig(band=4, band_mode="widen", max_seq_len=8192), "ops/dtw_long.py"),
         (DTWConfig(band=4, dtype="bfloat16"), "float32"),
     ],
 )
 def test_unported_routes_raise(cfg, match):
-    feats, lens = _case(17, K=4, L=cfg.max_seq_len if cfg.band is None else 32)
+    feats, lens = _case(17, K=4, L=cfg.max_seq_len if cfg.max_seq_len > 4096 else 32)
     with pytest.raises(NotImplementedError, match=match):
         tps.all_pairs_distances(feats, lens, cfg)
 

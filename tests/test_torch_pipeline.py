@@ -167,7 +167,7 @@ print("OK")
     [
         ({"autoencoder.method": "ae"}, "autoencoder.method=ae"),
         ({"dtw.band": None, "dtw.max_seq_len": 8192}, "ops/dtw_long.py"),
-        ({"dtw.band_mode": "widen"}, "K4-K7"),
+        ({"dtw.dtype": "bfloat16"}, "float32 only"),
         ({"autoencoder.checkpoint": True}, "autoencoder.checkpoint"),
         ({"parallel.checkpoint_blocks": True}, "checkpoint_blocks"),
         ({"spectrogram.upload_codec": "mulaw8"}, "mulaw8"),
@@ -247,8 +247,9 @@ def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
         for o in (
             {"autoencoder.method": "ae"}, {"autoencoder.checkpoint": True},
             {"autoencoder.context_frames": 2}, {"parallel.checkpoint_blocks": True},
-            {"spectrogram.upload_codec": "mulaw8"}, {"dtw.band_mode": "widen"},
+            {"spectrogram.upload_codec": "mulaw8"}, {"dtw.dtype": "bfloat16"},
             {"dtw.band": None, "dtw.max_seq_len": 5000},
+            {"dtw.band_mode": "widen", "dtw.max_seq_len": 5000},
         )
     ]
     calls += [
@@ -256,6 +257,8 @@ def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
         lambda: cli_main(["--serve", "sock"]),
         lambda: all_pairs_distances(np.zeros((2, 4200, 2), np.float32), [4200, 4100],
                                     DTWConfig(band=None)),
+        lambda: all_pairs_distances(np.zeros((2, 8, 2), np.float32), [8, 7],
+                                    DTWConfig(band=4, band_mode="widen"), known=(1, np.zeros((1, 1)))),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError) as info:
@@ -264,3 +267,61 @@ def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
         assert titles, str(info.value)
         for title in titles:
             assert title in roadmap, title
+
+
+@pytest.fixture(scope="module")
+def lenvar(tmp_path_factory):
+    d = tmp_path_factory.mktemp("lenvar") / "corpus"
+    make_corpus(d, n_clips=10, n_motifs=3, motif_seconds=(0.15, 0.6), seed=11)
+    return d
+
+
+def _widen_config(cls=PipelineConfig):
+    cfg = cls()
+    cfg.dtw.band = 16
+    cfg.dtw.band_mode = "widen"
+    cfg.autoencoder.method = "pca"
+    cfg.output.write_snippets = False
+    cfg.output.write_images = False
+    cfg.output.write_html_report = False
+    return cfg
+
+
+def test_discover_widen_matches_jax_pipeline(lenvar):
+    # The widen band mode through the port's K4 route (its twin on the CPU)
+    # against the JAX package's discover() with the same config, on the
+    # length-varied corpus whose pairs tell widen from diag.
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+    from audio_pattern_discovery_tpu.pipeline import discover as jdiscover
+
+    got = discover(lenvar, _widen_config(), device="cpu")
+    want = jdiscover(lenvar, _widen_config(JCfg))
+    lens = got.seg_lengths
+    assert int(lens.max()) >= 2 * int(lens.min())
+    np.testing.assert_allclose(got.distance_matrix, want.distance_matrix, rtol=1e-4, atol=1e-5)
+    assert _partition(got.labels) == _partition(want.labels)
+    assert [(c.exemplar, c.members) for c in got.clusters] == [
+        (c.exemplar, c.members) for c in want.clusters
+    ]
+    for c_t, c_j in zip(got.clusters, want.clusters):
+        assert c_t.alignments == c_j.alignments
+    assert got.counters.counts["dtw_kernel_launches"] == 0
+    # What changed: widen and diag distances differ on this corpus.
+    diag_cfg = _widen_config()
+    diag_cfg.dtw.band_mode = "diag"
+    diag = discover(lenvar, diag_cfg, device="cpu")
+    assert np.abs(diag.distance_matrix - got.distance_matrix).max() > 1e-3
+
+
+def test_cli_runs_widen(lenvar, tmp_path, capsys):
+    out = tmp_path / "out"
+    rc = cli_main([str(lenvar), "-o", str(out), "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
+                   "-s", "autoencoder.method=pca", "-s", "output.write_images=false"])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["counts"]["launches.dtw_tile_lane_pairs"] == 0
+    state = json.loads((out / "state.json").read_text())
+    assert state["band_mode"] == "widen"
+    D = np.load(out / "distance_matrix.npy")
+    ref = discover(lenvar, _widen_config(), device="cpu")
+    np.testing.assert_allclose(D, ref.distance_matrix, rtol=1e-6, atol=1e-7)
