@@ -55,6 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--query", action="append", default=[], type=Path,
                    metavar="WAV", help="not ported yet")
     p.add_argument("--serve", type=Path, metavar="SOCKET", help="not ported yet")
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="where the pipeline runs (default: the card; cpu runs the kernels' plain twins)",
+    )
     p.add_argument("--dump-config", action="store_true", help="print config and exit")
     p.add_argument("--json-logs", action="store_true")
     return p
@@ -86,6 +92,7 @@ def main(argv: list[str] | None = None) -> int:
         args.wav_dir, cfg, out_dir=args.out_dir,
         logger=get_logger(json_lines=args.json_logs),
         update_from=args.out_dir if args.update else None,
+        device=args.device,
     )
     print(
         json.dumps(

@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
+
 
 @dataclass
 class PCAState:
@@ -54,14 +56,16 @@ def fit_pca(
     n_components: int,
     whiten: bool = True,
     eps: float = 1e-6,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> PCAState:
+    """PCA of [N, d] standardized frames, its scatter built on ``device``
+    (the card unless the caller asks for the CPU; no card raises)."""
     n, d = flat_scaled.shape
     if not 1 <= n_components <= d:
         raise ValueError(f"n_components={n_components} not in [1, {d}]")
     if n < 2:
         raise ValueError(f"need >= 2 frames to fit PCA, got {n}")
-    x = torch.as_tensor(flat_scaled, dtype=torch.float32).to(device)
+    x = torch.as_tensor(flat_scaled, dtype=torch.float32).to(resolve_device(device))
     mu_dev, s_dev = _covariance(x)
     mu = mu_dev.cpu().numpy().astype(np.float64)
     cov = s_dev.cpu().numpy().astype(np.float64) / (n - 1)

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point; it is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>.so`` (beside this package,
 listed in ``.gitignore``) and loaded with ctypes.  A library is rebuilt when
-its source is newer than the built file.  Nothing here runs at import time:
+its source, or any header ``csrc/*.cuh``, is newer than the built file.  Nothing here runs at import time:
 the CPU-only test host has no ``nvcc``.
 """
 
@@ -57,9 +57,11 @@ def load_all(names: list[str]) -> dict[str, ctypes.CDLL]:
     started together."""
     with _lock:
         stale = []
+        headers = max((h.stat().st_mtime for h in CSRC_DIR.glob("*.cuh")), default=0.0)
         for name in names:
             src, so = CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-            if name not in _libs and (not so.exists() or so.stat().st_mtime < src.stat().st_mtime):
+            newest = max(src.stat().st_mtime, headers)
+            if name not in _libs and (not so.exists() or so.stat().st_mtime < newest):
                 stale.append((name, src, so))
         if stale:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

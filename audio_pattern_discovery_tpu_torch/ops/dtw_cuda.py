@@ -30,6 +30,11 @@ in the call, ``wv_max`` >= the stripe half-width from ``diag_class_bounds``.
 With them met every corridor cell lies in the frame and the distance is
 exact; a pair whose corner cell falls outside the frame comes back +inf.
 
+K1 and K2 walk each pair's DP in strips of rows (``csrc/dtw_strip.cuh``):
+each B frame is loaded once per strip and feeds the strip's cost builds.
+They read the corpus in one layout, ``strip_layout`` ([nT, S, ti, 4*nc4]),
+which the scheduler builds once a job and passes as ``frames=``.
+
 K2 and K3 are exact DTW over the rectangle i < la, j < lb (K2 optionally
 banded).  Their twins evaluate the recurrence cell by cell (an
 anti-diagonal wavefront vectorized over the gathered pairs) from the same
@@ -62,10 +67,13 @@ import torch
 INF = float("inf")
 METRICS = {"euclidean": 0, "sqeuclidean": 1, "cosine": 2}
 
-# Shared-memory budget of one block (H100: 227 KB usable); the stripe takes
-# W * lanes floats and the staged A rows A_CHUNK_BYTES.
+# Shared-memory budget of one block (H100: 227 KB usable); K4's stripe takes
+# W * lanes floats and its staged A rows A_CHUNK_BYTES.
 _SMEM_BUDGET = 200 * 1024
 _A_CHUNK_BYTES = 16 * 1024
+# Shared memory of one H100 SM, and what the hardware reserves per block.
+_SM_SMEM = 228 * 1024
+_BLOCK_RESERVED = 1024
 # The plain twins build [pairs, W, d] costs per DP row (K1) or per
 # anti-diagonal (K2-K7); pairs go in groups that keep that under this many
 # elements.
@@ -155,9 +163,86 @@ def _unit_frames(feats: torch.Tensor, metric: str) -> torch.Tensor:
     return feats / torch.clamp(torch.linalg.vector_norm(feats, dim=-1, keepdim=True), min=1e-12)
 
 
+def strip_channels(d: int) -> int:
+    """float4s per frame in K1's and K2's corpus layout: ceil(d/4), rounded
+    up to 1, 2, 4 or 8 (the widths at which the kernels keep a strip's A
+    frames in registers) when it is at most 8."""
+    n = -(-int(d) // 4)
+    return 1 << (n - 1).bit_length() if n <= 8 else n
+
+
+def strip_layout(feats: torch.Tensor, ti: int, metric: str = "euclidean") -> torch.Tensor:
+    """[nT, S, ti, 4*strip_channels(d)] f32: the corpus as K1 and K2 read it
+    (``csrc/dtw_strip.cuh``).  Element [t, j, c, ch] is frame j, channel ch
+    of sequence t*ti + c (of its unit frame for cosine); channels past d are
+    zero, which adds nothing to a cost.  A thread's frame is 16-byte chunks
+    beside its neighbours'.  The scheduler builds it once a job and passes
+    it to every launch (``frames=``)."""
+    K, S, d = feats.shape
+    nT = K // ti
+    x = _unit_frames(feats, metric).reshape(nT, ti, S, d).permute(0, 2, 1, 3)
+    out = torch.zeros((nT, S, ti, 4 * strip_channels(d)), dtype=torch.float32,
+                      device=feats.device)
+    out[..., :d] = x
+    return out
+
+
+def _check_frames(frames: torch.Tensor | None, feats: torch.Tensor, ti: int,
+                  metric: str) -> torch.Tensor:
+    """``frames`` (a prebuilt ``strip_layout``) after checking it against the
+    corpus, or the layout built here."""
+    if frames is None:
+        return strip_layout(feats, ti, metric)
+    K, S, d = feats.shape
+    want = (K // ti, S, ti, 4 * strip_channels(d))
+    if (tuple(frames.shape) != want or frames.dtype != torch.float32
+            or frames.device != feats.device or not frames.is_contiguous()):
+        raise ValueError(f"frames must be a contiguous float32 strip_layout {want} on "
+                         f"{feats.device}, got {tuple(frames.shape)} {frames.dtype} "
+                         f"on {frames.device}")
+    return frames
+
+
+# Rows per strip of K1 (csrc/dtw_lane_diag.cu, fixed there): each B frame is
+# loaded once per strip and feeds this many cost builds.
+K1_ROWS = 4
+
+
+def _tile_strip_rows(S: int, nc4: int) -> int:
+    """K2's rows per strip: 8 while the strip's 8 x 4*nc4 A values fit in
+    registers (up to 16 channels), else 4.  At 16 channels 8 rows take ~210
+    registers, which caps residency below what a short boundary row allows:
+    there 4 rows where S <= 128.  On the H100 at d=16, 8 rows beat 4 at
+    S=256 and lost in the config-4 job (S=128); below 16 channels
+    4 rows gain no residency (ptxas gives 8 rows at most 119 registers)."""
+    return 8 if nc4 < 4 or (nc4 == 4 and S > 128) else 4
+
+
+def _strip_lanes(ti: int, state: int, nc4: int, R: int) -> int:
+    """Threads per block for K1 and K2: a block holds ``state`` floats of DP
+    state per thread (K2's boundary row of S floats, K1's stripe of W) and
+    the strip's staged A frames.  Bound by the serial chain's latency at low
+    occupancy, the launch keeps the most threads resident on an SM: the
+    width (128, 64 or 32) that fits the most, the widest on a tie."""
+    best = None
+    for lanes in sorted({min(ti, w) for w in (128, 64, 32)}, reverse=True):
+        smem = 4 * (state * lanes + 4 * R * nc4)
+        if smem > _SMEM_BUDGET:
+            continue
+        resident = min(_SM_SMEM // (smem + _BLOCK_RESERVED), 32, 2048 // lanes) * lanes
+        if best is None or resident > best[0]:
+            best = (resident, lanes)
+    if best is None:
+        raise ValueError(
+            f"a DP state of {state} floats per thread does not fit one block's shared "
+            f"memory ({_SMEM_BUDGET} bytes at 32 lanes)"
+        )
+    return best[1]
+
+
 def _lanes(ti: int, W: int, d: int) -> tuple[int, int]:
-    """(threads per block, A rows staged per shared-memory chunk) for a
-    kernel holding W floats of DP state per thread (K1's stripe, K2's row)."""
+    """(threads per block, A rows staged per shared-memory chunk) for K4,
+    which holds a stripe of W floats per thread."""
     a_chunk = max(1, _A_CHUNK_BYTES // (4 * d))
     lanes = min(ti, 128)
     while lanes > 32 and 4 * (W * lanes + a_chunk * d) > _SMEM_BUDGET:
@@ -182,10 +267,13 @@ def dtw_tile_lane_diag_pairs(
     wv_max: int,
     metric: str = "euclidean",
     rows: int | None = None,
+    frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Diag-corridor DTW for U tile-pairs -> [U, ti, ti] f32 (unnormalized).
 
-    CUDA tensors launch the kernel (``launches`` counts the launches); CPU
+    ``frames``: the corpus's ``strip_layout(feats, ti, metric)``, built once
+    by a caller that launches many times; built here when None.  CUDA
+    tensors launch the kernel (``launches`` counts the launches); CPU
     tensors take the plain twin.  Any other device raises."""
     K, S, d = _check_args(feats, lengths, tile_rep, ti_idx, tj_idx, ti, metric)
     if band is None:
@@ -205,17 +293,16 @@ def dtw_tile_lane_diag_pairs(
     out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
     if U == 0:
         return out
-    lanes, a_chunk = _lanes(ti, W, d)
-    a = _unit_frames(feats, metric).contiguous()
-    nT = K // ti
-    b = a.reshape(nT, ti, S, d).permute(0, 3, 2, 1).contiguous()   # [nT, d, S, ti]
+    x = _check_frames(frames, feats, ti, metric)
+    nc4 = strip_channels(d)
+    lanes = _strip_lanes(ti, W, nc4, K1_ROWS)
     lengths, tile_rep = lengths.contiguous(), tile_rep.contiguous()
     ti_idx, tj_idx = ti_idx.contiguous(), tj_idx.contiguous()
     _launch(
-        "dtw_lane_diag", 7, 10,
-        a.data_ptr(), b.data_ptr(), lengths.data_ptr(), tile_rep.data_ptr(),
+        "dtw_lane_diag", 6, 9,
+        x.data_ptr(), lengths.data_ptr(), tile_rep.data_ptr(),
         ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
-        S, d, ti, U, rows, int(band), wv, METRICS[metric], lanes, a_chunk,
+        S, nc4, ti, U, rows, int(band), wv, METRICS[metric], lanes,
         stream=torch.cuda.current_stream(feats.device).cuda_stream,
     )
     dtw_tile_lane_diag_pairs.launches += 1
@@ -350,37 +437,6 @@ def _gather_or_inf(prev, idx, W):
 
 # ------------------------------------------------------------------ K2, K3
 
-# Shared memory of one H100 SM, and what the hardware reserves per block.
-_SM_SMEM = 228 * 1024
-_BLOCK_RESERVED = 1024
-
-
-def _tile_lanes(ti: int, S: int, d: int) -> tuple[int, int]:
-    """(threads per block, A rows per staged chunk) for K2.
-
-    K2 is bound by latency at its low occupancy (each thread holds an
-    S-float DP row in shared memory), so the launch maximizes the threads
-    resident on an SM: a 4 KB A chunk, and the block width (128, 64 or 32)
-    that fits the most threads, the widest on a tie.  Measured on the H100:
-    4 -> 6 resident warps made the kernel 1.46x faster at S=256 and S=128,
-    with bitwise-equal results."""
-    a_chunk = max(1, 4096 // (4 * d))
-    best = None
-    for lanes in sorted({min(ti, w) for w in (128, 64, 32)}, reverse=True):
-        smem = 4 * (S * lanes + a_chunk * d)
-        if smem > _SMEM_BUDGET:
-            continue
-        resident = min(_SM_SMEM // (smem + _BLOCK_RESERVED), 32, 2048 // lanes) * lanes
-        if best is None or resident > best[0]:
-            best = (resident, lanes)
-    if best is None:
-        raise ValueError(
-            f"a DP row of {S} floats per thread does not fit one block's shared "
-            f"memory ({_SMEM_BUDGET} bytes at 32 lanes)"
-        )
-    return best[1], a_chunk
-
-
 
 def dtw_tile_pairs(
     feats: torch.Tensor,       # [K, S, d] f32 padded corpus
@@ -394,6 +450,7 @@ def dtw_tile_pairs(
     metric: str = "euclidean",
     rows: int | None = None,
     scan_steps: int | None = None,
+    frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K2: square-tile DTW for U tile-pairs -> [U, ti, ti] f32 (unnormalized).
 
@@ -405,6 +462,8 @@ def dtw_tile_pairs(
     accepted so the signature matches the JAX kernel, and ignored: it bounds
     the depth of the TPU kernel's Hillis-Steele row scan, while the CUDA
     kernel and the twin walk each row cell by cell, which needs no depth.
+    ``frames``: the corpus's ``strip_layout(feats, ti, metric)``, built once
+    by a caller that launches many times; built here when None.
 
     CUDA tensors launch the kernel (``launches`` counts the launches); CPU
     tensors take the plain twin.  Any other device raises."""
@@ -425,16 +484,16 @@ def dtw_tile_pairs(
     out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
     if U == 0:
         return out
-    lanes, a_chunk = _tile_lanes(ti, S, d)
-    a = _unit_frames(feats, metric).contiguous()
-    b = a.reshape(K // ti, ti, S, d).permute(0, 3, 2, 1).contiguous()   # [nT, d, S, ti]
+    x = _check_frames(frames, feats, ti, metric)
+    nc4 = strip_channels(d)
+    R = _tile_strip_rows(S, nc4)
+    lanes = _strip_lanes(ti, S, nc4, R)
     lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
     _launch(
-        "dtw_tile", 6, 10,
-        a.data_ptr(), b.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
-        tj_idx.data_ptr(), out.data_ptr(),
-        S, d, ti, U, rows, -1 if band is None else int(band), int(bool(auto_widen)),
-        METRICS[metric], lanes, a_chunk,
+        "dtw_tile", 5, 10,
+        x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
+        S, nc4, ti, U, rows, -1 if band is None else int(band), int(bool(auto_widen)),
+        METRICS[metric], lanes, R,
         stream=torch.cuda.current_stream(feats.device).cuda_stream,
     )
     dtw_tile_pairs.launches += 1

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from audio_pattern_discovery_tpu_torch.config import SpectrogramConfig
+from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 
 
 def window_array(name: str, win_length: int) -> np.ndarray:
@@ -270,7 +271,7 @@ def spectrogram_corpus(
     sigs,
     cfg: SpectrogramConfig,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     clip_batch: int = 16,
     chunk_frames: int = 1024,
     return_device: bool = False,
@@ -283,10 +284,12 @@ def spectrogram_corpus(
     ``sigs`` is a sequence of 1-D int16 or float32 arrays (uniform dtype);
     ``scales`` (optional [B]) divides int16 clips after decode.  Features
     come back as a tensor on ``device`` with ``return_device``, else as a
-    host array; energies always on the host (segmentation is host code)."""
+    host array; energies always on the host (segmentation is host code).
+    ``device`` is the card unless the caller asks for the CPU; no card
+    raises."""
     if not len(sigs):
         raise ValueError("empty corpus")
-    device = torch.device(device)
+    device = resolve_device(device)
     win, hop = cfg.win_length, cfg.hop_length
     B = len(sigs)
     if sig_lengths is None:

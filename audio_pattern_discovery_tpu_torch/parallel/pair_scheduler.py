@@ -63,8 +63,10 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     dtw_tile_stripe_pairs,
     pallas_supported,
     scan_len_diff_classes,
+    strip_layout,
     tile_rep_lengths,
 )
+from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 
 # Past this matrix size, blocks assemble per sorted row strip instead of
 # scattering straight into original-order D (reference: measured on the
@@ -338,7 +340,7 @@ def all_pairs_distances_tiled(
     lengths: np.ndarray,                   # [K] true frame counts
     cfg: DTWConfig,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     ti: int | None = None,
     chunk_programs: int = 64,
     stats: dict | None = None,
@@ -359,8 +361,9 @@ def all_pairs_distances_tiled(
     ``stats`` receives the route, host seconds per activity (dispatch,
     collect: waiting for a chunk's copy, scatter, upload), whether the
     native scatter ran and with OpenMP, and, on a CUDA device, ``kernel_s``:
-    the kernel launches' device time from CUDA events around each launch."""
-    device = torch.device(device)
+    the kernel launches' device time from CUDA events around each launch.
+    The default device is the card; without one, pass ``device="cpu"``."""
+    device = resolve_device(device)
     K, L, d = features.shape
     route = route_for(L, cfg)
     lengths = np.asarray(lengths, dtype=np.int32)
@@ -400,6 +403,10 @@ def all_pairs_distances_tiled(
     rep_dev = None
     if route == "diag":
         rep_dev = torch.from_numpy(tile_rep_lengths(lens_p, nT, ti, K)).to(device)
+    # K1 and K2 read the corpus in their strip layout, built once a job.
+    frames = None
+    if device.type == "cuda" and route in ("diag", "tile"):
+        frames = strip_layout(feats_p, ti, cfg.metric)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     upload_s = time.perf_counter() - t_up
@@ -427,7 +434,7 @@ def all_pairs_distances_tiled(
         if route == "diag":
             return dtw_tile_lane_diag_pairs(
                 feats_p, lens_dev, rep_dev, ii, jj, ti=ti, band=int(cfg.band),
-                wv_max=cls[1], metric=cfg.metric, rows=cls[0],
+                wv_max=cls[1], metric=cfg.metric, rows=cls[0], frames=frames,
             )
         if route == "widen":
             kernel = forced or widen_kernel(cls[1])
@@ -439,7 +446,7 @@ def all_pairs_distances_tiled(
             return dtw_tile_pairs(
                 feats_p, lens_dev, ii, jj, ti=ti, band=cfg.band,
                 auto_widen=cfg.auto_widen_band, metric=cfg.metric, rows=cls[0],
-                scan_steps=cls[1],
+                scan_steps=cls[1], frames=frames,
             )
         return dtw_tile_lane_full_pairs(
             feats_p, lens_dev, ii, jj, ti=ti, width=cls[1], metric=cfg.metric, rows=cls[0],
@@ -607,7 +614,7 @@ def all_pairs_distances(
     lengths: np.ndarray,                   # [K] true frame counts
     cfg: DTWConfig,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     stats: dict | None = None,
     tiled: bool | None = None,
     bucket_step: int = 32,
@@ -621,7 +628,8 @@ def all_pairs_distances(
     kernel).  ``tiled=False``: the per-pair scheduler
     (``all_pairs_distances_per_pair``), the reference's legacy path.  Block
     persistence (``block_dir``), incremental reuse (``known``) and retries
-    (``max_retries``) are not ported and raise ``NotImplementedError``."""
+    (``max_retries``) are not ported and raise ``NotImplementedError``.
+    The default device is the card; without one, pass ``device="cpu"``."""
     if block_dir is not None or known is not None or max_retries:
         raise NotImplementedError(
             "block persistence (block_dir), incremental reuse (known=) and block "
@@ -708,7 +716,7 @@ def all_pairs_distances_per_pair(
     lengths: np.ndarray,                   # [K] true frame counts
     cfg: DTWConfig,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     bucket_step: int = 32,
     stats: dict | None = None,
 ) -> np.ndarray:
@@ -722,9 +730,10 @@ def all_pairs_distances_per_pair(
     the kernels' ranges raises.  Each block is padded to a power of two with
     self-pairs of sequence 0 (discarded), up to ten blocks are in flight,
     each pair lands in one triangle, and ``D += D.T`` closes the matrix.
-    The kernels normalize inside, so the scatter does not."""
+    The kernels normalize inside, so the scatter does not.  The default
+    device is the card; without one, pass ``device="cpu"``."""
     _check_dtype(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     K, L, d = features.shape
     lengths = np.asarray(lengths, dtype=np.int32)
     D = np.zeros((K, K), dtype=np.float32)

@@ -2,8 +2,8 @@
 
 Port of ``audio_pattern_discovery_tpu/pipeline.py`` for the PCA embedder
 with diag-banded, widen-banded or unbanded DTW.  A directory of WAV files in, pattern
-clusters + DTW alignments out, on one explicit torch ``device`` (default:
-the first CUDA device when there is one, else the CPU):
+clusters + DTW alignments out, on one torch ``device`` (default: the card;
+without one, ``discover()`` raises unless the caller passes ``device="cpu"``):
 
 1. WAV header probe and streaming ingest (host);
 2. spectrogram (device) and energy segmentation (host);
@@ -56,6 +56,7 @@ from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
     all_pairs_distances,
     route_for,
 )
+from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
 
 # The all-pairs DTW kernels whose launches discover() counts (K1-K7).
@@ -63,10 +64,6 @@ DTW_KERNELS = (
     dtw_tile_lane_diag_pairs, dtw_tile_pairs, dtw_tile_lane_full_pairs, dtw_tile_lane_pairs,
     dtw_tile_stripe_pairs, dtw_batch_pallas, _dtw_batch_stripe,
 )
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def check_supported(cfg: PipelineConfig, update_from=None) -> None:
@@ -379,13 +376,14 @@ def discover(
     out_dir: str | Path | None = None,
     logger=None,
     update_from: str | Path | None = None,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> DiscoveryResult:
     """Run the discovery pipeline over a directory of WAV files on
-    ``device`` (default: ``default_device()``)."""
+    ``device``: the card by default; without one this raises unless the
+    caller passes ``device="cpu"``."""
     cfg = (config or PipelineConfig()).validate()
     check_supported(cfg, update_from)
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     log = logger or get_logger()
     counters = StageCounters()
     log.info(f"device {device}")

@@ -8,11 +8,14 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 
 1. device: a CUDA card is required; prints its name and power limit and
    builds the kernels K1-K7 from ``audio_pattern_discovery_tpu_torch/csrc``
-   (one nvcc each, started together);
+   (one nvcc each, started together), with each source's registers and
+   spill bytes from ``ptxas -v`` (a spill fails the phase);
 2. K1 against its plain PyTorch twin on the card at the config-4 tile shape
    (d=16, S=128, band=16, lengths 64-128; euclidean on 10 tile-pairs,
-   sqeuclidean and cosine on 2), plus an out-of-frame call that must come
-   back all +inf; prints both times;
+   sqeuclidean and cosine on 2), at the other frame widths it is built for
+   (d=4, 8, 20, 40 on 3 tile-pairs), plus an out-of-frame call that must
+   come back all +inf; prints both times, cells/s and the share of the
+   bound;
 3. ``discover()`` on the seed-7 corpus against
    ``tests/golden/GOLDEN_cpu_seed7_mfcc_pca.npz`` (D at rtol 1e-4 /
    atol 1e-5, partition exact) with the K1 launch count of that run;
@@ -24,8 +27,10 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    NumPy oracle; the native scatter must have run;
 6. K2 against its twin on the card (S=256, d=16, ti=128, 4 tiles, lengths
    8-256): unbanded euclidean on all 10 tile-pairs, sqeuclidean, cosine and
-   widen band 8 (auto_widen on and off) on 2, and a ``rows`` shortfall that
-   must be +inf on exactly the cut rows; prints both times;
+   widen band 8 (auto_widen on and off) on 2, every strip height and frame
+   width it is built for (S=128 and 256, d=4, 8, 16, 20, 40 on 2
+   tile-pairs), and a ``rows`` shortfall that must be +inf on exactly the
+   cut rows; prints both times, cells/s and the share of the bound;
 7. K3 against its twin on the card (S=1024, d=16, ti=128, 2 tiles, lengths
    257-1024) on all 3 tile-pairs, plus a ``width`` and a ``rows``
    shortfall that must come back +inf; prints both times;
@@ -55,8 +60,14 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    slice of the config-4 corpus and on a job of lengths 900-1024: K6 and K7
    must both launch, and D must equal the tiled widen D;
 17. the CLI on the length-varied corpus with a widen band (one wide class:
-   K5), on the card and with the card hidden (CPU): D at rtol 1e-4 / atol
-   1e-5, partition exact.
+   K5), with ``--device cuda`` and with ``--device cpu``: D at rtol 1e-4 /
+   atol 1e-5, partition exact.
+
+Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
+beside their device time.  A bound is the larger of the call's fp32
+operations over 67 TFLOP/s and its bytes over 3.35 TB/s (the H100's
+published peaks): ``3d + 4`` operations for each DP cell the distances
+need (``pair_cells``).
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Everything else goes to
@@ -68,7 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import multiprocessing
-import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -116,6 +127,90 @@ K4_RTOL, K4_ATOL = 4e-5, 1e-4
 K7_RTOL, K7_ATOL = 1.5e-4, 1e-3
 K5_RTOL, K5_ATOL = K3_RTOL, K3_ATOL
 K6_RTOL, K6_ATOL = K3_RTOL, K3_ATOL
+
+# Frame widths beside d=16 at which phases 2 and 6 hold K1 and K2 against
+# their twins: 1, 2, 8 and 10 float4s a frame (strip_channels), every
+# instantiation of csrc/dtw_strip.cuh's frame widths; 10 (d > 32) reads the
+# strip's A frames from shared memory instead of registers.
+SWEEP_DIMS = (4, 8, 20, 40)
+
+# The card's published peaks (H100 SXM at 700 W, from NVIDIA's datasheet):
+# fp32 outside the tensor cores, and device memory.
+FP32_OPS_S = 67e12
+HBM_BYTES_S = 3.35e12
+
+
+def cell_ops(d: int) -> int:
+    """fp32 operations of one Euclidean DP cell: d subtractions, d FMAs (2
+    each), a sqrt, two mins and an add."""
+    return 3 * d + 4
+
+
+def bound(cells: float, d: int, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for the
+    cells and the bytes (each input read once, each output written once)."""
+    t_ops, t_bytes = cells * cell_ops(d) / FP32_OPS_S, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def pair_cells(la, lb, kind: str, band: int | None = None):
+    """DP cells each pair's distance needs (int64 tensor like la): "full"
+    every cell of the la x lb rectangle; "widen" |j - i| <= max(band, |la-lb|);
+    "diag" the corridor |j(la-1) - i(lb-1)| <= max(band,1) max(la-1, lb-1)."""
+    la, lb = la.long(), lb.long()
+    if kind == "full":
+        return la * lb
+    total = torch.zeros_like(la)
+    if kind == "widen":
+        pw = torch.clamp((la - lb).abs(), min=int(band))
+    else:
+        den_t, num = la - 1, lb - 1
+        thresh = max(int(band), 1) * torch.maximum(den_t, num)
+    for i in range(int(la.max())):
+        if kind == "widen":
+            lo, hi = torch.clamp(i - pw, min=0), torch.minimum(lb - 1, i + pw)
+        else:
+            m = i * num
+            lo = torch.where(den_t > 0, -torch.div(thresh - m, den_t.clamp(min=1),
+                                                   rounding_mode="floor"), 0).clamp(min=0)
+            hi = torch.where(den_t > 0, torch.div(m + thresh, den_t.clamp(min=1),
+                                                  rounding_mode="floor"), lb - 1)
+            hi = torch.minimum(hi, lb - 1)
+        total += torch.where(i < la, (hi - lo + 1).clamp(min=0), 0)
+    return total
+
+
+def tile_call_cells(lens, ii, jj, ti: int, kind: str, band: int | None = None) -> float:
+    """Cells of one tile-pair call: every (A row, B column) pair of every
+    tile-pair (ii, jj)."""
+    lane = torch.arange(ti, device=lens.device)
+    la = lens[ii.long()[:, None] * ti + lane][:, :, None].expand(-1, ti, ti)
+    lb = lens[jj.long()[:, None] * ti + lane][:, None, :].expand(-1, ti, ti)
+    return float(pair_cells(la.reshape(-1), lb.reshape(-1), kind, band).sum())
+
+
+def tile_call_bytes(ii, jj, ti: int, S: int, d: int) -> float:
+    """Bytes of one tile-pair call: the frames and lengths of the tiles it
+    touches, read once, and its [U, ti, ti] output."""
+    n_tiles = len(set(ii.tolist()) | set(jj.tolist()))
+    return n_tiles * ti * (S * d + 1) * 4.0 + len(ii) * ti * ti * 4.0
+
+
+def job_cells(lens_np, kind: str, band: int | None = None) -> float:
+    """Cells of all K(K-1)/2 pairs of a job, from its length histogram (the
+    cell counts are symmetric in the two lengths)."""
+    vals, counts = np.unique(lens_np, return_counts=True)
+    la = torch.from_numpy(np.repeat(vals, len(vals)).astype(np.int64))
+    lb = torch.from_numpy(np.tile(vals, len(vals)).astype(np.int64))
+    cells = pair_cells(la, lb, kind, band).numpy().reshape(len(vals), len(vals))
+    w = np.outer(counts, counts).astype(np.float64)
+    np.fill_diagonal(w, counts * (counts - 1.0))
+    return float((w * cells).sum() / 2)
+
+
+def rate_line(ms: float, cells: float, bound_ms: float) -> str:
+    return (f"{cells / ms * 1e3:.4g} cells/s, bound {bound_ms:.3f} ms, "
+            f"{bound_ms / ms:.1%} of the bound")
 
 
 def fail(msg: str) -> None:
@@ -165,38 +260,52 @@ def phase1(dev) -> dict:
     log(f"phase 1: K1-K7 loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         secs, ptxas = _build.build_info.get(name, (0.0, "(already built)"))
-        log(f"  {name}.cu built in {secs:.2f} s")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas))
+        log(f"  {name}.cu built in {secs:.2f} s: {len(regs)} kernel instantiations, "
+            f"registers {min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    ptxas: {line.strip()}")
+        if spills:
+            fail(f"phase 1: {name}.cu spills {spills} bytes to local memory")
     return {}
 
 
-def phase2(dev) -> dict:
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        dtw_tile_lane_diag_pairs_ref,
-        tile_rep_lengths,
-    )
+def k1_inputs(dev, nT: int, d: int, seed: int):
+    """K1's arguments on a length-sorted config-4-shape corpus (ti=128,
+    S=128, lengths 64-128, band 16) for all its upper tile-pairs, long side
+    on rows (as the scheduler orients them), at the class contract."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import diag_class_bounds, tile_rep_lengths
 
-    ti, nT, S, d, band = 128, 4, 128, 16, 16
-    feats, lens = config4_corpus(ti * nT, S, d, seed=1, dev=dev)
+    ti, S, band = 128, 128, 16
+    feats, lens = config4_corpus(ti * nT, S, d, seed=seed, dev=dev)
     order = torch.argsort(lens, stable=True)
     feats, lens = feats[order].contiguous(), lens[order].contiguous()
     lens_np = lens.cpu().numpy()
     rep = torch.from_numpy(tile_rep_lengths(lens_np, nT, ti, len(lens_np))).to(dev)
-    tmin = [int(lens_np[t * ti:(t + 1) * ti].min()) for t in range(nT)]
-    tmax = [int(lens_np[t * ti:(t + 1) * ti].max()) for t in range(nT)]
-    # All upper tile-pairs long side on rows (as the scheduler orients
-    # them): 4 diagonal tiles and 6 cross-tile pairs, (3, 0) the widest
-    # length spread.
+    tmin, tmax = tile_ranges(lens_np, nT, ti)
     pairs = [(j, i) for i in range(nT) for j in range(i, nT)]
     wv = max(diag_class_bounds(band, tmin[a], tmax[a], tmin[b], tmax[b])[0] for a, b in pairs)
-    rows = max(tmax[a] for a, _ in pairs)
     ii = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
     jj = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
-    kw = dict(ti=ti, band=band, wv_max=wv, rows=rows)
+    kw = dict(ti=ti, band=band, wv_max=wv, rows=max(tmax[a] for a, _ in pairs))
+    return (feats, lens, rep, ii, jj), kw
+
+
+def phase2(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_diag_pairs,
+        dtw_tile_lane_diag_pairs_ref,
+        strip_channels,
+    )
+
+    ti, nT, S, d, band = 128, 4, 128, 16, 16
+    # All upper tile-pairs: 4 diagonal tiles and 6 cross-tile pairs, (3, 0)
+    # the widest length spread.
+    (feats, lens, rep, ii, jj), kw = k1_inputs(dev, nT, d, seed=1)
+    wv, rows = kw["wv_max"], kw["rows"]
+    n_tp = len(ii)
     got = dtw_tile_lane_diag_pairs(feats, lens, rep, ii, jj, **kw)
     torch.cuda.synchronize()
     want = dtw_tile_lane_diag_pairs_ref(feats, lens, rep, ii, jj, **kw)
@@ -231,15 +340,25 @@ def phase2(dev) -> dict:
     oof_ref = dtw_tile_lane_diag_pairs_ref(*oof_args, **oof_kw)
     if not (bool(torch.isinf(oof).all()) and bool(torch.isinf(oof_ref).all())):
         fail("phase 2: out-of-frame pairs did not come back +inf")
+    # The other frame widths K1 is built for (2 tiles, all 3 tile-pairs).
+    for dd in SWEEP_DIMS:
+        args_d, kw_d = k1_inputs(dev, 2, dd, seed=20 + dd)
+        agree(f"phase 2 (d={dd})", dtw_tile_lane_diag_pairs(*args_d, **kw_d),
+              dtw_tile_lane_diag_pairs_ref(*args_d, **kw_d), K1_RTOL, K1_ATOL)
     ms = cuda_ms(lambda: dtw_tile_lane_diag_pairs(feats, lens, rep, ii, jj, **kw), 20)
     plain_ms = cuda_ms(lambda: dtw_tile_lane_diag_pairs_ref(feats, lens, rep, ii, jj, **kw), 3)
-    n_pairs = len(pairs) * ti * ti
-    log(f"phase 2: K1 vs plain on {len(pairs)} tile-pairs ({n_pairs} pairs, W={2 * wv + 2}, "
+    n_pairs = n_tp * ti * ti
+    cells = tile_call_cells(lens, ii, jj, ti, "diag", band)
+    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
+    log(f"phase 2: K1 vs plain on {n_tp} tile-pairs ({n_pairs} pairs, W={2 * wv + 2}, "
         f"rows={rows}): max abs err {max_abs:.3g} (rtol {K1_RTOL}, atol {K1_ATOL}); "
-        f"sqeuclidean and cosine agree; out-of-frame all +inf")
-    log(f"phase 2: K1 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
-        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        f"sqeuclidean and cosine agree; out-of-frame all +inf; d={SWEEP_DIMS} agree "
+        f"(float4s a frame {[strip_channels(x) for x in SWEEP_DIMS]})")
+    log(f"phase 2: K1 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, {cells:.4g} corridor "
+        f"cells, {rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
+        f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def golden_config():
@@ -363,7 +482,12 @@ def tile_ranges(lens_np, nT: int, ti: int) -> tuple[list[int], list[int]]:
 
 
 def phase6(dev) -> dict:
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_pairs, dtw_tile_pairs_ref
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        _tile_strip_rows,
+        dtw_tile_pairs,
+        dtw_tile_pairs_ref,
+        strip_channels,
+    )
 
     ti, nT, S, d = 128, 4, 256, 16
     feats, lens = sorted_corpus(ti * nT, S, d, 8, 256, seed=6, dev=dev)
@@ -394,16 +518,34 @@ def phase6(dev) -> dict:
     over = (lens[ti:2 * ti] > rows_cut)[:, None].expand_as(cut)
     if not (bool(torch.isinf(cut[over]).all()) and bool(torch.isfinite(cut[~over]).all())):
         fail("phase 6: a rows shortfall did not give +inf on exactly the cut rows")
+    # Every (strip height, frame width) K2 is built for: both padded lengths
+    # the scheduler sends it (R=8 past S=128), d=16 and the other widths, on
+    # a cross and a diagonal tile-pair of 2 tiles.
+    variants = set()
+    for S_w in (128, 256):
+        for dd in (d, *SWEEP_DIMS):
+            f_w, l_w = sorted_corpus(ti * 2, S_w, dd, 8, S_w, seed=S_w + dd, dev=dev)
+            sub_w = (torch.tensor([0, 1], dtype=torch.int32, device=dev),
+                     torch.tensor([1, 1], dtype=torch.int32, device=dev))
+            kw_w = dict(ti=ti, rows=int(l_w.max()))
+            agree(f"phase 6 (S={S_w}, d={dd})", dtw_tile_pairs(f_w, l_w, *sub_w, **kw_w),
+                  dtw_tile_pairs_ref(f_w, l_w, *sub_w, **kw_w), K2_RTOL, K2_ATOL)
+            variants.add((_tile_strip_rows(S_w, strip_channels(dd)), strip_channels(dd)))
     ms = cuda_ms(lambda: dtw_tile_pairs(feats, lens, ii, jj, **kw), 10)
     plain_ms = cuda_ms(lambda: dtw_tile_pairs_ref(feats, lens, ii, jj, **kw), 1, warm=False)
     n_pairs = len(pairs) * ti * ti
+    cells = tile_call_cells(lens, ii, jj, ti, "full")
+    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
     log(f"phase 6: K2 vs plain on {len(pairs)} tile-pairs ({n_pairs} pairs, S={S}, "
         f"rows={kw['rows']}): max abs err {max_abs:.3g} (rtol {K2_RTOL}, atol {K2_ATOL}); "
         f"sqeuclidean, cosine and widen band 8 agree; rows shortfall +inf on "
-        f"{int(over[:, 0].sum())} cut rows")
-    log(f"phase 6: K2 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
-        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        f"{int(over[:, 0].sum())} cut rows; (rows a strip, float4s a frame) "
+        f"{sorted(variants)} agree")
+    log(f"phase 6: K2 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, {cells:.4g} cells, "
+        f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
+        f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase7(dev) -> dict:
@@ -444,12 +586,16 @@ def phase7(dev) -> dict:
             fail(f"phase 7: a {tag} shortfall did not give +inf on exactly the cut pairs")
     ms = cuda_ms(lambda: dtw_tile_lane_full_pairs(feats, lens, ii, jj, **kw), 3)
     n_pairs = 3 * ti * ti
+    cells = tile_call_cells(lens, ii, jj, ti, "full")
+    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
     log(f"phase 7: K3 vs plain on 3 tile-pairs ({n_pairs} pairs, S={S}, width {kw['width']}): "
         f"max abs err {max_abs:.3g} (rtol {K3_RTOL}, atol {K3_ATOL}); width and rows "
         f"shortfalls +inf on exactly the cut pairs")
-    log(f"phase 7: K3 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
-        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    log(f"phase 7: K3 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, "
+        f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
+        f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase8(tmp: Path) -> dict:
@@ -601,9 +747,14 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int)
             fail(f"{tag}: D[{a},{b}]={D[a, b]} vs oracle {ref}")
     s = {k: round(v, 3) if isinstance(v, float) else v for k, v in stats.items()}
     mode = "unbanded" if cfg.band is None else f"band {cfg.band}, {cfg.band_mode}"
+    kind = {"tile": "full", "diag": "diag", "widen": "widen"}[route]
+    cells = job_cells(lens_np, kind, cfg.band)
+    bound_ms, _ = bound(cells, d, K * S * d * 4.0 + K * K * 4.0)
     log(f"{tag}: config 4 all-pairs K={K} ({mode}): {n_pairs} pairs in "
         f"{wall:.2f} s = {n_pairs / wall:.0f} pairs/s; kernel device time "
-        f"{stats['kernel_s']:.3f} s ({stats['kernel_s'] / wall:.1%} of wall), launches {names}; "
+        f"{stats['kernel_s']:.3f} s ({stats['kernel_s'] / wall:.1%} of wall; {cells:.4g} cells, "
+        f"{rate_line(stats['kernel_s'] * 1e3, cells, bound_ms)}), scatter "
+        f"{stats['scatter_s']:.3f} s, launches {names}; "
         f"64 pairs match plain dtw_batch, 8 match the oracle; stats {s}")
     return launches
 
@@ -663,13 +814,17 @@ def phase12(dev) -> dict:
     ms = cuda_ms(lambda: dtw_tile_lane_pairs(feats, lens, ii, jj, **kw), 20)
     plain_ms = cuda_ms(lambda: dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw), 1, warm=False)
     n_pairs = len(pairs) * ti * ti
+    cells = tile_call_cells(lens, ii, jj, ti, "widen", band)
+    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
     log(f"phase 12: K4 vs plain on {len(pairs)} tile-pairs ({n_pairs} pairs, S={S}, band {band}, "
         f"wv_max {wv}, W={2 * wv + 2}): max abs err {max_abs:.3g} (rtol {K4_RTOL}, atol "
         f"{K4_ATOL}); sqeuclidean, cosine and a hard band agree; rows and wv_max shortfalls "
         f"+inf on exactly the cut pairs")
-    log(f"phase 12: K4 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
-        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    log(f"phase 12: K4 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, "
+        f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
+        f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase13(dev) -> dict:
@@ -703,12 +858,16 @@ def phase13(dev) -> dict:
     shortfall("phase 13 (wv_max)", cut, got[1], diffs > w_cut)
     ms = cuda_ms(lambda: dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw), 3)
     n_pairs = 3 * ti * ti
+    cells = tile_call_cells(lens, ii, jj, ti, "widen", band)
+    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
     log(f"phase 13: K5 vs plain on 3 tile-pairs ({n_pairs} pairs, S={S}, band {band}, wv_max "
         f"{wv}): max abs err {max_abs:.3g} (rtol {K5_RTOL}, atol {K5_ATOL}); rows and wv_max "
         f"shortfalls +inf on exactly the cut pairs")
-    log(f"phase 13: K5 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s), "
-        f"plain {plain_ms:.3f} ms/call ({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    log(f"phase 13: K5 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, "
+        f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
+        f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase14(dev) -> dict:
@@ -784,6 +943,9 @@ def phase16(dev) -> dict:
         k6.setdefault("max_abs_err", err)
     k6["ms"] = cuda_ms(lambda: dtw_batch_pallas(*args6, band=16), 20)
     k6["plain_ms"] = cuda_ms(lambda: dtw_batch_pallas_ref(*args6, band=16), 1, warm=False)
+    k6["bound_ms"], k6["bound_by"] = bound(
+        float(pair_cells(args6[2], args6[3], "widen", 16).sum()), 16,
+        2 * 4096 * (128 * 16 + 1) * 4.0 + 4096 * 4.0)
     # K7 at a long bucket: 512 gathered pairs of 900-1024 frames, S=1024,
     # in the max_len_diff class 63 (a 128-slot stripe on the reference).
     B, S, d = 512, 1024, 16
@@ -802,13 +964,17 @@ def phase16(dev) -> dict:
     shortfall("phase 16 (K7 max_len_diff)", _dtw_batch_stripe(*args7, band=16, max_len_diff=31),
               got7, (la - lb).abs() > 31)
     k7["ms"] = cuda_ms(lambda: _dtw_batch_stripe(*args7, band=16, max_len_diff=63), 5)
+    k7["bound_ms"], k7["bound_by"] = bound(float(pair_cells(la, lb, "widen", 16).sum()), d,
+                                           2 * B * (S * d + 1) * 4.0 + B * 4.0)
     log(f"phase 16: K6 vs plain on 4096 gathered pairs (S=128, widen band 16 and unbanded): max "
         f"abs err {k6['max_abs_err']:.3g} (rtol {K6_RTOL}, atol {K6_ATOL}); K6 {k6['ms']:.3f} "
-        f"ms/call, plain {k6['plain_ms']:.3f} ms/call")
+        f"ms/call (bound {k6['bound_ms']:.4f} ms, {k6['bound_ms'] / k6['ms']:.1%} of it), "
+        f"plain {k6['plain_ms']:.3f} ms/call")
     log(f"phase 16: K7 vs plain on {B} gathered pairs (S={S}, band 16, max_len_diff 63): max abs "
         f"err {k7['max_abs_err']:.3g} (rtol {K7_RTOL}, atol {K7_ATOL}); max_len_diff shortfall "
-        f"+inf on exactly the cut pairs; K7 {k7['ms']:.3f} ms/call, plain {k7['plain_ms']:.3f} "
-        f"ms/call")
+        f"+inf on exactly the cut pairs; K7 {k7['ms']:.3f} ms/call (bound "
+        f"{k7['bound_ms']:.4f} ms, {k7['bound_ms'] / k7['ms']:.1%} of it), plain "
+        f"{k7['plain_ms']:.3f} ms/call")
 
     # The per-pair route: a K=2,048 slice of the config-4 corpus and a job of
     # 256 sequences of 900-1024 frames, each against the tiled widen D.
@@ -845,14 +1011,13 @@ def phase17(tmp: Path) -> dict:
     corpus = tmp / "lenvar"
     make_corpus(corpus, n_clips=10, n_motifs=3, motif_seconds=(0.15, 0.6), seed=11)
     runs = {}
-    for where, env in (("card", None), ("cpu", {"CUDA_VISIBLE_DEVICES": ""})):
+    for where, device in (("card", "cuda"), ("cpu", "cpu")):
         out = tmp / f"lenvar_widen_{where}"
         cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus), "-o",
-               str(out), "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
+               str(out), "--device", device, "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
                "-s", "autoencoder.method=pca"]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
-                              env=None if env is None else {**os.environ, **env})
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
             fail(f"phase 17: CLI on the {where} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
@@ -885,8 +1050,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     import audio_pattern_discovery_tpu_torch  # noqa: F401  (sets the TF32 flags)
 
+    # library_ms: no PyTorch call computes DTW.
     kernels = {name: {"name": fn, "route": "cuda", "source": f"{CSRC}/{name}.cu",
-                      "replaces": replaces}
+                      "replaces": replaces, "library_ms": None}
                for name, (fn, replaces) in KERNELS.items()}
     k1, k2, k3, k4, k5, k6, k7 = (kernels[name] for name in KERNELS)
 

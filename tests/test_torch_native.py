@@ -50,11 +50,11 @@ def test_no_openmp_build_scatters_like_numpy(no_openmp_lib, monkeypatch, norm):
         if not direct:
             monkeypatch.setattr(tps, "_DIRECT_SCATTER_BYTES", 0)
         stats = {}
-        got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats)
+        got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats, device="cpu")
         assert stats["native_scatter"] and not stats["native_openmp"]
         with monkeypatch.context() as m:
             m.setenv("APD_NO_NATIVE_SCATTER", "1")
-            want = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats)
+            want = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats, device="cpu")
         assert not stats["native_scatter"]
         np.testing.assert_array_equal(got, want)
 

@@ -35,7 +35,7 @@ def test_scheduler_matches_jax_tiled(metric):
         chunk_programs=4,
     )
     cfg = DTWConfig(band=4, band_mode="diag", normalize="path_len", metric=metric)
-    got = tps.all_pairs_distances(feats, lens, cfg)
+    got = tps.all_pairs_distances(feats, lens, cfg, device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(np.diag(got), 0.0)
     np.testing.assert_array_equal(got, got.T)
@@ -49,7 +49,7 @@ def test_tiling_does_not_change_distances(ti, chunk):
     cfg = DTWConfig(band=3, band_mode="diag", normalize="path_len")
     stats = {}
     got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=ti,
-                                        chunk_programs=chunk, stats=stats)
+                                        chunk_programs=chunk, stats=stats, device="cpu")
     want = jps.all_pairs_distances(
         feats, lens, JCfg(band=3, band_mode="diag", normalize="path_len"), tiled=False
     )
@@ -64,9 +64,9 @@ def test_unnormalized_torch_features_and_numpy_scatter(monkeypatch):
     # normalization, and the NumPy twin of the native scatter.
     feats, lens = _case(14, K=21)
     cfg = DTWConfig(band=5, band_mode="diag", normalize="none")
-    with_native = tps.all_pairs_distances(torch.from_numpy(feats), lens, cfg)
+    with_native = tps.all_pairs_distances(torch.from_numpy(feats), lens, cfg, device="cpu")
     monkeypatch.setenv("APD_NO_NATIVE_SCATTER", "1")
-    numpy_scatter = tps.all_pairs_distances(feats, lens, cfg)
+    numpy_scatter = tps.all_pairs_distances(feats, lens, cfg, device="cpu")
     np.testing.assert_array_equal(with_native, numpy_scatter)
     want = jps.all_pairs_distances(
         feats, lens, JCfg(band=5, band_mode="diag", normalize="none"), tiled=False
@@ -77,12 +77,13 @@ def test_unnormalized_torch_features_and_numpy_scatter(monkeypatch):
 def test_strip_assembly_matches_direct(monkeypatch):
     feats, lens = _case(15, K=23)
     cfg = DTWConfig(band=4, band_mode="diag", normalize="path_len")
-    direct = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4)
+    direct = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu")
     monkeypatch.setattr(tps, "_DIRECT_SCATTER_BYTES", 0)
-    strips = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4)
+    strips = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu")
     np.testing.assert_array_equal(direct, strips)
     monkeypatch.setenv("APD_NO_NATIVE_SCATTER", "1")
-    np.testing.assert_array_equal(direct, tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4))
+    np.testing.assert_array_equal(
+        direct, tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu"))
 
 
 def test_class_fn_and_merge_equal_jax():
@@ -108,7 +109,8 @@ def test_class_fn_and_merge_equal_jax():
 
 def test_tiny_corpus():
     cfg = DTWConfig(band=2, band_mode="diag")
-    assert tps.all_pairs_distances(np.zeros((1, 4, 2), np.float32), [4], cfg).shape == (1, 1)
+    D = tps.all_pairs_distances(np.zeros((1, 4, 2), np.float32), [4], cfg, device="cpu")
+    assert D.shape == (1, 1)
 
 
 @pytest.mark.parametrize(
@@ -122,7 +124,7 @@ def test_tiny_corpus():
 def test_unported_routes_raise(cfg, match):
     feats, lens = _case(17, K=4, L=cfg.max_seq_len if cfg.max_seq_len > 4096 else 32)
     with pytest.raises(NotImplementedError, match=match):
-        tps.all_pairs_distances(feats, lens, cfg)
+        tps.all_pairs_distances(feats, lens, cfg, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -179,7 +181,8 @@ def test_unbanded_tile_route_matches_jax_tiled(metric):
                                          geometry=(16, 4, 8))
     stats = {}
     got = tps.all_pairs_distances_tiled(
-        feats, lens, DTWConfig(band=None, normalize="path_len", metric=metric), stats=stats)
+        feats, lens, DTWConfig(band=None, normalize="path_len", metric=metric), stats=stats,
+        device="cpu")
     assert stats["route"] == "tile"
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(np.diag(got), 0.0)
@@ -199,7 +202,7 @@ def test_unbanded_full_route_matches_jax_tiled():
                                          geometry=(4, 0, 0), lane=True)
     stats = {}
     got = tps.all_pairs_distances_tiled(feats, lens, DTWConfig(band=None, normalize="path_len"),
-                                        ti=4, stats=stats)
+                                        ti=4, stats=stats, device="cpu")
     assert stats["route"] == "full"
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     legacy = jps.all_pairs_distances(feats, lens, jcfg, tiled=False)

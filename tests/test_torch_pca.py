@@ -32,7 +32,7 @@ def _frames(seed, n=1500, d=20, k=4):
 @pytest.mark.parametrize("whiten", [True, False])
 def test_fit_matches_jax(whiten):
     x = _frames(1)
-    got, want = fit_pca(x, 4, whiten=whiten), j_fit(x, 4, whiten=whiten)
+    got, want = fit_pca(x, 4, whiten=whiten, device="cpu"), j_fit(x, 4, whiten=whiten)
     np.testing.assert_allclose(got.mean, want.mean, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.components, want.components, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.scale, want.scale, rtol=1e-4)
@@ -63,9 +63,9 @@ def test_scaler_matches_jax_on_host_and_tensors():
 
 def test_fit_is_deterministic_and_validates():
     x = _frames(4)
-    a, b = fit_pca(x, 5), fit_pca(torch.from_numpy(x), 5)
+    a, b = fit_pca(x, 5, device="cpu"), fit_pca(torch.from_numpy(x), 5, device="cpu")
     np.testing.assert_array_equal(a.components, b.components)
     with pytest.raises(ValueError, match="n_components"):
-        fit_pca(x, 21)
+        fit_pca(x, 21, device="cpu")
     with pytest.raises(ValueError, match="frames"):
-        fit_pca(x[:1], 2)
+        fit_pca(x[:1], 2, device="cpu")

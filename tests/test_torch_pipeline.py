@@ -101,7 +101,7 @@ def test_discover_matches_jax_pipeline_stagewise(seed7):
 
 def test_cli_writes_artifacts(seed7, tmp_path, capsys):
     out = tmp_path / "out"
-    rc = cli_main([str(seed7), "-o", str(out), "-s", "dtw.band=16",
+    rc = cli_main([str(seed7), "-o", str(out), "--device", "cpu", "-s", "dtw.band=16",
                    "-s", "autoencoder.method=pca", "-s", "autoencoder.latent_dim=8",
                    "-s", "output.write_images=false"])
     assert rc == 0
@@ -185,8 +185,8 @@ def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path):
     with pytest.raises(NotImplementedError, match="update"):
         discover(seed7, cfg, update_from=tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="--update"):
-        cli_main([str(seed7), "-o", str(tmp_path), "--update", "-s", "dtw.band=16",
-                  "-s", "autoencoder.method=pca"])
+        cli_main([str(seed7), "-o", str(tmp_path), "--device", "cpu", "--update",
+                  "-s", "dtw.band=16", "-s", "autoencoder.method=pca"])
     for flag in (["--query", "x.wav"], ["--serve", "sock"]):
         with pytest.raises(NotImplementedError, match="query"):
             cli_main(flag)
@@ -212,6 +212,49 @@ def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path):
     )
     want = paths_from_dirs(dirs.numpy(), lens[[0, 0]], lens[[1, 2]])
     assert [got[1], got[2]] == want
+
+
+@pytest.mark.parametrize("entry", ["discover", "cli", "all_pairs_distances",
+                                   "all_pairs_distances_tiled", "all_pairs_distances_per_pair",
+                                   "fit_pca", "spectrogram_corpus"])
+def test_no_card_raises_unless_cpu_is_asked_for(seed7, tmp_path, monkeypatch, entry):
+    # The entry points default to the card; without one they raise and name
+    # the explicit CPU choice instead of carrying on on the CPU.
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig, SpectrogramConfig
+    from audio_pattern_discovery_tpu_torch.models.pca import fit_pca
+    from audio_pattern_discovery_tpu_torch.ops.spectrogram import spectrogram_corpus
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as tps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feats, lens = np.zeros((3, 8, 2), np.float32), np.array([8, 7, 6], np.int32)
+    cfg = DTWConfig(band=2, band_mode="diag")
+    frames = np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32)
+    clips = [np.ones(2048, np.float32)]
+    calls = {
+        "fit_pca": lambda **kw: fit_pca(frames, 2, **kw),
+        "spectrogram_corpus":
+            lambda **kw: spectrogram_corpus(clips, SpectrogramConfig(), **kw),
+        "discover": lambda **kw: discover(seed7, _golden_config(), **kw),
+        "cli": lambda **kw: cli_main([str(seed7), "-o", str(tmp_path / "out"),
+                                      "-s", "autoencoder.method=pca",
+                                      *(["--device", kw["device"]] if kw else [])]),
+        "all_pairs_distances": lambda **kw: tps.all_pairs_distances(feats, lens, cfg, **kw),
+        "all_pairs_distances_tiled":
+            lambda **kw: tps.all_pairs_distances_tiled(feats, lens, cfg, **kw),
+        "all_pairs_distances_per_pair":
+            lambda **kw: tps.all_pairs_distances_per_pair(feats, lens, cfg, **kw),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    if entry != "cli":
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            calls[entry](device="cuda")
+    if entry.startswith("all_pairs"):
+        assert calls[entry](device="cpu").shape == (3, 3)
+    elif entry == "fit_pca":
+        assert calls[entry](device="cpu").components.shape == (3, 2)
+    elif entry == "spectrogram_corpus":
+        assert calls[entry](device="cpu")[0].shape[0] == 1
 
 
 def test_discover_unbanded_matches_jax_pipeline(seed7):
@@ -256,9 +299,10 @@ def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
         lambda: discover(seed7, _golden_config(), update_from=tmp_path, device="cpu"),
         lambda: cli_main(["--serve", "sock"]),
         lambda: all_pairs_distances(np.zeros((2, 4200, 2), np.float32), [4200, 4100],
-                                    DTWConfig(band=None)),
+                                    DTWConfig(band=None), device="cpu"),
         lambda: all_pairs_distances(np.zeros((2, 8, 2), np.float32), [8, 7],
-                                    DTWConfig(band=4, band_mode="widen"), known=(1, np.zeros((1, 1)))),
+                                    DTWConfig(band=4, band_mode="widen"), known=(1, np.zeros((1, 1))),
+                                    device="cpu"),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError) as info:
@@ -315,7 +359,8 @@ def test_discover_widen_matches_jax_pipeline(lenvar):
 
 def test_cli_runs_widen(lenvar, tmp_path, capsys):
     out = tmp_path / "out"
-    rc = cli_main([str(lenvar), "-o", str(out), "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
+    rc = cli_main([str(lenvar), "-o", str(out), "--device", "cpu", "-s", "dtw.band=16",
+                   "-s", "dtw.band_mode=widen",
                    "-s", "autoencoder.method=pca", "-s", "output.write_images=false"])
     assert rc == 0
     summary = json.loads(capsys.readouterr().out)

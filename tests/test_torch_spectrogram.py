@@ -76,7 +76,7 @@ def test_corpus_matches_jax_corpus(feature):
     sigs = _clips(3, n=7)
     kw = dict(win_length=128, hop_length=32, feature=feature, n_mels=12, n_mfcc=8,
               sample_rate=16_000)
-    got, fc, en = tsp.spectrogram_corpus(sigs, SpectrogramConfig(**kw),
+    got, fc, en = tsp.spectrogram_corpus(sigs, SpectrogramConfig(**kw), device="cpu",
                                          clip_batch=3, chunk_frames=10)
     want, fc_j, en_j = jsp.spectrogram_corpus(sigs, JSpecCfg(**kw),
                                               clip_batch=3, chunk_frames=10)
@@ -91,8 +91,8 @@ def test_corpus_matches_jax_corpus(feature):
 def test_corpus_tiling_matches_single_shot_and_device_assembly():
     sigs = _clips(4, n=6)
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
-    specs, fcs, _ = tsp.spectrogram_corpus(sigs, cfg, clip_batch=4, chunk_frames=7)
-    dev, fcs_d, _ = tsp.spectrogram_corpus(sigs, cfg, clip_batch=2, chunk_frames=1000,
+    specs, fcs, _ = tsp.spectrogram_corpus(sigs, cfg, device="cpu", clip_batch=4, chunk_frames=7)
+    dev, fcs_d, _ = tsp.spectrogram_corpus(sigs, cfg, device="cpu", clip_batch=2, chunk_frames=1000,
                                            return_device=True)
     assert isinstance(dev, torch.Tensor)
     np.testing.assert_array_equal(fcs, fcs_d)
@@ -114,8 +114,8 @@ def test_int16_decode_equals_host_normalization():
     f32 = [r.astype(np.float32) / 32768.0 for r in raw]
     peaks = np.array([max(np.abs(s).max(), 1e-9) for s in f32], np.float32)
     want, fc_w, en_w = tsp.spectrogram_corpus([s / p for s, p in zip(f32, peaks)], cfg,
-                                              clip_batch=3)
-    got, fc_g, en_g = tsp.spectrogram_corpus(raw, cfg, clip_batch=3, scales=peaks)
+                                              device="cpu", clip_batch=3)
+    got, fc_g, en_g = tsp.spectrogram_corpus(raw, cfg, device="cpu", clip_batch=3, scales=peaks)
     np.testing.assert_array_equal(fc_w, fc_g)
     np.testing.assert_array_equal(want, got)
     np.testing.assert_array_equal(en_w, en_g)
@@ -124,13 +124,14 @@ def test_int16_decode_equals_host_normalization():
 def test_short_clip_and_errors():
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
     sigs = [np.ones(500, np.float32), np.ones(10, np.float32)]
-    specs, fcs, _ = tsp.spectrogram_corpus(sigs, cfg)
+    specs, fcs, _ = tsp.spectrogram_corpus(sigs, cfg, device="cpu")
     assert fcs[1] == 0 and fcs[0] > 0
     assert (specs[1] == tsp.feature_pad_fill(cfg)).all()
     with pytest.raises(ValueError, match="empty corpus"):
-        tsp.spectrogram_corpus([], cfg)
+        tsp.spectrogram_corpus([], cfg, device="cpu")
     with pytest.raises(ValueError, match="share a dtype"):
-        tsp.spectrogram_corpus([np.ones(100, np.float32), np.ones(100, np.int16)], cfg)
+        tsp.spectrogram_corpus([np.ones(100, np.float32), np.ones(100, np.int16)], cfg,
+                               device="cpu")
 
 
 def test_frame_energy_matches_jax():

@@ -59,11 +59,11 @@ def test_widen_gate(monkeypatch):
     monkeypatch.setattr(tps, "dtw_tile_lane_pairs", spy(tk.dtw_tile_lane_pairs))
     monkeypatch.setattr(tps, "dtw_tile_stripe_pairs", spy(tk.dtw_tile_stripe_pairs))
     cfg = DTWConfig(band=4, band_mode="widen", normalize="path_len")
-    got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8)
+    got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, device="cpu")
     assert {k for k, _ in calls} == {tk.dtw_tile_lane_pairs, tk.dtw_tile_stripe_pairs}
     assert all((k is tk.dtw_tile_lane_pairs) == (2 * wv + 2 <= tps.LANE_MAX_W) for k, wv in calls)
     calls.clear()
-    forced = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stripe=True)
+    forced = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stripe=True, device="cpu")
     assert {k for k, _ in calls} == {tk.dtw_tile_stripe_pairs}
     np.testing.assert_array_equal(got, forced)
 
@@ -115,7 +115,8 @@ def test_widen_tiled_routes_match_jax_per_pair(route, auto, metric):
                       metric=metric)
     stats = {}
     got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats,
-                                        lane=route == "lane", stripe=route == "stripe")
+                                        lane=route == "lane", stripe=route == "stripe",
+                                        device="cpu")
     assert stats["route"] == "widen"
     want = jps.all_pairs_distances(feats, lens, jcfg, tiled=False)
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
@@ -126,7 +127,7 @@ def test_widen_tiled_routes_match_jax_per_pair(route, auto, metric):
     if not auto:
         assert np.isinf(got).any()
     # The default (per-class K4/K5) agrees with either forced kernel.
-    default = tps.all_pairs_distances(feats, lens, cfg)
+    default = tps.all_pairs_distances(feats, lens, cfg, device="cpu")
     np.testing.assert_allclose(default, got, rtol=1e-6, atol=1e-7)
 
 
@@ -144,7 +145,8 @@ def test_per_pair_matches_jax_per_pair(kw):
     cfg, jcfg = _cfgs(**kw)
     stats = {}
     before = (tk.dtw_batch_pallas.launches, tk._dtw_batch_stripe.launches)
-    got = tps.all_pairs_distances(feats, lens, cfg, tiled=False, bucket_step=8, stats=stats)
+    got = tps.all_pairs_distances(feats, lens, cfg, tiled=False, bucket_step=8, stats=stats,
+                                  device="cpu")
     assert (tk.dtw_batch_pallas.launches, tk._dtw_batch_stripe.launches) == before
     want = jps.all_pairs_distances(feats, lens, jcfg, tiled=False, bucket_step=8)
     assert stats["route"] == "per_pair" and stats["blocks"] > 1
@@ -166,8 +168,8 @@ def test_per_pair_stripe_buckets_match_tiled_and_jax():
     cfg, jcfg = _cfgs(band=8, band_mode="widen", normalize="path_len")
     blocks = list(tps.enumerate_pair_blocks(lens, 64, 32, L, band=8))
     assert any(tk.stripe_width(bb, 8, True, mld) for _, bb, mld, _, _ in blocks)
-    got = tps.all_pairs_distances(feats, lens, cfg, tiled=False)
-    tiled = tps.all_pairs_distances(feats, lens, cfg)
+    got = tps.all_pairs_distances(feats, lens, cfg, tiled=False, device="cpu")
+    tiled = tps.all_pairs_distances(feats, lens, cfg, device="cpu")
     want = jps.all_pairs_distances(feats, lens, jcfg, tiled=False)
     np.testing.assert_allclose(got, tiled, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -178,13 +180,16 @@ def test_per_pair_unported_options_raise():
     cfg = DTWConfig(band=4, band_mode="widen")
     for kw in (dict(block_dir="blocks"), dict(known=(2, np.zeros((2, 2)))), dict(max_retries=1)):
         with pytest.raises(NotImplementedError, match="block persistence"):
-            tps.all_pairs_distances(feats, lens, cfg, tiled=False, **kw)
+            tps.all_pairs_distances(feats, lens, cfg, tiled=False, **kw, device="cpu")
     long_feats = np.zeros((3, 1100, 2), np.float32)
     with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
-        tps.all_pairs_distances(long_feats, [1100, 1090, 60], DTWConfig(band=None), tiled=False)
+        tps.all_pairs_distances(long_feats, [1100, 1090, 60], DTWConfig(band=None), tiled=False,
+                                device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
-        tps.all_pairs_distances(feats, lens, DTWConfig(band=4, dtype="bfloat16"), tiled=False)
+        tps.all_pairs_distances(feats, lens, DTWConfig(band=4, dtype="bfloat16"), tiled=False,
+                                device="cpu")
     with pytest.raises(ValueError, match="widen kernel"):
-        tps.all_pairs_distances_tiled(feats, lens, DTWConfig(band=4, band_mode="diag"), lane=True)
+        tps.all_pairs_distances_tiled(feats, lens, DTWConfig(band=4, band_mode="diag"), lane=True,
+                                      device="cpu")
     with pytest.raises(ValueError, match="widen kernel"):
-        tps.all_pairs_distances_tiled(feats, lens, cfg, lane=True, stripe=True)
+        tps.all_pairs_distances_tiled(feats, lens, cfg, lane=True, stripe=True, device="cpu")
