@@ -207,7 +207,7 @@ int launch(const float* x, const int* lengths, const int* tile_rep, const int* t
 
 }  // namespace
 
-// Strips of 4 rows (ops/dtw_cuda.py:K1_ROWS sizes the launch for them).
+// Strips of 4 rows (ops/dtw_cuda.py:STRIP_ROWS sizes the launch for them).
 // nc4: float4s per frame; the listed widths keep the strip's A frames in
 // registers, any other width reads them from shared memory.
 extern "C" int apd_dtw_lane_diag(

@@ -1,12 +1,15 @@
-// Row strips for K1 (dtw_lane_diag.cu) and K2 (dtw_tile.cu): the frame costs
-// of R consecutive A rows against one B frame, with B's frame loaded once.
+// Row strips for K1 (dtw_lane_diag.cu), K2 (dtw_tile.cu), K4 (dtw_lane.cu)
+// and K5 (dtw_tile_stripe.cu): the frame costs of R consecutive A rows
+// against one B frame, with B's frame loaded once.
 //
-// Both kernels read the corpus in the layout [nT, S, ti, 4*nc4] f32 that
-// ops/dtw_cuda.py:strip_layout builds: frame j of sequence t*ti + c is nc4
-// float4s at ((t*S + j)*ti + c)*nc4, channels past d zero.  A warp's threads
-// (neighbouring c) read one B frame as 32 neighbouring 16-byte chunks per
-// float4.  A zero channel adds fmaf(0, 0, acc) = acc, so a cost equals the
-// sum over the d real channels, taken in channel order 0..d-1: the same
+// K1, K2 and K4 (a thread per pair) read the corpus in the layout
+// [nT, S, ti, 4*nc4] f32 that ops/dtw_cuda.py:strip_layout builds: frame j
+// of sequence t*ti + c is nc4 float4s at ((t*S + j)*ti + c)*nc4, channels
+// past d zero.  A warp's threads (neighbouring c) read one B frame as 32
+// neighbouring 16-byte chunks per float4.  K5 (a warp per pair) reads
+// ops/dtw_cuda.py:frame_layout, [K, S, 4*nc4]: one sequence's frames
+// consecutive.  A zero channel adds fmaf(0, 0, acc) = acc, so a cost equals
+// the sum over the d real channels, taken in channel order 0..d-1: the same
 // fmaf chain, bit for bit, as one cell at a time.
 
 #pragma once

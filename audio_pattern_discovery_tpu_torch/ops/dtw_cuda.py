@@ -30,10 +30,12 @@ in the call, ``wv_max`` >= the stripe half-width from ``diag_class_bounds``.
 With them met every corridor cell lies in the frame and the distance is
 exact; a pair whose corner cell falls outside the frame comes back +inf.
 
-K1 and K2 walk each pair's DP in strips of rows (``csrc/dtw_strip.cuh``):
-each B frame is loaded once per strip and feeds the strip's cost builds.
-They read the corpus in one layout, ``strip_layout`` ([nT, S, ti, 4*nc4]),
-which the scheduler builds once a job and passes as ``frames=``.
+K1, K2, K4 and K5 walk each pair's DP in strips of rows
+(``csrc/dtw_strip.cuh``): each B frame is loaded once per strip and feeds
+the strip's cost builds.  K1, K2 and K4 (a thread per pair) read the corpus
+in ``strip_layout`` ([nT, S, ti, 4*nc4]), K5 (a warp per pair) in
+``frame_layout`` ([K, S, 4*nc4]); the scheduler builds each once a job and
+passes it as ``frames=``.
 
 K2 and K3 are exact DTW over the rectangle i < la, j < lb (K2 optionally
 banded).  Their twins evaluate the recurrence cell by cell (an
@@ -41,12 +43,12 @@ anti-diagonal wavefront vectorized over the gathered pairs) from the same
 squared-difference costs as the kernels, so a twin and its kernel differ
 only by rounding.
 
-K4, K5 and K7 hold each DP row in an unsheared stripe frame (slot s of row
-i is column i + s - (wv+1)) of the exact width 2*wv+2, where the reference
-rounds it up to 8 or 128 slots: a pair whose half-width exceeds the class
-bound wv then comes back +inf, where the reference's rounded frame could
-read a truncated value.  Their twins, and K6's, evaluate the same banded
-recurrence cell by cell.
+K4 and K7 hold each DP row in an unsheared stripe frame (slot s of row i
+is column i + s - (wv+1)) of the exact width 2*wv+2, and K5 a pair's own
+band (2*wv+1 slots at most), where the reference rounds the stripe up to 8
+or 128 slots: a pair whose half-width exceeds the class bound wv comes back
++inf, where the reference's rounded frame could read a truncated value.
+Their twins, and K6's, evaluate the same banded recurrence cell by cell.
 
 Not ported (TPU-only levers, measured null on the TPU): ``stack``,
 ``bgroup``, ``hoist_build``, ``dyn_roll=False`` with its ``kmax``, and the
@@ -67,10 +69,8 @@ import torch
 INF = float("inf")
 METRICS = {"euclidean": 0, "sqeuclidean": 1, "cosine": 2}
 
-# Shared-memory budget of one block (H100: 227 KB usable); K4's stripe takes
-# W * lanes floats and its staged A rows A_CHUNK_BYTES.
+# Shared-memory budget of one block (H100: 227 KB usable).
 _SMEM_BUDGET = 200 * 1024
-_A_CHUNK_BYTES = 16 * 1024
 # Shared memory of one H100 SM, and what the hardware reserves per block.
 _SM_SMEM = 228 * 1024
 _BLOCK_RESERVED = 1024
@@ -187,25 +187,55 @@ def strip_layout(feats: torch.Tensor, ti: int, metric: str = "euclidean") -> tor
     return out
 
 
-def _check_frames(frames: torch.Tensor | None, feats: torch.Tensor, ti: int,
-                  metric: str) -> torch.Tensor:
-    """``frames`` (a prebuilt ``strip_layout``) after checking it against the
-    corpus, or the layout built here."""
+def _check_layout(frames: torch.Tensor | None, feats: torch.Tensor, name: str,
+                  want: tuple[int, ...], build) -> torch.Tensor:
+    """``frames`` (a prebuilt layout called ``name`` of shape ``want``) after
+    checking it against the corpus, or ``build()`` when None."""
     if frames is None:
-        return strip_layout(feats, ti, metric)
-    K, S, d = feats.shape
-    want = (K // ti, S, ti, 4 * strip_channels(d))
+        return build()
     if (tuple(frames.shape) != want or frames.dtype != torch.float32
             or frames.device != feats.device or not frames.is_contiguous()):
-        raise ValueError(f"frames must be a contiguous float32 strip_layout {want} on "
+        raise ValueError(f"frames must be a contiguous float32 {name} {want} on "
                          f"{feats.device}, got {tuple(frames.shape)} {frames.dtype} "
                          f"on {frames.device}")
     return frames
 
 
-# Rows per strip of K1 (csrc/dtw_lane_diag.cu, fixed there): each B frame is
-# loaded once per strip and feeds this many cost builds.
-K1_ROWS = 4
+def _check_frames(frames: torch.Tensor | None, feats: torch.Tensor, ti: int,
+                  metric: str) -> torch.Tensor:
+    """``frames`` (a prebuilt ``strip_layout``) after checking it against the
+    corpus, or the layout built here."""
+    K, S, d = feats.shape
+    return _check_layout(frames, feats, "strip_layout", (K // ti, S, ti, 4 * strip_channels(d)),
+                         lambda: strip_layout(feats, ti, metric))
+
+
+def frame_layout(feats: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
+    """[K, S, 4*strip_channels(d)] f32: the corpus as K5 reads it.  Element
+    [k, j, ch] is frame j, channel ch of sequence k (of its unit frame for
+    cosine); channels past d are zero.  One sequence's frames are
+    consecutive, so a warp's lanes, each on a run of neighbouring columns,
+    read one contiguous span.  The scheduler builds it once a job and passes
+    it to every K5 launch (``frames=``)."""
+    K, S, d = feats.shape
+    out = torch.zeros((K, S, 4 * strip_channels(d)), dtype=torch.float32, device=feats.device)
+    out[..., :d] = _unit_frames(feats, metric)
+    return out
+
+
+def _check_frame_layout(frames: torch.Tensor | None, feats: torch.Tensor,
+                        metric: str) -> torch.Tensor:
+    """``frames`` (a prebuilt ``frame_layout``) after checking it against
+    the corpus, or the layout built here."""
+    K, S, d = feats.shape
+    return _check_layout(frames, feats, "frame_layout", (K, S, 4 * strip_channels(d)),
+                         lambda: frame_layout(feats, metric))
+
+
+# Rows per strip of K1, K4 and K5 (fixed in csrc/dtw_lane_diag.cu,
+# dtw_lane.cu and dtw_tile_stripe.cu): each B frame is loaded once per strip
+# and feeds this many cost builds.
+STRIP_ROWS = 4
 
 
 def _tile_strip_rows(S: int, nc4: int) -> int:
@@ -219,11 +249,12 @@ def _tile_strip_rows(S: int, nc4: int) -> int:
 
 
 def _strip_lanes(ti: int, state: int, nc4: int, R: int) -> int:
-    """Threads per block for K1 and K2: a block holds ``state`` floats of DP
-    state per thread (K2's boundary row of S floats, K1's stripe of W) and
-    the strip's staged A frames.  Bound by the serial chain's latency at low
-    occupancy, the launch keeps the most threads resident on an SM: the
-    width (128, 64 or 32) that fits the most, the widest on a tie."""
+    """Threads per block for K1, K2 and K4: a block holds ``state`` floats of
+    DP state per thread (K2's boundary row of S floats, K1's and K4's stripe
+    of W) and the strip's staged A frames.  Bound by the serial chain's
+    latency at low occupancy, the launch keeps the most threads resident on
+    an SM: the width (128, 64 or 32) that fits the most, the widest on a
+    tie."""
     best = None
     for lanes in sorted({min(ti, w) for w in (128, 64, 32)}, reverse=True):
         smem = 4 * (state * lanes + 4 * R * nc4)
@@ -240,19 +271,18 @@ def _strip_lanes(ti: int, state: int, nc4: int, R: int) -> int:
     return best[1]
 
 
-def _lanes(ti: int, W: int, d: int) -> tuple[int, int]:
-    """(threads per block, A rows staged per shared-memory chunk) for K4,
-    which holds a stripe of W floats per thread."""
-    a_chunk = max(1, _A_CHUNK_BYTES // (4 * d))
-    lanes = min(ti, 128)
-    while lanes > 32 and 4 * (W * lanes + a_chunk * d) > _SMEM_BUDGET:
-        lanes //= 2
-    if 4 * (W * lanes + a_chunk * d) > _SMEM_BUDGET:
+def _stripe_warps(ti: int, wv: int, nc4: int) -> int:
+    """Warps (one pair each) per block of K5: each holds the strip's A frames
+    (STRIP_ROWS x nc4 float4s) and a boundary row of 2*wv+1 floats rounded up
+    to whole float4s; at most 4 warps (the kernel's launch bound)."""
+    per_warp = 4 * (4 * STRIP_ROWS * nc4 + 4 * -(-(2 * int(wv) + 1) // 4))
+    warps = min(4, ti, _SMEM_BUDGET // per_warp)
+    if warps < 1:
         raise ValueError(
-            f"a DP state of {W} floats per thread does not fit one block's "
-            f"shared memory ({_SMEM_BUDGET} bytes at {lanes} lanes)"
+            f"a boundary row of {2 * int(wv) + 1} floats does not fit one block's shared "
+            f"memory ({_SMEM_BUDGET} bytes)"
         )
-    return lanes, a_chunk
+    return warps
 
 
 def dtw_tile_lane_diag_pairs(
@@ -295,7 +325,7 @@ def dtw_tile_lane_diag_pairs(
         return out
     x = _check_frames(frames, feats, ti, metric)
     nc4 = strip_channels(d)
-    lanes = _strip_lanes(ti, W, nc4, K1_ROWS)
+    lanes = _strip_lanes(ti, W, nc4, STRIP_ROWS)
     lengths, tile_rep = lengths.contiguous(), tile_rep.contiguous()
     ti_idx, tj_idx = ti_idx.contiguous(), tj_idx.contiguous()
     _launch(
@@ -729,6 +759,7 @@ def dtw_tile_lane_pairs(
     auto_widen: bool = True,
     metric: str = "euclidean",
     rows: int | None = None,
+    frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K4: widen-banded DTW for U tile-pairs -> [U, ti, ti] f32 (unnormalized).
 
@@ -737,11 +768,16 @@ def dtw_tile_lane_pairs(
     |j - i| <= pw, pw = ``max(band, |la - lb|)`` with ``auto_widen``, else
     ``band``.  Class contracts: ``rows`` >= every A length and ``wv_max`` >=
     every real pair's pw; a pair beyond either comes back +inf.
+    ``frames``: the corpus's ``strip_layout(feats, ti, metric)``, built once
+    by a caller that launches many times (checked on any device); built here
+    when None.
 
     CUDA tensors launch the kernel (``launches`` counts the launches); CPU
     tensors take the plain twin.  Any other device raises."""
     K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
     wv, _, W = _check_widen(band, wv_max)
+    if frames is not None:
+        _check_frames(frames, feats, ti, metric)
     if feats.device.type == "cpu":
         return dtw_tile_lane_pairs_ref(
             feats, lengths, ti_idx, tj_idx, ti=ti, band=band, wv_max=wv_max,
@@ -756,16 +792,14 @@ def dtw_tile_lane_pairs(
     out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
     if U == 0:
         return out
-    lanes, a_chunk = _lanes(ti, W, d)
-    a = _unit_frames(feats, metric).contiguous()
-    b = a.reshape(K // ti, ti, S, d).permute(0, 3, 2, 1).contiguous()   # [nT, d, S, ti]
+    x = _check_frames(frames, feats, ti, metric)
+    nc4 = strip_channels(d)
+    lanes = _strip_lanes(ti, W, nc4, STRIP_ROWS)
     lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
     _launch(
-        "dtw_lane", 6, 11,
-        a.data_ptr(), b.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
-        tj_idx.data_ptr(), out.data_ptr(),
-        S, d, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric],
-        lanes, a_chunk,
+        "dtw_lane", 5, 10,
+        x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
+        S, nc4, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric], lanes,
         stream=torch.cuda.current_stream(feats.device).cuda_stream,
     )
     dtw_tile_lane_pairs.launches += 1
@@ -819,15 +853,20 @@ def dtw_tile_stripe_pairs(
     auto_widen: bool = True,
     metric: str = "euclidean",
     rows: int | None = None,
+    frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K5: K4's function and contracts with one warp per pair, each pair
     walking only its own band: faster than K4 for wide class stripes ->
-    [U, ti, ti] f32 (unnormalized).
+    [U, ti, ti] f32 (unnormalized).  ``frames``: the corpus's
+    ``frame_layout(feats, metric)``, built once by a caller that launches
+    many times (checked on any device); built here when None.
 
     CUDA tensors launch the kernel (``launches`` counts the launches); CPU
     tensors take the plain twin (K4's).  Any other device raises."""
     K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
     wv, _, _ = _check_widen(band, wv_max)
+    if frames is not None:
+        _check_frame_layout(frames, feats, metric)
     if feats.device.type == "cpu":
         return dtw_tile_lane_pairs_ref(
             feats, lengths, ti_idx, tj_idx, ti=ti, band=band, wv_max=wv_max,
@@ -840,15 +879,14 @@ def dtw_tile_stripe_pairs(
     out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
     if U == 0:
         return out
-    warps = _full_warps(ti, 2 * wv + 1, d)
-    a = _unit_frames(feats, metric).contiguous()
-    bt = a.permute(0, 2, 1).contiguous()                                # [K, d, S]
+    x = _check_frame_layout(frames, feats, metric)
+    nc4 = strip_channels(d)
+    warps = _stripe_warps(ti, wv, nc4)
     lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
     _launch(
-        "dtw_tile_stripe", 6, 10,
-        a.data_ptr(), bt.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
-        tj_idx.data_ptr(), out.data_ptr(),
-        S, d, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric], warps,
+        "dtw_tile_stripe", 5, 10,
+        x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
+        S, nc4, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric], warps,
         stream=torch.cuda.current_stream(feats.device).cuda_stream,
     )
     dtw_tile_stripe_pairs.launches += 1

@@ -61,6 +61,7 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     dtw_tile_lane_pairs,
     dtw_tile_pairs,
     dtw_tile_stripe_pairs,
+    frame_layout,
     pallas_supported,
     scan_len_diff_classes,
     strip_layout,
@@ -122,11 +123,15 @@ def route_for(L: int, cfg: DTWConfig) -> str:
 
 
 # The widest class stripe (2*wv+2 slots) that K4 takes; wider classes go to
-# K5.  Measured on the H100 (PERF.md section 6), 10 tile-pairs at S=128: K4 is
-# 1.6x faster at 34 slots, the two tie at 58-66, K5 is 1.6x faster at 98
-# and 2.2x at 130.  K4 walks the class's whole stripe per thread, K5 only
-# each pair's own band, one warp per pair.
-LANE_MAX_W = 64
+# K5.  Measured on the H100 (chip_smoke.py --crossover, PERF.md section 6),
+# K4 time over K5 time on one job per stripe: 0.17-0.23 at 34-144 slots
+# (S=128), 0.48 at 258 (S=256), 0.76 at 258 and 0.93 at 322 (S=512); 1.26
+# at 386, 1.11 at 450 and 1.37 at 514 (S=512), 1.32-4.22 at 386-1026
+# (S=1024).  Both walk each pair's own band in strips; K4 keeps a thread's
+# class stripe in shared memory, which caps its residency as the stripe
+# grows, K5 a warp's boundary row.  320 is the ladder's last width at or
+# below 322.
+LANE_MAX_W = 320
 
 
 def widen_kernel(wv_cls: int) -> Callable:
@@ -361,7 +366,8 @@ def all_pairs_distances_tiled(
     ``stats`` receives the route, host seconds per activity (dispatch,
     collect: waiting for a chunk's copy, scatter, upload), whether the
     native scatter ran and with OpenMP, and, on a CUDA device, ``kernel_s``:
-    the kernel launches' device time from CUDA events around each launch.
+    the kernel launches' device time from CUDA events around each launch,
+    and ``kernel_s_by``: that time per kernel entry name.
     The default device is the card; without one, pass ``device="cpu"``."""
     device = resolve_device(device)
     K, L, d = features.shape
@@ -430,6 +436,13 @@ def all_pairs_distances_tiled(
     else:
         pair_class = make_tile_lane_full_class_fn(lens_p, nT, ti, Lp, K)
 
+    def kernel_of(cls: tuple[int, ...]) -> Callable:
+        if route == "diag":
+            return dtw_tile_lane_diag_pairs
+        if route == "widen":
+            return forced or widen_kernel(cls[1])
+        return dtw_tile_pairs if route == "tile" else dtw_tile_lane_full_pairs
+
     def launch(ii: torch.Tensor, jj: torch.Tensor, cls: tuple[int, ...]) -> torch.Tensor:
         if route == "diag":
             return dtw_tile_lane_diag_pairs(
@@ -437,10 +450,11 @@ def all_pairs_distances_tiled(
                 wv_max=cls[1], metric=cfg.metric, rows=cls[0], frames=frames,
             )
         if route == "widen":
-            kernel = forced or widen_kernel(cls[1])
+            kernel = kernel_of(cls)
             return kernel(
                 feats_p, lens_dev, ii, jj, ti=ti, band=int(cfg.band), wv_max=cls[1],
                 auto_widen=cfg.auto_widen_band, metric=cfg.metric, rows=cls[0],
+                frames=widen_frames[kernel],
             )
         if route == "tile":
             return dtw_tile_pairs(
@@ -470,12 +484,25 @@ def all_pairs_distances_tiled(
                 np.array([p[1] for p in part], np.int32),
                 cls,
             ))
+    # The widen route's layouts, built once a job for the kernels its classes
+    # take: K4's strip layout, K5's frame layout (on the CPU too, where the
+    # wrappers check them and run the twin).
+    t_up = time.perf_counter()
+    widen_frames: dict[Callable, torch.Tensor] = {}
+    if route == "widen":
+        for kernel in {kernel_of(cls) for _, _, cls in chunks}:
+            widen_frames[kernel] = (strip_layout(feats_p, ti, cfg.metric)
+                                    if kernel is dtw_tile_lane_pairs
+                                    else frame_layout(feats_p, cfg.metric))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    upload_s += time.perf_counter() - t_up
     if stats is None:
         stats = {}
     stats.update(
         route=route, dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, kernel_s=0.0,
-        upload_s=upload_s, blocks=len(chunks), pairs=K * (K - 1) // 2, tiled=True,
-        tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
+        kernel_s_by={}, upload_s=upload_s, blocks=len(chunks), pairs=K * (K - 1) // 2,
+        tiled=True, tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
     )
 
     norm = cfg.normalize == "path_len"
@@ -562,11 +589,14 @@ def all_pairs_distances_tiled(
             if scatter_err:
                 continue  # drain so the producer never blocks on put()
             try:
-                ii, jj, host, events = item
+                ii, jj, host, events, name = item
                 t0 = time.perf_counter()
                 if events is not None:
                     events[2].synchronize()
-                    stats["kernel_s"] += events[0].elapsed_time(events[1]) / 1e3
+                    secs = events[0].elapsed_time(events[1]) / 1e3
+                    stats["kernel_s"] += secs
+                    by = stats["kernel_s_by"]
+                    by[name] = by.get(name, 0.0) + secs
                 stats["collect_s"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 scatter_chunk(ii, jj, host.numpy())
@@ -598,7 +628,7 @@ def all_pairs_distances_tiled(
             stats["dispatch_s"] += time.perf_counter() - t0
             # The bounded queue keeps at most 8 chunks between launch and
             # scatter, so pinned buffers stay bounded.
-            scatter_q.put((ii, jj, host, events))
+            scatter_q.put((ii, jj, host, events, kernel_of(cls).__name__))
     finally:
         scatter_q.put(None)
         worker.join()

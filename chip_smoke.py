@@ -47,21 +47,34 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 12. K4 against its twin at the config-4 widen shape (S=128, d=16, band 16,
    lengths 64-128, ti=128, 10 tile-pairs; sqeuclidean, cosine and a hard
    band on 2), plus a ``rows`` and a ``wv_max`` shortfall that must be +inf
-   on exactly the cut pairs;
-13. K5 against its twin at S=1024 (d=16, lengths 257-1024, 3 tile-pairs),
-   plus both shortfalls on one tile-pair;
-14. config 4 widen (band 16) through the scheduler: narrow classes on K4,
-   wide ones on K5, both must launch; 64 pairs against the plain torch DTW
-   and 8 against the oracle; the native scatter must have run;
+   on exactly the cut pairs, and at every frame width it is built for (S=128
+   and 256, d=4, 8, 16, 20, 40 on 3 tile-pairs);
+13. K5 against its twin at a config-4 wide class (phase 12's tile-pairs,
+   W=130; the three metrics and a hard band), at every frame width it is
+   built for (as phase 12), and at S=1024 (d=16, lengths 257-1024, 3
+   tile-pairs) with both shortfalls on one tile-pair;
+14. config 4 widen (band 16) through the scheduler: each kernel must launch
+   exactly as often as the classes and the K4/K5 gate predict
+   (``widen_split``: every class on K4 since the gate moved to 320 slots);
+   each kernel's device time and share of its cells' bound; 64 pairs
+   against the plain torch DTW and 8 against the oracle; the native scatter
+   must have run;
 15. long units widen (band 16, phase 10's corpus, alignments off) through
-   ``discover()``: the job must take K5; 8 distances against the oracle;
+   ``discover()``: the job must take K5 (K5's main-path cell); 8 distances
+   against the oracle;
 16. K6 and K7 against their twins on gathered pairs (S=128 and S=1024), then
    the per-pair route ``all_pairs_distances(tiled=False)`` on a K=2,048
    slice of the config-4 corpus and on a job of lengths 900-1024: K6 and K7
    must both launch, and D must equal the tiled widen D;
-17. the CLI on the length-varied corpus with a widen band (one wide class:
-   K5), with ``--device cuda`` and with ``--device cpu``: D at rtol 1e-4 /
-   atol 1e-5, partition exact.
+17. the CLI on the length-varied corpus with a widen band, with
+   ``--device cuda`` (K4 or K5 must launch) and with ``--device cpu``: D at
+   rtol 1e-4 / atol 1e-5, partition exact.
+
+Two measurements outside the phases, each after phase 1 and then exit:
+``--crossover`` times K4 against K5 on one job per class stripe, in turns
+(the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs K4
+and K5 from this checkout and from another (its parent, unpacked with
+``git archive``) in turns, and checks K4's outputs bitwise.
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
 beside their device time.  A bound is the larger of the call's fp32
@@ -703,11 +716,15 @@ def phase10(dev, tmp: Path) -> dict:
     return {"launches": launches}
 
 
-def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int) -> list[int]:
+def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
+                      split: dict | None = None) -> list[int]:
     """All pairs of the config-4 corpus (K=10,240, S=128, d=16, lengths
     64-128) through the scheduler: the route, each kernel's launches (all
-    must run), 64 pairs against the plain torch DTW and 8 against the
-    oracle, native scatter.  Returns the launches."""
+    must run, or with ``split``, {entry name: (launches, cells)}, exactly the
+    launches it predicts), 64 pairs against the plain torch DTW and 8
+    against the oracle, native scatter.  Prints each kernel's device time
+    (``kernel_s_by``), and with ``split`` its share of its cells' bound.
+    Returns the launches."""
     from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
     from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
     from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
@@ -725,8 +742,11 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int)
     launches = [k.launches for k in kernels]
     names = ", ".join(f"{k.__name__} {n}" for k, n in zip(kernels, launches))
     n_pairs = K * (K - 1) // 2
-    if min(launches) < 1 or stats["route"] != route:
-        fail(f"{tag}: the job took route {stats['route']} with launches {names}")
+    want_launches = ([split.get(k.__name__, (0, 0.0))[0] for k in kernels] if split
+                     else [max(n, 1) for n in launches])
+    if launches != want_launches or sum(launches) < 1 or stats["route"] != route:
+        fail(f"{tag}: the job took route {stats['route']} with launches {names} "
+             f"(expected {want_launches})")
     if not stats["native_scatter"]:
         fail(f"{tag}: the scheduler scattered with NumPy: the native library did not load")
     if not np.isfinite(D).all():
@@ -756,6 +776,14 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int)
         f"{rate_line(stats['kernel_s'] * 1e3, cells, bound_ms)}), scatter "
         f"{stats['scatter_s']:.3f} s, launches {names}; "
         f"64 pairs match plain dtw_batch, 8 match the oracle; stats {s}")
+    for k, n in zip(kernels, launches):
+        secs = stats["kernel_s_by"].get(k.__name__, 0.0)
+        line = f"{tag}: {k.__name__}: {n} launches, {secs:.3f} s of device time"
+        if split and n:
+            k_cells = split[k.__name__][1]
+            k_bound, _ = bound(k_cells, d, 0.0)
+            line += f" ({k_cells:.4g} cells, {rate_line(secs * 1e3, k_cells, k_bound)})"
+        log(line)
     return launches
 
 
@@ -776,20 +804,46 @@ def shortfall(tag: str, cut, full, over) -> None:
         fail(f"{tag}: the shortfall did not give +inf on exactly the cut pairs")
 
 
-def phase12(dev) -> dict:
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
-        dtw_tile_lane_pairs,
-        dtw_tile_lane_pairs_ref,
-    )
-
-    ti, nT, S, d, band = 128, 4, 128, 16, 16
-    feats, lens = sorted_corpus(ti * nT, S, d, 64, 128, seed=12, dev=dev)
+def widen_inputs(dev, nT: int, S: int, d: int, lo: int, seed: int):
+    """K4/K5 arguments on a length-sorted corpus (ti=128, lengths lo..S,
+    band 16) for all its upper tile-pairs, at the class contract."""
+    ti, band = 128, 16
+    feats, lens = sorted_corpus(ti * nT, S, d, lo, S, seed=seed, dev=dev)
     tmin, tmax = tile_ranges(lens.cpu().numpy(), nT, ti)
     pairs = [(i, j) for i in range(nT) for j in range(i, nT)]
     ii = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
     jj = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
-    wv = max(band, max(tmax) - min(tmin))
-    kw = dict(ti=ti, band=band, wv_max=wv, rows=max(tmax))
+    kw = dict(ti=ti, band=band, wv_max=max(band, max(tmax) - min(tmin)), rows=max(tmax))
+    return (feats, lens, ii, jj), kw
+
+
+def widen_sweep(tag: str, kernel, rtol: float, atol: float) -> list[int]:
+    """The kernel against the twin at every frame width it is built for, at
+    both padded lengths of config-4-like jobs (S=128 and 256, lengths S/2..S,
+    2 tiles, all 3 tile-pairs); returns the float4s a frame covered."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_pairs_ref,
+        strip_channels,
+    )
+
+    for S_w in (128, 256):
+        for dd in (16, *SWEEP_DIMS):
+            args, kw = widen_inputs(torch.device("cuda", 0), 2, S_w, dd, S_w // 2, seed=S_w + dd)
+            agree(f"{tag} (S={S_w}, d={dd})", kernel(*args, **kw),
+                  dtw_tile_lane_pairs_ref(*args, **kw), rtol, atol)
+    return sorted({strip_channels(x) for x in (16, *SWEEP_DIMS)})
+
+
+def phase12(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_pairs,
+        dtw_tile_lane_pairs_ref,
+        strip_layout,
+    )
+
+    # The config-4 widen shape: 4 tiles of lengths 64-128, all 10 tile-pairs.
+    (feats, lens, ii, jj), kw = widen_inputs(dev, 4, 128, 16, 64, seed=12)
+    ti, S, d, band, wv = kw["ti"], 128, 16, kw["band"], kw["wv_max"]
     got = dtw_tile_lane_pairs(feats, lens, ii, jj, **kw)
     torch.cuda.synchronize()
     want = dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw)
@@ -811,15 +865,18 @@ def phase12(dev) -> dict:
     w_cut = max(band, int(diffs.float().median()))
     cut = dtw_tile_lane_pairs(feats, lens, ii[[3]], jj[[3]], **{**kw, "wv_max": w_cut})[0]
     shortfall("phase 12 (wv_max)", cut, got[3], diffs > w_cut)
-    ms = cuda_ms(lambda: dtw_tile_lane_pairs(feats, lens, ii, jj, **kw), 20)
+    widths = widen_sweep("phase 12", dtw_tile_lane_pairs, K4_RTOL, K4_ATOL)
+    # Timed as the scheduler launches it: the corpus layout built once.
+    frames = strip_layout(feats, ti)
+    ms = cuda_ms(lambda: dtw_tile_lane_pairs(feats, lens, ii, jj, frames=frames, **kw), 20)
     plain_ms = cuda_ms(lambda: dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw), 1, warm=False)
-    n_pairs = len(pairs) * ti * ti
+    n_pairs = len(ii) * ti * ti
     cells = tile_call_cells(lens, ii, jj, ti, "widen", band)
     bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
-    log(f"phase 12: K4 vs plain on {len(pairs)} tile-pairs ({n_pairs} pairs, S={S}, band {band}, "
+    log(f"phase 12: K4 vs plain on {len(ii)} tile-pairs ({n_pairs} pairs, S={S}, band {band}, "
         f"wv_max {wv}, W={2 * wv + 2}): max abs err {max_abs:.3g} (rtol {K4_RTOL}, atol "
         f"{K4_ATOL}); sqeuclidean, cosine and a hard band agree; rows and wv_max shortfalls "
-        f"+inf on exactly the cut pairs")
+        f"+inf on exactly the cut pairs; S=128 and 256 at float4s a frame {widths} agree")
     log(f"phase 12: K4 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, "
         f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
         f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
@@ -831,24 +888,47 @@ def phase13(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
         dtw_tile_lane_pairs_ref,
         dtw_tile_stripe_pairs,
+        frame_layout,
     )
 
-    ti, nT, S, d, band = 128, 2, 1024, 16, 16
-    feats, lens = sorted_corpus(ti * nT, S, d, 257, 1024, seed=13, dev=dev)
-    tmin, tmax = tile_ranges(lens.cpu().numpy(), nT, ti)
-    ii = torch.tensor([0, 0, 1], dtype=torch.int32, device=dev)
-    jj = torch.tensor([0, 1, 1], dtype=torch.int32, device=dev)
-    wv = max(band, max(tmax) - min(tmin))
-    kw = dict(ti=ti, band=band, wv_max=wv, rows=max(tmax))
+    # A config-4 wide class (its main-path cell): phase 12's tiles, W=130.
+    (feats, lens, ii, jj), kw = widen_inputs(dev, 4, 128, 16, 64, seed=12)
+    ti, d, band = kw["ti"], 16, kw["band"]
+    got = dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw)
+    torch.cuda.synchronize()
+    want = dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw)
+    if not bool(torch.isfinite(got).all()):
+        fail("phase 13: K5 returned non-finite distances inside the class contract")
+    max_abs = agree("phase 13 (config 4)", got, want, K5_RTOL, K5_ATOL)
+    sub = (ii[[0, 3]], jj[[0, 3]])
+    for extra in (dict(metric="sqeuclidean"), dict(metric="cosine"), dict(auto_widen=False)):
+        agree(f"phase 13 ({extra})", dtw_tile_stripe_pairs(feats, lens, *sub, **kw, **extra),
+              dtw_tile_lane_pairs_ref(feats, lens, *sub, **kw, **extra), K5_RTOL, K5_ATOL)
+    widths = widen_sweep("phase 13", dtw_tile_stripe_pairs, K5_RTOL, K5_ATOL)
+    frames = frame_layout(feats)
+    ms = cuda_ms(lambda: dtw_tile_stripe_pairs(feats, lens, ii, jj, frames=frames, **kw), 20)
+    plain_ms = cuda_ms(lambda: dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw), 1, warm=False)
+    cells = tile_call_cells(lens, ii, jj, ti, "widen", band)
+    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, 128, d))
+    log(f"phase 13: K5 vs plain at a config-4 wide class ({len(ii)} tile-pairs, S=128, "
+        f"W={2 * kw['wv_max'] + 2}): max abs err {max_abs:.3g} (rtol {K5_RTOL}, atol {K5_ATOL}); "
+        f"sqeuclidean, cosine and a hard band agree; S=128 and 256 at float4s a frame {widths} "
+        f"agree")
+    log(f"phase 13: K5 {ms:.3f} ms/call ({rate_line(ms, cells, bound_ms)}), plain "
+        f"{plain_ms:.3f} ms/call")
+
+    # Long units: S=1024, lengths 257-1024, 3 tile-pairs, both shortfalls.
+    (feats, lens, ii, jj), kw = widen_inputs(dev, 2, 1024, 16, 257, seed=13)
+    tmin, tmax = tile_ranges(lens.cpu().numpy(), 2, ti)
     got = dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = dtw_tile_lane_pairs_ref(feats, lens, ii, jj, **kw)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    long_plain = (time.perf_counter() - t0) * 1e3
     if not bool(torch.isfinite(got).all()):
-        fail("phase 13: K5 returned non-finite distances inside the class contract")
-    max_abs = agree("phase 13", got, want, K5_RTOL, K5_ATOL)
+        fail("phase 13: K5 returned non-finite distances inside the class contract (S=1024)")
+    long_err = agree("phase 13 (S=1024)", got, want, K5_RTOL, K5_ATOL)
     r_cut = (tmin[0] + tmax[0]) // 2
     cut = dtw_tile_stripe_pairs(feats, lens, ii[[1]], jj[[1]], **{**kw, "rows": r_cut})[0]
     shortfall("phase 13 (rows)", cut, got[1], (lens[:ti] > r_cut)[:, None].expand_as(cut))
@@ -856,18 +936,60 @@ def phase13(dev) -> dict:
     w_cut = max(band, int(diffs.float().median()))
     cut = dtw_tile_stripe_pairs(feats, lens, ii[[1]], jj[[1]], **{**kw, "wv_max": w_cut})[0]
     shortfall("phase 13 (wv_max)", cut, got[1], diffs > w_cut)
-    ms = cuda_ms(lambda: dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw), 3)
-    n_pairs = 3 * ti * ti
+    frames = frame_layout(feats)
+    long_ms = cuda_ms(lambda: dtw_tile_stripe_pairs(feats, lens, ii, jj, frames=frames, **kw), 3)
     cells = tile_call_cells(lens, ii, jj, ti, "widen", band)
-    bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
-    log(f"phase 13: K5 vs plain on 3 tile-pairs ({n_pairs} pairs, S={S}, band {band}, wv_max "
-        f"{wv}): max abs err {max_abs:.3g} (rtol {K5_RTOL}, atol {K5_ATOL}); rows and wv_max "
-        f"shortfalls +inf on exactly the cut pairs")
-    log(f"phase 13: K5 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, "
-        f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
-        f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    long_bound, long_by = bound(cells, d, tile_call_bytes(ii, jj, ti, 1024, d))
+    log(f"phase 13: K5 vs plain on 3 tile-pairs (S=1024, lengths 257-1024, wv_max "
+        f"{kw['wv_max']}): max abs err {long_err:.3g}; rows and wv_max shortfalls +inf on "
+        f"exactly the cut pairs; K5 {long_ms:.3f} ms/call ({rate_line(long_ms, cells, long_bound)}), "
+        f"plain {long_plain:.3f} ms/call")
+    # The kernel line takes the long-units shape: the gate sends K5 only
+    # classes wider than LANE_MAX_W, which config 4 never has.
+    return {"max_abs_err": max(max_abs, long_err), "ms": long_ms, "plain_ms": long_plain,
+            "bound_ms": long_bound, "bound_by": long_by}
+
+
+def widen_split(lens_np, cfg, ti: int = 128, chunk: int = 64) -> dict:
+    """{kernel entry name: (launches, cells)} that the scheduler's widen
+    classes and K4/K5 gate give the job of lengths ``lens_np``: the same
+    length sort, tile ranges, class merge and chunking, and each tile-pair's
+    share of the job's DP cells (``pair_cells``)."""
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+
+    K = len(lens_np)
+    Kp, Lp = -(-K // ti) * ti, ps.padded_len(int(lens_np.max()))
+    nT = Kp // ti
+    lens_p = np.ones(Kp, np.int32)
+    lens_p[:K] = np.sort(lens_np, kind="stable")
+    pair_class = ps.make_tile_stripe_class_fn(lens_p, nT, ti, Lp, int(cfg.band),
+                                              cfg.auto_widen_band, K)
+    by_class: dict = {}
+    for i in range(nT):
+        for j in range(i, nT):
+            by_class.setdefault(pair_class(i, j), []).append((i, j))
+    ps._merge_thin_classes(by_class)
+    vals = np.unique(lens_np)
+    idx = {int(v): n for n, v in enumerate(vals)}
+    hist = np.zeros((nT, len(vals)))
+    for t in range(nT):
+        for v in lens_p[t * ti:min((t + 1) * ti, K)]:
+            hist[t, idx[int(v)]] += 1
+    la = torch.from_numpy(np.repeat(vals, len(vals)).astype(np.int64))
+    lb = torch.from_numpy(np.tile(vals, len(vals)).astype(np.int64))
+    table = pair_cells(la, lb, "widen", cfg.band).numpy().reshape(len(vals), len(vals))
+    out: dict = {}
+    for cls, plist in by_class.items():
+        name = ps.widen_kernel(cls[1]).__name__
+        launches, cells = out.get(name, (0, 0.0))
+        launches += -(-len(plist) // chunk)
+        for i, j in plist:
+            w = np.outer(hist[i], hist[j])
+            if i == j:
+                w = (w - np.diag(hist[i])) / 2
+            cells += float((w * table).sum())
+        out[name] = (launches, cells)
+    return out
 
 
 def phase14(dev) -> dict:
@@ -878,9 +1000,10 @@ def phase14(dev) -> dict:
     )
 
     cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
+    lens_np = config4_corpus(10_240, 128, 16, seed=4, dev=dev)[1].cpu().numpy()
     k4, k5 = config4_all_pairs("phase 14", dev, cfg, (dtw_tile_lane_pairs, dtw_tile_stripe_pairs),
-                               "widen", seed=14)
-    return {"launches": k4}
+                               "widen", seed=14, split=widen_split(lens_np, cfg))
+    return {"launches": k4, "k5_launches": k5}
 
 
 def phase15(dev, tmp: Path) -> dict:
@@ -1026,29 +1149,164 @@ def phase17(tmp: Path) -> dict:
                        sorted(tuple(sorted(m["segment"] for m in c["members"]))
                               for c in manifest["clusters"]), wall)
     (s_gpu, D, part, wall), (s_cpu, D_cpu, part_cpu, wall_cpu) = runs["card"], runs["cpu"]
-    launches = int(s_gpu["counts"].get("launches.dtw_tile_stripe_pairs", 0))
+    launches = sum(int(s_gpu["counts"].get(f"launches.{name}", 0))
+                   for name in ("dtw_tile_lane_pairs", "dtw_tile_stripe_pairs"))
     if launches < 1 or s_cpu["counts"].get("dtw_kernel_launches", 0) != 0:
-        fail(f"phase 17: K5 launches on the card {launches}, kernel launches on the CPU "
+        fail(f"phase 17: K4/K5 launches on the card {launches}, kernel launches on the CPU "
              f"{s_cpu['counts'].get('dtw_kernel_launches')}")
     if D.shape != D_cpu.shape or not np.allclose(D, D_cpu, rtol=1e-4, atol=1e-5):
         fail(f"phase 17: the card's D differs from the CPU's (max abs {np.abs(D - D_cpu).max()})")
     if part != part_cpu:
         fail("phase 17: the card's cluster partition differs from the CPU's")
     log(f"phase 17: CLI widen on the length-varied corpus ({s_gpu['n_segments']} segments, "
-        f"{len(part)} clusters): card {wall:.2f} s with {launches} K5 launches, CPU "
+        f"{len(part)} clusters): card {wall:.2f} s with {launches} K4/K5 launches, CPU "
         f"{wall_cpu:.2f} s; D max abs err {np.abs(D - D_cpu).max():.3g}, partition equal")
     return {"launches": launches}
+
+
+# The K4/K5 gate: class stripes (W = 2*wv+2 slots) and padded lengths at
+# which --crossover times both kernels on one job.
+CROSSOVER = ((128, 34), (128, 66), (128, 98), (128, 130), (128, 144), (256, 130), (256, 258),
+             (512, 258), (512, 322), (512, 386), (512, 450), (512, 514), (1024, 386),
+             (1024, 514), (1024, 1026))
+
+
+def crossover(dev) -> None:
+    """K4 and K5 on the same job per class stripe W: length-sorted tiles of
+    lengths S-wv..S (every pair inside the class bound; 4 tiles, all 10
+    tile-pairs, up to S=256, else 2 tiles and 3), d=16, band 16, each kernel
+    with its layout built once; in turns K4, K5, K5, K4.  Sets
+    pair_scheduler.LANE_MAX_W."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_pairs,
+        dtw_tile_stripe_pairs,
+        frame_layout,
+        strip_layout,
+    )
+
+    for S, W in CROSSOVER:
+        wv = (W - 2) // 2
+        nT, reps = (4, 10) if S <= 256 else (2, 2)
+        (feats, lens, ii, jj), kw = widen_inputs(dev, nT, S, 16, S - wv, seed=S + W)
+        kw["wv_max"] = wv
+        f4, f5 = strip_layout(feats, kw["ti"]), frame_layout(feats)
+        agree(f"crossover W={W}", dtw_tile_stripe_pairs(feats, lens, ii, jj, frames=f5, **kw),
+              dtw_tile_lane_pairs(feats, lens, ii, jj, frames=f4, **kw), K5_RTOL, K5_ATOL)
+        runs = {"K4": lambda: dtw_tile_lane_pairs(feats, lens, ii, jj, frames=f4, **kw),
+                "K5": lambda: dtw_tile_stripe_pairs(feats, lens, ii, jj, frames=f5, **kw)}
+        t = [(name, cuda_ms(runs[name], reps)) for name in ("K4", "K5", "K5", "K4")]
+        k4_ms = (t[0][1] + t[3][1]) / 2
+        k5_ms = (t[1][1] + t[2][1]) / 2
+        log(f"crossover: S={S} W={W} (lengths {S - wv}-{S}, {len(ii)} tile-pairs): K4 "
+            f"{t[0][1]:.3f} / {t[3][1]:.3f} ms, K5 {t[1][1]:.3f} / {t[2][1]:.3f} ms; "
+            f"K4/K5 {k4_ms / k5_ms:.2f}")
+
+
+# Run in a subprocess with one checkout's package first on sys.path: K4 on
+# phase 12's tile-pairs and on the whole config-4 widen job (K4 forced), and
+# both kernels' times at phase 12's shape (a config-4 wide class).
+_AGAINST = r"""
+import inspect, json, sys
+import numpy as np, torch
+tree, out = sys.argv[1], sys.argv[2]
+sys.path.insert(0, tree)
+from audio_pattern_discovery_tpu_torch.config import DTWConfig
+from audio_pattern_discovery_tpu_torch.ops import dtw_cuda as tk
+from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances_tiled
+assert tk.__file__.startswith(tree), tk.__file__
+dev = torch.device("cuda", 0)
+
+def corpus(K, S, d, lo, hi, seed, sort):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(lo, hi + 1, (K,), generator=g, device=dev, dtype=torch.int32)
+    if sort:
+        lens, _ = torch.sort(lens)
+    feats = torch.randn((K, S, d), generator=g, device=dev)
+    feats *= (torch.arange(S, device=dev)[None, :, None] < lens[:, None, None])
+    return feats.contiguous(), lens.contiguous()
+
+def ms(fn, reps=20):
+    fn(); torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record(); torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+def prebuilt(fn, build):
+    return {"frames": build()} if "frames" in inspect.signature(fn).parameters else {}
+
+feats, lens = corpus(512, 128, 16, 64, 128, 12, True)
+pairs = [(i, j) for i in range(4) for j in range(i, 4)]
+ii = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=dev)
+jj = torch.tensor([p[1] for p in pairs], dtype=torch.int32, device=dev)
+kw = dict(ti=128, band=16, wv_max=64, rows=128)
+f4 = prebuilt(tk.dtw_tile_lane_pairs, lambda: tk.strip_layout(feats, 128))
+f5 = prebuilt(tk.dtw_tile_stripe_pairs, lambda: tk.frame_layout(feats))
+k4 = tk.dtw_tile_lane_pairs(feats, lens, ii, jj, **kw, **f4).cpu().numpy()
+res = {"k4_ms": ms(lambda: tk.dtw_tile_lane_pairs(feats, lens, ii, jj, **kw, **f4)),
+       "k5_ms": ms(lambda: tk.dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw, **f5))}
+f4k, l4k = corpus(10240, 128, 16, 64, 128, 4, False)
+cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
+D = all_pairs_distances_tiled(f4k, l4k.cpu().numpy(), cfg, device=dev, lane=True)
+np.savez(out, k4=k4, D=D)
+print(json.dumps(res))
+"""
+
+
+def against(other: Path) -> None:
+    """K4 and K5 of this checkout against another's (its parent), each run
+    in its own process in turns other, this, this, other: K5's and K4's
+    times at a config-4 wide class, and K4's outputs bitwise, on phase
+    12's tile-pairs and as the config-4 widen D with K4 forced."""
+    if not (other / "audio_pattern_discovery_tpu_torch").is_dir():
+        fail(f"--against {other}: no audio_pattern_discovery_tpu_torch there")
+    with tempfile.TemporaryDirectory(prefix="apd_against_") as tmp_dir:
+        runs = []
+        for n, tree in enumerate((other, REPO, REPO, other)):
+            out = Path(tmp_dir) / f"run{n}.npz"
+            proc = subprocess.run([sys.executable, "-c", _AGAINST, str(tree), str(out)],
+                                  cwd=tmp_dir, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"--against: the run in {tree} exited {proc.returncode}:\n"
+                     f"{proc.stderr[-3000:]}")
+            runs.append((json.loads(proc.stdout.strip().splitlines()[-1]), np.load(out)))
+        for key in ("k4", "D"):
+            same = all(np.array_equal(runs[0][1][key], r[1][key]) for r in runs[1:])
+            if not same:
+                fail(f"--against: K4's {key} differs from the other checkout's")
+        log("against: K4 on phase 12's tile-pairs and the config-4 widen D with K4 forced are "
+            "bitwise equal to the other checkout's")
+        for key in ("k4_ms", "k5_ms"):
+            log(f"against: {key[:2].upper()} at a config-4 wide class (10 tile-pairs, S=128, "
+                f"W=130): other {runs[0][0][key]:.3f} / {runs[3][0][key]:.3f} ms, this "
+                f"{runs[1][0][key]:.3f} / {runs[2][0][key]:.3f} ms")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", default="",
                         help="comma-separated phase numbers to run (phase 1 always runs)")
-    only = {int(p) for p in parser.parse_args().phases.split(",") if p}
+    parser.add_argument("--crossover", action="store_true",
+                        help="after phase 1, time K4 against K5 per class stripe and stop")
+    parser.add_argument("--against", metavar="TREE",
+                        help="after phase 1, compare K4 and K5 with those of another checkout "
+                             "of the repo (in turns, bitwise for K4) and stop")
+    args = parser.parse_args()
+    only = {int(p) for p in args.phases.split(",") if p}
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card only")
     dev = torch.device("cuda", 0)
     import audio_pattern_discovery_tpu_torch  # noqa: F401  (sets the TF32 flags)
+
+    if args.crossover or args.against:
+        phase1(dev)
+        if args.crossover:
+            crossover(dev)
+        if args.against:
+            against(Path(args.against).resolve())
+        return 0
 
     # library_ms: no PyTorch call computes DTW.
     kernels = {name: {"name": fn, "route": "cuda", "source": f"{CSRC}/{name}.cu",
@@ -1059,6 +1317,17 @@ def main() -> int:
     def per_pair(res: dict) -> None:
         k6.update(res["k6"])
         k7.update(res["k7"])
+
+    def widen_job(res: dict) -> None:
+        # K5's main-path cell is config 4 widen where the gate sends it
+        # classes there, else long units widen (phase 15).
+        k4["launches"] = res["launches"]
+        if res["k5_launches"]:
+            k5["launches"] = res["k5_launches"]
+
+    def long_widen(res: dict) -> None:
+        if not k5.get("launches"):
+            k5["launches"] = res["launches"]
 
     with tempfile.TemporaryDirectory(prefix="apd_smoke_") as tmp_dir:
         tmp = Path(tmp_dir)
@@ -1076,8 +1345,8 @@ def main() -> int:
             lambda: phase11(dev),
             lambda: k4.update(phase12(dev)),
             lambda: k5.update(phase13(dev)),
-            lambda: k4.update(phase14(dev)),
-            lambda: k5.update(phase15(dev, tmp)),
+            lambda: widen_job(phase14(dev)),
+            lambda: long_widen(phase15(dev, tmp)),
             lambda: per_pair(phase16(dev)),
             lambda: phase17(tmp),
         ]

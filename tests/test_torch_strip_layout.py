@@ -1,8 +1,10 @@
-"""The host side of the strip kernels K1 and K2 (``csrc/dtw_strip.cuh``) on
-the CPU: the corpus layout they read (``strip_layout``), its channel width
-(``strip_channels``), the check of a prebuilt layout, and the launch widths.
-The kernels themselves run only on the card (``chip_smoke.py`` phases 2 and
-6 hold them against their twins); exact indexing here, no tolerance."""
+"""The host side of the strip kernels K1, K2, K4 and K5
+(``csrc/dtw_strip.cuh``) on the CPU: the corpus layouts they read
+(``strip_layout`` for K1, K2 and K4, ``frame_layout`` for K5), their channel
+width (``strip_channels``), the checks of a prebuilt layout, and the launch
+widths.  The kernels themselves run only on the card (``chip_smoke.py``
+phases 2, 6, 12 and 13 hold them against their twins); exact indexing here,
+no tolerance."""
 
 import numpy as np
 import pytest
@@ -44,6 +46,28 @@ def test_strip_layout_indexing(d, metric):
     assert flat[((1 * S + 2) * ti + 3) * dp] == lay[1, 2, 3, 0]
 
 
+@pytest.mark.parametrize("d", [1, 5, 16, 33])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_frame_layout_indexing(d, metric):
+    # K5's layout: element [k, j, ch] is frame j, channel ch of sequence k
+    # (its unit frame for cosine), one sequence's frames consecutive; the
+    # padding channels are zero.
+    rng = np.random.default_rng(50 + d)
+    K, S = 6, 7
+    feats = torch.from_numpy(rng.normal(0, 1, (K, S, d)).astype(np.float32))
+    x = tk._unit_frames(feats, metric)
+    lay = tk.frame_layout(feats, metric)
+    dp = 4 * tk.strip_channels(d)
+    assert lay.shape == (K, S, dp) and lay.dtype == torch.float32 and lay.is_contiguous()
+    for k in range(K):
+        for j in range(S):
+            np.testing.assert_array_equal(lay[k, j, :d].numpy(), x[k, j].numpy())
+    assert bool((lay[..., d:] == 0).all())
+    flat = lay.reshape(-1)
+    assert flat[(4 * S + 5) * dp + 2] == lay[4, 5, 2]
+    assert flat[(4 * S + 6) * dp] == lay[4, 6, 0] and flat[(5 * S) * dp] == lay[5, 0, 0]
+
+
 def test_prebuilt_frames_are_checked():
     feats = torch.zeros((8, 6, 5))
     good = tk.strip_layout(feats, 4)
@@ -53,10 +77,40 @@ def test_prebuilt_frames_are_checked():
     for bad in (good[:, :5], good.double(), good.transpose(1, 2).contiguous(), strided):
         with pytest.raises(ValueError, match="strip_layout"):
             tk._check_frames(bad, feats, 4, "euclidean")
+    good5 = tk.frame_layout(feats)
+    assert tk._check_frame_layout(good5, feats, "euclidean") is good5
+    assert tk._check_frame_layout(None, feats, "euclidean").shape == good5.shape
+    for bad in (good5[:, :5], good5.double(), good5.transpose(0, 1).contiguous(), good):
+        with pytest.raises(ValueError, match="frame_layout"):
+            tk._check_frame_layout(bad, feats, "euclidean")
+
+
+@pytest.mark.parametrize("kernel,layout,name", [
+    (tk.dtw_tile_lane_pairs, lambda f: tk.strip_layout(f, 4), "strip_layout"),
+    (tk.dtw_tile_stripe_pairs, tk.frame_layout, "frame_layout"),
+])
+def test_widen_wrappers_check_prebuilt_frames(kernel, layout, name):
+    # K4 and K5 check a prebuilt layout on any device, the CPU included: the
+    # right one runs (the twin, here), the other kernel's or a mis-shaped one
+    # raises.
+    rng = np.random.default_rng(60)
+    feats = torch.from_numpy(rng.normal(0, 1, (8, 6, 5)).astype(np.float32))
+    n = torch.from_numpy(rng.integers(2, 7, 8).astype(np.int32))
+    u = torch.tensor([0, 1], dtype=torch.int32)
+    kw = dict(ti=4, band=2, wv_max=5)
+    want = kernel(feats, n, u, u, **kw)
+    np.testing.assert_array_equal(kernel(feats, n, u, u, frames=layout(feats), **kw), want)
+    other = tk.frame_layout(feats) if name == "strip_layout" else tk.strip_layout(feats, 4)
+    for bad in (other, layout(feats)[:1], layout(feats[:, :5])):
+        with pytest.raises(ValueError, match=name):
+            kernel(feats, n, u, u, frames=bad, **kw)
 
 
 @pytest.mark.parametrize("ti,state,nc4,R", [(128, 256, 4, 4), (128, 128, 4, 4), (128, 60, 4, 4),
-                                            (16, 32, 2, 8), (128, 4096, 4, 4)])
+                                            (16, 32, 2, 8), (128, 4096, 4, 4),
+                                            # K4's class stripes W = 2*wv+2
+                                            (128, 34, 4, 4), (128, 130, 1, 4), (128, 258, 8, 4),
+                                            (128, 1026, 4, 4), (8, 66, 10, 4)])
 def test_strip_launch_widths(ti, state, nc4, R):
     # The block width keeps the most threads resident within the shared
     # memory of an SM; a state beyond one block's budget raises.
@@ -76,10 +130,26 @@ def test_strip_launch_widths(ti, state, nc4, R):
     assert resident(lanes) == max(resident(w) for w in widths)
 
 
+@pytest.mark.parametrize("ti,wv,nc4", [(128, 64, 4), (128, 758, 4), (128, 2047, 8), (2, 16, 1),
+                                       (128, 30_000, 4)])
+def test_stripe_warps(ti, wv, nc4):
+    # K5: at most 4 warps (its launch bound) and ti, within one block's
+    # shared memory at the strip's A frames and a boundary row of 2*wv+1
+    # floats a warp; a row beyond one block's budget raises.
+    per_warp = 4 * (4 * tk.STRIP_ROWS * nc4 + 4 * -(-(2 * wv + 1) // 4))
+    if per_warp > tk._SMEM_BUDGET:
+        with pytest.raises(ValueError, match="shared"):
+            tk._stripe_warps(ti, wv, nc4)
+        return
+    warps = tk._stripe_warps(ti, wv, nc4)
+    assert 1 <= warps <= min(4, ti) and warps * per_warp <= tk._SMEM_BUDGET
+    assert warps == min(4, ti) or (warps + 1) * per_warp > tk._SMEM_BUDGET
+
+
 def test_strip_rows_fit_registers():
     # K2 takes 8 rows where its A frames stay within 128 registers, but 4 at
     # 16 channels with a short boundary row (S <= 128); K1 always takes 4.
     assert tk._tile_strip_rows(256, 4) == 8 and tk._tile_strip_rows(256, 8) == 4
     assert tk._tile_strip_rows(128, 1) == 8 and tk._tile_strip_rows(128, 2) == 8
     assert tk._tile_strip_rows(128, 4) == 4 and tk._tile_strip_rows(128, 8) == 4
-    assert tk._tile_strip_rows(512, 9) == 4 and tk.K1_ROWS == 4
+    assert tk._tile_strip_rows(512, 9) == 4 and tk.STRIP_ROWS == 4

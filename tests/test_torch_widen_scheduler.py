@@ -34,25 +34,27 @@ def _cfgs(**kw):
 
 
 def test_widen_gate(monkeypatch):
-    # The card's gate is per class: K4 up to a 64-slot class stripe
-    # (half-width level 31 on the 16-slot ladder), K5 above; widen jobs of
+    # The card's gate is per class: K4 up to a 320-slot class stripe
+    # (half-width level 159 on the 16-slot ladder), K5 above; widen jobs of
     # any padded length up to 4096 take the widen route.
-    assert tps.widen_kernel(31) is tk.dtw_tile_lane_pairs
-    assert tps.widen_kernel(32) is tk.dtw_tile_stripe_pairs
+    assert tps.widen_kernel(159) is tk.dtw_tile_lane_pairs
+    assert tps.widen_kernel(160) is tk.dtw_tile_stripe_pairs
     widen = DTWConfig(band=16, band_mode="widen")
     assert tps.route_for(128, widen) == tps.route_for(4096, widen) == "widen"
     with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
         tps.route_for(4097, widen)
-    # A job with narrow and wide classes launches each class on its kernel
-    # (thin classes kept apart here); forcing K5 gives the same D (on the
-    # CPU both run the same twin).
+    # A job with narrow and wide classes (the gate lowered to 64 slots, so a
+    # small job has both) launches each class on its kernel (thin classes
+    # kept apart here); forcing K5 gives the same D (on the CPU both run the
+    # same twin).
+    monkeypatch.setattr(tps, "LANE_MAX_W", 64)
     monkeypatch.setattr(tps, "_merge_thin_classes", lambda by_class: None)
     feats, lens = _case(20, K=40, L=64, lo=4)
     calls = []
 
     def spy(kernel):
         def run(*args, **kw):
-            calls.append((kernel, kw["wv_max"]))
+            calls.append((kernel, kw["wv_max"], kw["frames"]))
             return kernel(*args, **kw)
         return run
 
@@ -60,11 +62,18 @@ def test_widen_gate(monkeypatch):
     monkeypatch.setattr(tps, "dtw_tile_stripe_pairs", spy(tk.dtw_tile_stripe_pairs))
     cfg = DTWConfig(band=4, band_mode="widen", normalize="path_len")
     got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, device="cpu")
-    assert {k for k, _ in calls} == {tk.dtw_tile_lane_pairs, tk.dtw_tile_stripe_pairs}
-    assert all((k is tk.dtw_tile_lane_pairs) == (2 * wv + 2 <= tps.LANE_MAX_W) for k, wv in calls)
+    assert {k for k, _, _ in calls} == {tk.dtw_tile_lane_pairs, tk.dtw_tile_stripe_pairs}
+    assert all((k is tk.dtw_tile_lane_pairs) == (2 * wv + 2 <= 64) for k, wv, _ in calls)
+    # Each kernel gets one layout, built once for the job: K4 the strip
+    # layout, K5 the frame layout, of the sorted corpus padded to 128 frames.
+    for kernel, shape in ((tk.dtw_tile_lane_pairs, (5, 128, 8, 4)),
+                          (tk.dtw_tile_stripe_pairs, (40, 128, 4))):
+        layouts = {id(f) for k, _, f in calls if k is kernel}
+        assert len(layouts) == 1
+        assert tuple(next(f for k, _, f in calls if k is kernel).shape) == shape
     calls.clear()
     forced = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stripe=True, device="cpu")
-    assert {k for k, _ in calls} == {tk.dtw_tile_stripe_pairs}
+    assert {k for k, _, _ in calls} == {tk.dtw_tile_stripe_pairs}
     np.testing.assert_array_equal(got, forced)
 
 
