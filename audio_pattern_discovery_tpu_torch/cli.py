@@ -2,9 +2,10 @@
 
 Port of ``audio_pattern_discovery_tpu/cli.py``, trimmed to discovery: the
 same ``-c`` config file, ``-s section.key=value`` overrides and
-``--dump-config``.  ``--update``, ``--query`` and ``--serve`` are accepted
-so that a command line written for the reference fails loudly here:
-they raise ``NotImplementedError`` naming their ROADMAP.md items.
+``--dump-config``.  ``--update``, ``--query``, ``--top-k``, ``--serve``,
+``--doctor`` and ``--trace`` are accepted so that a command line written
+for the reference fails loudly here: they raise ``NotImplementedError``
+naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -54,7 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--update", action="store_true", help="not ported yet")
     p.add_argument("--query", action="append", default=[], type=Path,
                    metavar="WAV", help="not ported yet")
+    p.add_argument("--top-k", type=int, default=None, help="not ported yet (goes with --query)")
     p.add_argument("--serve", type=Path, metavar="SOCKET", help="not ported yet")
+    p.add_argument("--doctor", action="store_true", help="not ported yet")
+    p.add_argument("--trace", type=Path, metavar="DIR", help="not ported yet")
     p.add_argument(
         "--device",
         choices=("cuda", "cpu"),
@@ -74,11 +78,16 @@ def main(argv: list[str] | None = None) -> int:
     if args.dump_config:
         print(json.dumps(cfg.to_dict(), indent=2))
         return 0
-    if args.serve or args.query:
+    if args.serve or args.query or args.top_k is not None:
         raise NotImplementedError(
-            "--serve and --query are not ported to audio_pattern_discovery_tpu_torch "
+            "--serve, --query and --top-k are not ported to audio_pattern_discovery_tpu_torch "
             'yet (ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"; '
             'ROADMAP.md Queue 1: "Runtime extras")'
+        )
+    if args.doctor or args.trace:
+        raise NotImplementedError(
+            "--doctor and --trace are not ported to audio_pattern_discovery_tpu_torch yet "
+            '(ROADMAP.md Queue 1: "Runtime extras")'
         )
     if args.wav_dir is None:
         build_parser().error("wav_dir is required (unless --dump-config)")

@@ -19,8 +19,12 @@
 // pair whose corner slot falls outside the frame comes back +inf.  With the
 // class contract met (rows >= every A length, wv >= diag_class_bounds)
 // every corridor cell is in the frame, so the distance is exact.  For
-// la == 1 the centre of row 0 is 0, not numm, so slot ex is column
-// lb-1-numm: the reference's behaviour, kept (ROADMAP.md Queue 3).
+// la == 1 the corridor is the whole of row 0 (oracle/dtw.py: den = 0),
+// which a frame centred on column 0 cannot hold past wv+1 columns, and the
+// frame's corner slot would read column lb-1-numm (the reference reads
+// that truncated value); such a pair takes its own branch instead: the
+// row's running sum D[0, j] = c_j + D[0, j-1], what a frame wide enough
+// would give, whatever the tile size.
 //
 // What bounds it on the H100.  A Euclidean cell is 3d + 4 fp32 operations;
 // the cells of a pair form a serial chain, and no data leaves the SM but one
@@ -109,9 +113,23 @@ __global__ void __launch_bounds__(128) lane_diag_kernel(
   const float4* xa = x + (size_t)tile_i * S * fstride + (size_t)r * nc4;
   const float4* xb = x + (size_t)tile_j * S * fstride + (size_t)(active ? c : 0) * nc4;
 
+  StripA<R, D4> a;
+  if (la == 1) {                                 // block-uniform: one A row
+    stage_strip<R>(a_s, xa, fstride, 0, 1, nc4);
+    __syncthreads();
+    a.load(a_s, nc4);
+    float v = 0.f;                               // D[-1, -1]
+    for (int j = 0; j <= (active ? j_end : -1); ++j) {
+      float acc[R];
+      strip_sums<R, D4>(acc, a, xb + (size_t)j * fstride, metric);
+      v = cost_of(acc[0], metric) + v;
+    }
+    if (active) out[((size_t)u * ti + r) * ti + c] = v;
+    return;
+  }
+
   for (int s = 0; s < W; ++s) stripe[s * lanes] = (s == off) ? 0.f : CUDART_INF_F;
 
-  StripA<R, D4> a;
   float result = CUDART_INF_F;
   int cb = -1;                                   // centre of the row above the strip
   for (int i0 = 0; i0 < n_rows; i0 += R) {

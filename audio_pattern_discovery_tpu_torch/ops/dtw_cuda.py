@@ -29,13 +29,21 @@ length).  Class contracts, as in the JAX kernel: ``rows`` >= every A length
 in the call, ``wv_max`` >= the stripe half-width from ``diag_class_bounds``.
 With them met every corridor cell lies in the frame and the distance is
 exact; a pair whose corner cell falls outside the frame comes back +inf.
+An A sequence of length 1 has the whole of row 0 in its corridor, which
+no frame centred on column 0 holds: the kernel and the twin give it the
+row's running sum, the oracle's value, where the reference reads a
+truncated corner whose column depends on the tile size.
 
 K1, K2, K4 and K5 walk each pair's DP in strips of rows
 (``csrc/dtw_strip.cuh``): each B frame is loaded once per strip and feeds
 the strip's cost builds.  K1, K2 and K4 (a thread per pair) read the corpus
 in ``strip_layout`` ([nT, S, ti, 4*nc4]), K5 (a warp per pair) in
 ``frame_layout`` ([K, S, 4*nc4]); the scheduler builds each once a job and
-passes it as ``frames=``.
+passes it as ``frames=``.  K3 and K7 run one warp per pair as a systolic
+pipeline (``csrc/dtw_systolic.cuh``): lane l holds R rows of a pass of 32R
+rows and computes column j at step j + l, taking the row above from lane
+l-1 by one shuffle a step.  K3 reads ``frame_layout`` (``frames=``), K7 its
+gathered pairs, which are that layout already where d is 4, 8, 16 or 32.
 
 K2 and K3 are exact DTW over the rectangle i < la, j < lb (K2 optionally
 banded).  Their twins evaluate the recurrence cell by cell (an
@@ -43,12 +51,13 @@ anti-diagonal wavefront vectorized over the gathered pairs) from the same
 squared-difference costs as the kernels, so a twin and its kernel differ
 only by rounding.
 
-K4 and K7 hold each DP row in an unsheared stripe frame (slot s of row i
-is column i + s - (wv+1)) of the exact width 2*wv+2, and K5 a pair's own
-band (2*wv+1 slots at most), where the reference rounds the stripe up to 8
-or 128 slots: a pair whose half-width exceeds the class bound wv comes back
-+inf, where the reference's rounded frame could read a truncated value.
-Their twins, and K6's, evaluate the same banded recurrence cell by cell.
+K4 holds each DP row in an unsheared stripe frame (slot s of row i is
+column i + s - (wv+1)) of the exact width 2*wv+2, and K5 and K7 a pair's
+own band (2*wv+1 slots at most), where the reference rounds the stripe up
+to 8 or 128 slots: a pair whose half-width exceeds the class bound wv
+comes back +inf, where the reference's rounded frame could read a
+truncated value.  Their twins, and K6's, evaluate the same banded
+recurrence cell by cell.
 
 Not ported (TPU-only levers, measured null on the TPU): ``stack``,
 ``bgroup``, ``hoist_build``, ``dyn_roll=False`` with its ``kmax``, and the
@@ -211,14 +220,20 @@ def _check_frames(frames: torch.Tensor | None, feats: torch.Tensor, ti: int,
 
 
 def frame_layout(feats: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
-    """[K, S, 4*strip_channels(d)] f32: the corpus as K5 reads it.  Element
-    [k, j, ch] is frame j, channel ch of sequence k (of its unit frame for
-    cosine); channels past d are zero.  One sequence's frames are
-    consecutive, so a warp's lanes, each on a run of neighbouring columns,
-    read one contiguous span.  The scheduler builds it once a job and passes
-    it to every K5 launch (``frames=``)."""
+    """[K, S, 4*strip_channels(d)] f32: the corpus as K3, K5 and K7 read it.
+    Element [k, j, ch] is frame j, channel ch of sequence k (of its unit
+    frame for cosine); channels past d are zero.  One sequence's frames are
+    consecutive, so a warp's lanes, each on neighbouring columns, read one
+    contiguous span.  ``feats`` itself where it already is that layout
+    (contiguous and 16-byte aligned, no padding channels, not cosine).  The
+    tiled scheduler builds it once a job and passes it to every K3 and K5
+    launch (``frames=``); K7 takes gathered pairs, whose gather is already
+    this layout at d = 4, 8, 16 or 32."""
     K, S, d = feats.shape
-    out = torch.zeros((K, S, 4 * strip_channels(d)), dtype=torch.float32, device=feats.device)
+    n4 = 4 * strip_channels(d)
+    if n4 == d and metric != "cosine" and feats.is_contiguous() and feats.data_ptr() % 16 == 0:
+        return feats
+    out = torch.zeros((K, S, n4), dtype=torch.float32, device=feats.device)
     out[..., :d] = _unit_frames(feats, metric)
     return out
 
@@ -380,7 +395,9 @@ def dtw_tile_lane_diag_pairs_ref(
     v[s] = c[s] + min(diag[s], up[s], v[s-1]) is evaluated in closed form:
     v[s] = P[s] + min_{t<=s}(m[t] + c[t] - P[t]) with P the running sum of
     c and m = min(diag, up).  That reorders float additions relative to the
-    kernel's slot-by-slot chain (a few ulps of the row sum)."""
+    kernel's slot-by-slot chain (a few ulps of the row sum).  An A row of
+    length 1 takes the kernel's own branch: its corridor is the whole of
+    row 0, so its distance is the running sum of its costs (``_single_row``)."""
     K, S, d = _check_args(feats, lengths, tile_rep, ti_idx, tj_idx, ti, metric)
     wv, off, W = stripe_frame(band, wv_max)
     rows = S if rows is None else min(int(rows), S)
@@ -394,7 +411,31 @@ def dtw_tile_lane_diag_pairs_ref(
             tj_idx[u0 : u0 + step].long(), ti=ti, band=band, off=off, W=W,
             metric=metric, rows=rows,
         )
+    lane = torch.arange(ti, device=feats.device)
+    a_rows = ti_idx.long()[:, None] * ti + lane                         # [U, ti]
+    u1, r1 = torch.nonzero(lengths.long()[a_rows] == 1, as_tuple=True)
+    if len(u1):
+        out[u1, r1] = _single_row(x, lengths.long(), a_rows[u1, r1],
+                                  tj_idx.long()[u1, None] * ti + lane, metric)
     return out
+
+
+def _single_row(x, lens, a_ids, b_ids, metric):
+    """[n, ti] DTW of the length-1 A sequences ``a_ids`` [n] against the B
+    sequences ``b_ids`` [n, ti]: every cell of row 0 lies in the diag
+    corridor (``oracle/dtw.py``: den = 0), so D[0, lb-1] is the sum of the
+    costs of a_0 against b_0..b_{lb-1}, added left to right as K1 adds them."""
+    a = x[a_ids, 0][:, None, None, :]                                   # [n, 1, 1, d]
+    b = x[b_ids]                                                        # [n, ti, S, d]
+    if metric == "cosine":
+        cost = 1.0 - torch.sum(a * b, dim=-1)
+    else:
+        cost = torch.sum((a - b) ** 2, dim=-1)
+        if metric == "euclidean":
+            cost = torch.sqrt(cost)
+    lb = lens[b_ids]                                                    # [n, ti]
+    run = torch.cumsum(cost, dim=-1)
+    return torch.gather(run, -1, torch.clamp(lb - 1, 0, x.shape[1] - 1)[..., None])[..., 0]
 
 
 def _ref_group(x, lens, rep, ti_idx, tj_idx, *, ti, band, off, W, metric, rows):
@@ -564,8 +605,8 @@ def lane_full_width(width: int, S: int) -> int:
     return W
 
 
-def _full_warps(ti: int, W: int, d: int) -> int:
-    """Warps (one pair each) per block of the K3 kernel: two padded rows of
+def _rowscan_warps(ti: int, W: int, d: int) -> int:
+    """Warps (one pair each) per block of the K6 kernel: two padded rows of
     32*(ceil(W/32)+1) floats and one A frame per warp, at most 8 warps."""
     per_warp = 4 * (2 * 32 * (-(-W // 32) + 1) + d)
     warps = min(8, ti, _SMEM_BUDGET // per_warp)
@@ -575,6 +616,34 @@ def _full_warps(ti: int, W: int, d: int) -> int:
             f"({_SMEM_BUDGET} bytes)"
         )
     return warps
+
+
+def _systolic_rows(nc4: int) -> int:
+    """K3's A rows a lane (fixed in csrc/dtw_lane_full.cu): 4, or 2 at 8
+    float4s a frame, whose 4 rows would take 128 registers of A frames."""
+    return 2 if nc4 == 8 else 4
+
+
+def _lane_full_warps(ti: int, W: int, nc4: int, R: int) -> int:
+    """Warps (one pair each) per block of K3: the block stages a pass's A
+    frames (32R x nc4 float4s) once and each warp keeps a boundary row of W
+    floats.  The launch keeps the most warps resident on an SM within its
+    shared memory: 8, 4, 2 or 1 warps a block (at most ti), the widest on a
+    tie."""
+    best = None
+    for warps in sorted({min(ti, w) for w in (8, 4, 2, 1)}, reverse=True):
+        smem = 16 * 32 * R * nc4 + 4 * W * warps
+        if smem > _SMEM_BUDGET:
+            continue
+        resident = min(_SM_SMEM // (smem + _BLOCK_RESERVED), 32, 64 // warps) * warps
+        if best is None or resident > best[0]:
+            best = (resident, warps)
+    if best is None:
+        raise ValueError(
+            f"a boundary row of {W} floats does not fit one block's shared memory "
+            f"({_SMEM_BUDGET} bytes)"
+        )
+    return best[1]
 
 
 def dtw_tile_lane_full_pairs(
@@ -587,18 +656,23 @@ def dtw_tile_lane_full_pairs(
     width: int,
     metric: str = "euclidean",
     rows: int | None = None,
+    frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K3: exact unbanded DTW for U tile-pairs with full-width DP rows ->
     [U, ti, ti] f32 (unnormalized).
 
     Class contracts: ``width`` (rounded up to a multiple of 8, at most S)
     must cover every B length and ``rows`` every A length of the call; a
-    pair beyond either comes back +inf.
+    pair beyond either comes back +inf.  ``frames``: the corpus's
+    ``frame_layout(feats, metric)``, built once by a caller that launches
+    many times (checked on any device); built here when None.
 
     CUDA tensors launch the kernel (``launches`` counts the launches); CPU
     tensors take the plain twin.  Any other device raises."""
     K, S, d = _check_args(feats, lengths, None, ti_idx, tj_idx, ti, metric)
     W = lane_full_width(width, S)
+    if frames is not None:
+        _check_frame_layout(frames, feats, metric)
     if feats.device.type == "cpu":
         return dtw_tile_lane_full_pairs_ref(
             feats, lengths, ti_idx, tj_idx, ti=ti, width=width, metric=metric, rows=rows,
@@ -610,15 +684,14 @@ def dtw_tile_lane_full_pairs(
     out = torch.empty((U, ti, ti), dtype=torch.float32, device=feats.device)
     if U == 0:
         return out
-    warps = _full_warps(ti, W, d)
-    a = _unit_frames(feats, metric).contiguous()
-    bt = a.permute(0, 2, 1).contiguous()                                # [K, d, S]
+    x = _check_frame_layout(frames, feats, metric)
+    nc4 = strip_channels(d)
+    warps = _lane_full_warps(ti, W, nc4, _systolic_rows(nc4))
     lengths, ti_idx, tj_idx = lengths.contiguous(), ti_idx.contiguous(), tj_idx.contiguous()
     _launch(
-        "dtw_lane_full", 6, 8,
-        a.data_ptr(), bt.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(),
-        tj_idx.data_ptr(), out.data_ptr(),
-        S, d, ti, U, rows, W, METRICS[metric], warps,
+        "dtw_lane_full", 5, 8,
+        x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
+        S, nc4, ti, U, rows, W, METRICS[metric], warps,
         stream=torch.cuda.current_stream(feats.device).cuda_stream,
     )
     dtw_tile_lane_full_pairs.launches += 1
@@ -1027,7 +1100,7 @@ def dtw_batch_pallas(
     out = torch.empty((B,), dtype=torch.float32, device=a.device)
     if B == 0:
         return out
-    warps = _full_warps(8, S, d)
+    warps = _rowscan_warps(8, S, d)
     af = _unit_frames(a, metric).contiguous()
     bt = _unit_frames(b, metric).permute(0, 2, 1).contiguous()          # [B, d, S]
     len_a, len_b = len_a.contiguous(), len_b.contiguous()
@@ -1074,6 +1147,26 @@ def _stripe_half_width(band, auto_widen, max_len_diff) -> int:
     return int(band)
 
 
+# K7's A rows a lane (fixed in csrc/dtw_stripe.cu; PERF.md has the
+# measurement against 1 row).
+STRIPE_LANE_ROWS = 2
+
+
+def _stripe_pair_warps(wv: int, nc4: int) -> int:
+    """Warps (one pair each) per block of K7: each holds a pass's A frames
+    (32R x nc4 float4s, R = STRIPE_LANE_ROWS) and a boundary row of 2*wv+1
+    floats rounded up to whole float4s; at most 4 warps (the kernel's launch
+    bound)."""
+    per_warp = 4 * (4 * 32 * STRIPE_LANE_ROWS * nc4 + 4 * -(-(2 * int(wv) + 1) // 4))
+    warps = min(4, _SMEM_BUDGET // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"a boundary row of {2 * int(wv) + 1} floats does not fit one block's shared "
+            f"memory ({_SMEM_BUDGET} bytes)"
+        )
+    return warps
+
+
 def _dtw_batch_stripe(
     a: torch.Tensor,           # [B, R, d] f32
     b: torch.Tensor,           # [B, S, d] f32
@@ -1110,16 +1203,16 @@ def _dtw_batch_stripe(
     out = torch.empty((B,), dtype=torch.float32, device=a.device)
     if B == 0:
         return out
-    # One warp (one pair per thread) per block; its stripes and A rows take
-    # at most 4 * (1024 + d) * 32 bytes where the stripe route applies.
-    lanes = 32
-    at = _unit_frames(a, metric).permute(2, 1, 0).contiguous()          # [d, R, B]
-    bt = _unit_frames(b, metric).permute(2, 1, 0).contiguous()          # [d, S, B]
+    nc4 = strip_channels(d)
+    warps = _stripe_pair_warps(wv, nc4)
+    # The gathered pairs are the kernel's layout already (one pair's frames
+    # consecutive) unless their channels need padding or unit frames.
+    xa, xb = frame_layout(a, metric), frame_layout(b, metric)
     len_a, len_b = len_a.contiguous(), len_b.contiguous()
     _launch(
         "dtw_stripe", 5, 9,
-        at.data_ptr(), bt.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
-        B, R, S, d, int(band), wv, int(bool(auto_widen)), METRICS[metric], lanes,
+        xa.data_ptr(), xb.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
+        B, R, S, nc4, int(band), wv, int(bool(auto_widen)), METRICS[metric], warps,
         stream=torch.cuda.current_stream(a.device).cuda_stream,
     )
     _dtw_batch_stripe.launches += 1

@@ -409,11 +409,14 @@ def all_pairs_distances_tiled(
     rep_dev = None
     if route == "diag":
         rep_dev = torch.from_numpy(tile_rep_lengths(lens_p, nT, ti, K)).to(device)
-    # K1 and K2 read the corpus in their strip layout, built once a job.
+    # K1 and K2 read the corpus in their strip layout, K3 in the frame layout,
+    # each built once a job (the CPU twins read the corpus as it is).
     frames = None
-    if device.type == "cuda" and route in ("diag", "tile"):
-        frames = strip_layout(feats_p, ti, cfg.metric)
     if device.type == "cuda":
+        if route == "full":
+            frames = frame_layout(feats_p, cfg.metric)
+        elif route in ("diag", "tile"):
+            frames = strip_layout(feats_p, ti, cfg.metric)
         torch.cuda.synchronize(device)
     upload_s = time.perf_counter() - t_up
 
@@ -464,6 +467,7 @@ def all_pairs_distances_tiled(
             )
         return dtw_tile_lane_full_pairs(
             feats_p, lens_dev, ii, jj, ti=ti, width=cls[1], metric=cfg.metric, rows=cls[0],
+            frames=frames,
         )
 
     by_class: dict[tuple[int, ...], list[tuple[int, int]]] = {}

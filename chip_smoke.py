@@ -14,8 +14,10 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    (d=16, S=128, band=16, lengths 64-128; euclidean on 10 tile-pairs,
    sqeuclidean and cosine on 2), at the other frame widths it is built for
    (d=4, 8, 20, 40 on 3 tile-pairs), plus an out-of-frame call that must
-   come back all +inf; prints both times, cells/s and the share of the
-   bound;
+   come back all +inf; a diag job with length-1 sequences through the
+   scheduler on the card (ti=128) and on the CPU (ti=16): the same D, and
+   the length-1 pairs the oracle's; prints both times, cells/s and the share
+   of the bound;
 3. ``discover()`` on the seed-7 corpus against
    ``tests/golden/GOLDEN_cpu_seed7_mfcc_pca.npz`` (D at rtol 1e-4 /
    atol 1e-5, partition exact) with the K1 launch count of that run;
@@ -33,13 +35,16 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    cut rows; prints both times, cells/s and the share of the bound;
 7. K3 against its twin on the card (S=1024, d=16, ti=128, 2 tiles, lengths
    257-1024) on all 3 tile-pairs, plus a ``width`` and a ``rows``
-   shortfall that must come back +inf; prints both times;
+   shortfall that must come back +inf, and on one tile-pair at S=384 at
+   every frame width it is built for (d=4, 8, 20, 40) and with the other
+   two metrics; prints both times, cells/s and the share of the bound;
 8. config 2 through the CLI at its default DTW (no band: K2);
 9. ``discover()`` on the seed-7 corpus unbanded on the card and on the
    CPU in this process: D at rtol 1e-4 / atol 1e-5, partition exact;
 10. long units (24 clips of 20 s with 3-5 s motifs, segments up to 1024
    frames): K3 and the checkpointed backtrace through ``discover()``; 16
-   distances against the NumPy oracle;
+   distances against the NumPy oracle; the job's DTW again through the
+   scheduler (the same D) for K3's device time and bound at this cell;
 11. config 4 unbanded through the scheduler (K2); prints pairs/s, the
    kernel's device time and the scatter's seconds, checks 64 pairs against
    the plain torch DTW and 8 against the oracle; the native scatter must
@@ -62,19 +67,25 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 15. long units widen (band 16, phase 10's corpus, alignments off) through
    ``discover()``: the job must take K5 (K5's main-path cell); 8 distances
    against the oracle;
-16. K6 and K7 against their twins on gathered pairs (S=128 and S=1024), then
-   the per-pair route ``all_pairs_distances(tiled=False)`` on a K=2,048
-   slice of the config-4 corpus and on a job of lengths 900-1024: K6 and K7
-   must both launch, and D must equal the tiled widen D;
+16. K6 and K7 against their twins on gathered pairs (S=128 and S=1024), K7
+   also on 64 pairs of each of the per-pair route's first two band-16
+   classes at every frame width and metric it is built for, and a hard
+   band; K7's Euclidean costs bit for bit against the IEEE sqrt of
+   its squared costs across the float range (``sqrt_rn``); K7 timed at the
+   long per-pair job's median launch size (4,096 pairs),
+   then the per-pair route ``all_pairs_distances(tiled=False)`` on a
+   K=2,048 slice of the config-4 corpus and on a job of lengths 900-1024:
+   K6 and K7 must both launch, and D must equal the tiled widen D;
 17. the CLI on the length-varied corpus with a widen band, with
    ``--device cuda`` (K4 or K5 must launch) and with ``--device cpu``: D at
    rtol 1e-4 / atol 1e-5, partition exact.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
-(the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs K4
-and K5 from this checkout and from another (its parent, unpacked with
-``git archive``) in turns, and checks K4's outputs bitwise.
+(the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs
+K1, K3, K4, K5 and K7 from this checkout and from another (its parent,
+unpacked with ``git archive``) in turns, checks K1's, K4's and K7's outputs
+bitwise and reports K3's largest difference.
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
 beside their device time.  A bound is the larger of the call's fp32
@@ -129,17 +140,18 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-4
 # distance of n <= la+lb terms differs by at most (d + n) * 2^-24 relative:
 # 3.2e-5 at S=256, d=16.  The atol covers cosine costs near 0.
 K2_RTOL, K2_ATOL = 4e-5, 1e-4
-# K3's warp scan reassociates the additions along each DP row (the twin adds
-# cell by cell), so each side is within n * 2^-24 of the exact sum and the
-# two within 2 (la+lb) * 2^-24 + d * 2^-24 relative: 2.5e-4 at S=1024.
-K3_RTOL, K3_ATOL = 2.5e-4, 1e-3
-# K4 and K7 walk each row cell by cell like K2 (the same bound: (d + n)
-# 2^-24 relative for a path of n <= la+lb terms; 1.3e-4 at S=1024 for K7);
-# K5 and K6 reassociate along each row with K3's warp scan (K3's bound).
+# K3, K4 and K7 walk each row cell by cell like K2 (the same bound: (d + n)
+# 2^-24 relative for a path of n <= la+lb terms; 1.3e-4 at S=1024 for K3 and
+# K7).  K5 and K6 reassociate the additions along each DP row with a warp
+# scan (the twin adds cell by cell), so each side is within n * 2^-24 of the
+# exact sum and the two within 2 (la+lb) * 2^-24 + d * 2^-24 relative:
+# 2.5e-4 at S=1024 (K3's tolerance while it had such a scan).
 K4_RTOL, K4_ATOL = 4e-5, 1e-4
 K7_RTOL, K7_ATOL = 1.5e-4, 1e-3
-K5_RTOL, K5_ATOL = K3_RTOL, K3_ATOL
-K6_RTOL, K6_ATOL = K3_RTOL, K3_ATOL
+K3_RTOL, K3_ATOL = K7_RTOL, K7_ATOL
+SCAN_RTOL, SCAN_ATOL = 2.5e-4, 1e-3
+K5_RTOL, K5_ATOL = SCAN_RTOL, SCAN_ATOL
+K6_RTOL, K6_ATOL = SCAN_RTOL, SCAN_ATOL
 
 # Frame widths beside d=16 at which phases 2 and 6 hold K1 and K2 against
 # their twins: 1, 2, 8 and 10 float4s a frame (strip_channels), every
@@ -358,6 +370,7 @@ def phase2(dev) -> dict:
         args_d, kw_d = k1_inputs(dev, 2, dd, seed=20 + dd)
         agree(f"phase 2 (d={dd})", dtw_tile_lane_diag_pairs(*args_d, **kw_d),
               dtw_tile_lane_diag_pairs_ref(*args_d, **kw_d), K1_RTOL, K1_ATOL)
+    single = single_row_job(dev)
     ms = cuda_ms(lambda: dtw_tile_lane_diag_pairs(feats, lens, rep, ii, jj, **kw), 20)
     plain_ms = cuda_ms(lambda: dtw_tile_lane_diag_pairs_ref(feats, lens, rep, ii, jj, **kw), 3)
     n_pairs = n_tp * ti * ti
@@ -366,12 +379,50 @@ def phase2(dev) -> dict:
     log(f"phase 2: K1 vs plain on {n_tp} tile-pairs ({n_pairs} pairs, W={2 * wv + 2}, "
         f"rows={rows}): max abs err {max_abs:.3g} (rtol {K1_RTOL}, atol {K1_ATOL}); "
         f"sqeuclidean and cosine agree; out-of-frame all +inf; d={SWEEP_DIMS} agree "
-        f"(float4s a frame {[strip_channels(x) for x in SWEEP_DIMS]})")
+        f"(float4s a frame {[strip_channels(x) for x in SWEEP_DIMS]}); {single}")
     log(f"phase 2: K1 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, {cells:.4g} corridor "
         f"cells, {rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
         f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def single_row_job(dev) -> str:
+    """A diag job (band 2, unnormalized) with length-1 sequences, through the
+    tiled scheduler on the card (ti=128) and on the CPU (ti=16): the same D,
+    and every pair with a length-1 side the oracle's.  A length-1 A row has
+    the whole of row 0 in its corridor, which K1 walks in its own branch."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
+        all_pairs_distances_tiled,
+    )
+
+    K, S, d = 160, 64, 16
+    g = torch.Generator().manual_seed(21)
+    lens = torch.randint(2, S + 1, (K,), generator=g, dtype=torch.int32)
+    lens[::20] = 1
+    feats = torch.randn((K, S, d), generator=g)
+    feats *= torch.arange(S)[None, :, None] < lens[:, None, None]
+    lens_np = lens.numpy()
+    cfg = DTWConfig(band=2, band_mode="diag", normalize="none")
+    D = all_pairs_distances_tiled(feats.to(dev), lens_np, cfg, device=dev)
+    D_cpu = all_pairs_distances_tiled(feats, lens_np, cfg, device="cpu")
+    if not np.allclose(D, D_cpu, rtol=K1_RTOL, atol=K1_ATOL):
+        fail(f"phase 2: the length-1 diag job differs between the card (ti=128) and the CPU "
+             f"(ti=16) (max abs {np.abs(D - D_cpu).max()})")
+    f_np = feats.numpy()
+    ones = np.flatnonzero(lens_np == 1)
+    for a in ones:
+        for b in range(K):
+            if b == a:
+                continue
+            want = dtw_oracle(f_np[a, :1], f_np[b, :lens_np[b]], band=2, band_mode="diag")
+            if not np.isclose(D[a, b], want, rtol=1e-5, atol=1e-5):
+                fail(f"phase 2: length-1 pair D[{a},{b}]={D[a, b]} vs oracle {want}")
+    return (f"length-1 diag job (K={K}, {len(ones)} of length 1): card ti=128 vs CPU ti=16 "
+            f"max abs err {np.abs(D - D_cpu).max():.3g}, {len(ones) * (K - 1)} length-1 pairs "
+            f"match the oracle")
 
 
 def golden_config():
@@ -563,8 +614,11 @@ def phase6(dev) -> dict:
 
 def phase7(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        _systolic_rows,
         dtw_tile_lane_full_pairs,
         dtw_tile_lane_full_pairs_ref,
+        frame_layout,
+        strip_channels,
     )
 
     ti, nT, S, d = 128, 2, 1024, 16
@@ -597,13 +651,28 @@ def phase7(dev) -> dict:
         if not (bool(over.any()) and bool(torch.isinf(cut[0][over]).all())
                 and bool(torch.isfinite(cut[0][~over]).all())):
             fail(f"phase 7: a {tag} shortfall did not give +inf on exactly the cut pairs")
-    ms = cuda_ms(lambda: dtw_tile_lane_full_pairs(feats, lens, ii, jj, **kw), 3)
+    # Every frame width K3 is built for and the other two metrics, on one
+    # tile-pair of a shorter corpus (S=384, lengths 129-384: 2-3 passes of
+    # 128 rows, 3-6 of 64 at 8 float4s a frame).
+    variants = []
+    for dd, metric in ((16, "sqeuclidean"), (16, "cosine"),
+                       *((x, "euclidean") for x in SWEEP_DIMS)):
+        f_s, l_s = sorted_corpus(ti, 384, dd, 129, 384, seed=70 + dd, dev=dev)
+        u = torch.zeros(1, dtype=torch.int32, device=dev)
+        kw_s = dict(ti=ti, width=int(l_s.max()), rows=int(l_s.max()), metric=metric)
+        agree(f"phase 7 (d={dd}, {metric})", dtw_tile_lane_full_pairs(f_s, l_s, u, u, **kw_s),
+              dtw_tile_lane_full_pairs_ref(f_s, l_s, u, u, **kw_s), K3_RTOL, K3_ATOL)
+        variants.append((_systolic_rows(strip_channels(dd)), strip_channels(dd), metric))
+    # Timed as the scheduler launches it: the corpus layout built once.
+    frames = frame_layout(feats)
+    ms = cuda_ms(lambda: dtw_tile_lane_full_pairs(feats, lens, ii, jj, frames=frames, **kw), 3)
     n_pairs = 3 * ti * ti
     cells = tile_call_cells(lens, ii, jj, ti, "full")
     bound_ms, bound_by = bound(cells, d, tile_call_bytes(ii, jj, ti, S, d))
     log(f"phase 7: K3 vs plain on 3 tile-pairs ({n_pairs} pairs, S={S}, width {kw['width']}): "
         f"max abs err {max_abs:.3g} (rtol {K3_RTOL}, atol {K3_ATOL}); width and rows "
-        f"shortfalls +inf on exactly the cut pairs")
+        f"shortfalls +inf on exactly the cut pairs; (rows a lane, float4s a frame, metric) "
+        f"{variants} agree at S=384")
     log(f"phase 7: K3 {ms:.3f} ms/call ({n_pairs / ms * 1e3:.0f} pairs/s, "
         f"{rate_line(ms, cells, bound_ms)}), plain {plain_ms:.3f} ms/call "
         f"({n_pairs / plain_ms * 1e3:.0f} pairs/s)")
@@ -682,6 +751,7 @@ def oracle_pairs(f, n, ia, ib, **kw) -> list[float]:
 def phase10(dev, tmp: Path) -> dict:
     from audio_pattern_discovery_tpu_torch.config import PipelineConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_full_pairs
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
     from audio_pattern_discovery_tpu_torch.pipeline import discover
 
     corpus = long_units_corpus(tmp)
@@ -708,11 +778,23 @@ def phase10(dev, tmp: Path) -> dict:
     for a, b, want in zip(ia, ib, oracle_pairs(f, n, ia, ib)):
         if not np.isclose(D[a, b], want, rtol=K3_RTOL, atol=1e-5):
             fail(f"phase 10: D[{a},{b}]={D[a, b]} vs oracle {want}")
+    # The job's DTW again through the scheduler for K3's device time at this
+    # cell: the same D, bitwise.
+    stats: dict = {}
+    D2 = all_pairs_distances(f, n, cfg.dtw, device=dev, stats=stats)
+    if not np.array_equal(D, D2):
+        fail("phase 10: the job's D through the scheduler differs from discover()'s")
+    k3_s = stats["kernel_s_by"].get("dtw_tile_lane_full_pairs", 0.0)
+    cells = job_cells(n, "full")
+    k3_bound, _ = bound(cells, f.shape[2], 0.0)
     t = {k: round(v, 3) for k, v in res.counters.timings_s.items()}
     log(f"phase 10: long units ({len(n)} segments of {int(n.min())}-{int(n.max())} frames, "
         f"{len(res.clusters)} clusters): K3 launches {launches}, {ckpt} clusters aligned "
         f"through the checkpointed backtrace, 16 distances match the oracle; discover() "
         f"wall {wall:.2f} s; stages {t}")
+    log(f"phase 10: K3 at this cell: {k3_s * 1e3:.3f} ms of device time over "
+        f"{stats['blocks']} launches (d={f.shape[2]}, {cells:.4g} cells, "
+        f"{rate_line(k3_s * 1e3, cells, k3_bound)})")
     return {"launches": launches}
 
 
@@ -1039,6 +1121,90 @@ def phase15(dev, tmp: Path) -> dict:
     return {"launches": launches}
 
 
+def k7_pairs(dev, B: int, S: int, d: int, wv: int, diff_lo: int, seed: int):
+    """K7's arguments for B gathered pairs of one per-pair class: lb in the
+    top 124 frames of S, la = lb - diff with diff in [diff_lo, wv] (the
+    scheduler's class of pairs with max_len_diff wv, shorter side first)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lb = torch.randint(S - 123, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    la = lb - torch.randint(diff_lo, wv + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    return (torch.randn((B, S, d), generator=g, device=dev),
+            torch.randn((B, S, d), generator=g, device=dev), la, lb)
+
+
+# K7's sweep in phase 16: the per-pair route's first two band-16 classes
+# (max_len_diff 63 at S=512, 127 at S=1024: diffs 0-63 and 64-127).
+K7_CLASSES = ((63, 512, 0), (127, 1024, 64))
+
+
+def k7_sweep(dev) -> list:
+    """K7 against its twin on 64 gathered pairs of each class in K7_CLASSES
+    at every frame width it is built for (d=16, 4, 8, 20, 40), with the other
+    two metrics at d=16, and a hard band 16 over class 63's pairs (+inf
+    where the corner is outside the band); returns (float4s a frame,
+    metric, class half-width) covered."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        _dtw_batch_stripe,
+        _dtw_batch_stripe_ref,
+        strip_channels,
+    )
+
+    done = []
+    for wv, S, diff_lo in K7_CLASSES:
+        cases = [(16, dict(metric=m)) for m in ("euclidean", "sqeuclidean", "cosine")]
+        cases += [(x, dict(metric="euclidean")) for x in SWEEP_DIMS]
+        if wv == 63:
+            cases.append((16, dict(metric="euclidean", auto_widen=False)))
+        for dd, extra in cases:
+            args = k7_pairs(dev, 64, S, dd, wv, diff_lo, seed=wv + dd)
+            kw = dict(band=16, max_len_diff=wv, **extra)
+            got = _dtw_batch_stripe(*args, **kw)
+            if extra.get("auto_widen", True) and not bool(torch.isfinite(got).all()):
+                fail(f"phase 16: K7 returned non-finite distances in class {wv} ({dd}, {extra})")
+            agree(f"phase 16 (K7 class {wv}, d={dd}, {extra})", got,
+                  _dtw_batch_stripe_ref(*args, **kw), K7_RTOL, K7_ATOL)
+            w = wv if extra.get("auto_widen", True) else 16
+            done.append((strip_channels(dd), extra["metric"], w))
+    return done
+
+
+def k7_sqrt_check(dev) -> str:
+    """K7's Euclidean cost bit for bit against the IEEE square root of its
+    squared cost (csrc/dtw_systolic.cuh:sqrt_rn against sqrtf's rounding):
+    single-cell pairs whose two nonzero channels give sums of squares of 0,
+    denormals, values around 2^-101 (sqrt_rn's rescaling edge), every power
+    of two and its double, random bit patterns and +inf on overflow."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import _dtw_batch_stripe
+
+    rng = np.random.default_rng(161)
+    pw2 = np.exp2(np.arange(-160, 141) / 2).astype(np.float32)
+    edge = (2.0 ** -50.5 * (1 + np.arange(-2048, 2048) * 2.0 ** -12)).astype(np.float32)
+    den = np.exp2(rng.uniform(-76, -62, 4096)).astype(np.float32)
+    bits = rng.integers(0, 0x5F800000, (2, 16384), dtype=np.uint32).view(np.float32)
+    v0 = np.concatenate([[0.0], pw2, pw2, edge, den, den, bits[0]])
+    v1 = np.concatenate([[0.0], 0 * pw2, pw2, 0 * edge, 0 * den, den[::-1], bits[1]])
+    B = len(v0)
+    a = torch.zeros((B, 512, 4), device=dev)
+    a[:, 0, :2] = torch.from_numpy(np.stack([v0, v1], 1).astype(np.float32)).to(dev)
+    b = torch.zeros_like(a)
+    one = torch.ones(B, dtype=torch.int32, device=dev)
+    kw = dict(band=16, max_len_diff=0)
+    got = _dtw_batch_stripe(a, b, one, one, **kw).cpu().numpy()
+    acc = _dtw_batch_stripe(a, b, one, one, metric="sqeuclidean", **kw).cpu().numpy()
+    want = np.sqrt(acc.astype(np.float64)).astype(np.float32)
+    bad = got.view(np.uint32) != want.view(np.uint32)
+    if bad.any():
+        n = int(np.argmax(bad))
+        fail(f"phase 16: K7's sqrt differs from the IEEE sqrt on {int(bad.sum())} of {B} costs "
+             f"(first: sqrt({acc[n]!r}) = {got[n]!r}, want {want[n]!r})")
+    tiny = (acc > 0) & (acc < 2.0 ** -101)
+    if not tiny.any():
+        fail("phase 16: the sqrt check reached no cost below 2^-101")
+    return (f"K7's sqrt bitwise the IEEE sqrt on {B} costs ({int((acc == 0).sum())} zero, "
+            f"{int(((acc > 0) & (acc < 2.0 ** -126)).sum())} denormal, {int(tiny.sum())} in "
+            f"(0, 2^-101), {int(np.isinf(acc).sum())} +inf)")
+
+
 def phase16(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
@@ -1086,9 +1252,22 @@ def phase16(dev) -> dict:
     k7["max_abs_err"] = agree("phase 16 (K7)", got7, want7, K7_RTOL, K7_ATOL)
     shortfall("phase 16 (K7 max_len_diff)", _dtw_batch_stripe(*args7, band=16, max_len_diff=31),
               got7, (la - lb).abs() > 31)
+    k7_variants, sqrt_line = k7_sweep(dev), k7_sqrt_check(dev)
     k7["ms"] = cuda_ms(lambda: _dtw_batch_stripe(*args7, band=16, max_len_diff=63), 5)
     k7["bound_ms"], k7["bound_by"] = bound(float(pair_cells(la, lb, "widen", 16).sum()), d,
                                            2 * B * (S * d + 1) * 4.0 + B * 4.0)
+    # At a launch size of the per-pair job below: the scheduler pads each
+    # block to a power of two, and its 11 K7 launches (32,640 pairs) are
+    # 2,048-8,192 pairs, 4,096 the median; the same length distribution.
+    B_job = 4096
+    la_j = torch.randint(900, 961, (B_job,), generator=g, device=dev, dtype=torch.int32)
+    lb_j = la_j + torch.randint(0, 64, (B_job,), generator=g, device=dev, dtype=torch.int32)
+    args_j = (torch.randn((B_job, S, d), generator=g, device=dev),
+              torch.randn((B_job, S, d), generator=g, device=dev), la_j, lb_j)
+    job_ms = cuda_ms(lambda: _dtw_batch_stripe(*args_j, band=16, max_len_diff=63), 3)
+    job_bound, _ = bound(float(pair_cells(la_j, lb_j, "widen", 16).sum()), d,
+                         2 * B_job * (S * d + 1) * 4.0 + B_job * 4.0)
+    del args_j
     log(f"phase 16: K6 vs plain on 4096 gathered pairs (S=128, widen band 16 and unbanded): max "
         f"abs err {k6['max_abs_err']:.3g} (rtol {K6_RTOL}, atol {K6_ATOL}); K6 {k6['ms']:.3f} "
         f"ms/call (bound {k6['bound_ms']:.4f} ms, {k6['bound_ms'] / k6['ms']:.1%} of it), "
@@ -1097,7 +1276,10 @@ def phase16(dev) -> dict:
         f"err {k7['max_abs_err']:.3g} (rtol {K7_RTOL}, atol {K7_ATOL}); max_len_diff shortfall "
         f"+inf on exactly the cut pairs; K7 {k7['ms']:.3f} ms/call (bound "
         f"{k7['bound_ms']:.4f} ms, {k7['bound_ms'] / k7['ms']:.1%} of it), plain "
-        f"{k7['plain_ms']:.3f} ms/call")
+        f"{k7['plain_ms']:.3f} ms/call; at {B_job} pairs (a launch of the long per-pair job) "
+        f"{job_ms:.3f} ms/call (bound {job_bound:.4f} ms, {job_bound / job_ms:.1%} of it)")
+    log(f"phase 16: K7 vs plain on 64 pairs each at (float4s a frame, metric, class "
+        f"half-width) {k7_variants} agree; {sqrt_line}")
 
     # The per-pair route: a K=2,048 slice of the config-4 corpus and a job of
     # 256 sequences of 900-1024 frames, each against the tiled widen D.
@@ -1202,9 +1384,10 @@ def crossover(dev) -> None:
             f"K4/K5 {k4_ms / k5_ms:.2f}")
 
 
-# Run in a subprocess with one checkout's package first on sys.path: K4 on
-# phase 12's tile-pairs and on the whole config-4 widen job (K4 forced), and
-# both kernels' times at phase 12's shape (a config-4 wide class).
+# Run in a subprocess with one checkout's package first on sys.path: K4 and
+# K1 on phase 12's tiles, K4 on the whole config-4 widen job (K4 forced), K3
+# at phase 7's shape and K7 at phase 16's; the times of K4 and K5 at phase
+# 12's shape (a config-4 wide class), of K3 and of K7.
 _AGAINST = r"""
 import inspect, json, sys
 import numpy as np, torch
@@ -1245,21 +1428,49 @@ kw = dict(ti=128, band=16, wv_max=64, rows=128)
 f4 = prebuilt(tk.dtw_tile_lane_pairs, lambda: tk.strip_layout(feats, 128))
 f5 = prebuilt(tk.dtw_tile_stripe_pairs, lambda: tk.frame_layout(feats))
 k4 = tk.dtw_tile_lane_pairs(feats, lens, ii, jj, **kw, **f4).cpu().numpy()
+# K1 on the same tiles, long side on rows, at the class contract.
+l_np = lens.cpu().numpy()
+rep = torch.from_numpy(tk.tile_rep_lengths(l_np, 4, 128, 512)).to(dev)
+t_lo = [int(l_np[t * 128:(t + 1) * 128].min()) for t in range(4)]
+t_hi = [int(l_np[t * 128:(t + 1) * 128].max()) for t in range(4)]
+wv1 = max(tk.diag_class_bounds(16, t_lo[j], t_hi[j], t_lo[i], t_hi[i])[0] for i, j in pairs)
+f1 = prebuilt(tk.dtw_tile_lane_diag_pairs, lambda: tk.strip_layout(feats, 128))
+k1 = tk.dtw_tile_lane_diag_pairs(feats, lens, rep, jj, ii, ti=128, band=16, wv_max=wv1,
+                                 rows=128, **f1).cpu().numpy()
 res = {"k4_ms": ms(lambda: tk.dtw_tile_lane_pairs(feats, lens, ii, jj, **kw, **f4)),
        "k5_ms": ms(lambda: tk.dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw, **f5))}
 f4k, l4k = corpus(10240, 128, 16, 64, 128, 4, False)
 cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
 D = all_pairs_distances_tiled(f4k, l4k.cpu().numpy(), cfg, device=dev, lane=True)
-np.savez(out, k4=k4, D=D)
+del f4k
+# K3 at phase 7's shape (S=1024, lengths 257-1024, 3 tile-pairs).
+f3, l3 = corpus(256, 1024, 16, 257, 1024, 7, True)
+i3 = torch.tensor([0, 0, 1], dtype=torch.int32, device=dev)
+j3 = torch.tensor([0, 1, 1], dtype=torch.int32, device=dev)
+kw3 = dict(ti=128, width=int(l3.max()), rows=int(l3.max()))
+f3k = prebuilt(tk.dtw_tile_lane_full_pairs, lambda: tk.frame_layout(f3))
+k3 = tk.dtw_tile_lane_full_pairs(f3, l3, i3, j3, **kw3, **f3k).cpu().numpy()
+res["k3_ms"] = ms(lambda: tk.dtw_tile_lane_full_pairs(f3, l3, i3, j3, **kw3, **f3k), 3)
+# K7 at phase 16's shape (512 gathered pairs of 900-1024 frames, S=1024).
+g = torch.Generator(device=dev).manual_seed(16)
+la7 = torch.randint(900, 961, (512,), generator=g, device=dev, dtype=torch.int32)
+lb7 = la7 + torch.randint(0, 64, (512,), generator=g, device=dev, dtype=torch.int32)
+a7 = torch.randn((512, 1024, 16), generator=g, device=dev)
+b7 = torch.randn((512, 1024, 16), generator=g, device=dev)
+k7 = tk._dtw_batch_stripe(a7, b7, la7, lb7, band=16, max_len_diff=63).cpu().numpy()
+res["k7_ms"] = ms(lambda: tk._dtw_batch_stripe(a7, b7, la7, lb7, band=16, max_len_diff=63), 5)
+np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7)
 print(json.dumps(res))
 """
 
 
 def against(other: Path) -> None:
-    """K4 and K5 of this checkout against another's (its parent), each run
-    in its own process in turns other, this, this, other: K5's and K4's
-    times at a config-4 wide class, and K4's outputs bitwise, on phase
-    12's tile-pairs and as the config-4 widen D with K4 forced."""
+    """K1, K3, K4, K5 and K7 of this checkout against another's (its
+    parent), each run in its own process in turns other, this, this, other:
+    K5's and K4's times at a config-4 wide class, K3's at phase 7's shape
+    and K7's at phase 16's; K1's outputs bitwise on phase 12's tiles (diag
+    band 16), K4's on phase 12's tile-pairs and as the config-4 widen D with
+    K4 forced, K7's on phase 16's pairs, and K3's largest difference."""
     if not (other / "audio_pattern_discovery_tpu_torch").is_dir():
         fail(f"--against {other}: no audio_pattern_discovery_tpu_torch there")
     with tempfile.TemporaryDirectory(prefix="apd_against_") as tmp_dir:
@@ -1272,16 +1483,26 @@ def against(other: Path) -> None:
                 fail(f"--against: the run in {tree} exited {proc.returncode}:\n"
                      f"{proc.stderr[-3000:]}")
             runs.append((json.loads(proc.stdout.strip().splitlines()[-1]), np.load(out)))
-        for key in ("k4", "D"):
-            same = all(np.array_equal(runs[0][1][key], r[1][key]) for r in runs[1:])
-            if not same:
-                fail(f"--against: K4's {key} differs from the other checkout's")
-        log("against: K4 on phase 12's tile-pairs and the config-4 widen D with K4 forced are "
-            "bitwise equal to the other checkout's")
-        for key in ("k4_ms", "k5_ms"):
-            log(f"against: {key[:2].upper()} at a config-4 wide class (10 tile-pairs, S=128, "
-                f"W=130): other {runs[0][0][key]:.3f} / {runs[3][0][key]:.3f} ms, this "
-                f"{runs[1][0][key]:.3f} / {runs[2][0][key]:.3f} ms")
+        for key, name in (("k1", "K1"), ("k4", "K4"), ("D", "K4"), ("k7", "K7")):
+            if not all(np.array_equal(runs[0][1][key], r[1][key]) for r in runs[1:]):
+                fail(f"--against: {name}'s {key} differs from the other checkout's")
+        k3_old, k3_new = runs[0][1]["k3"], runs[1][1]["k3"]
+        if not (np.array_equal(np.isinf(k3_old), np.isinf(k3_new))
+                and np.allclose(k3_new, k3_old, rtol=SCAN_RTOL, atol=SCAN_ATOL)):
+            fail("--against: K3 differs from the other checkout's beyond its tolerance")
+        fin = np.isfinite(k3_old)
+        log("against: K1 on phase 12's tiles (diag band 16), K4 on phase 12's tile-pairs, the "
+            "config-4 widen D with K4 forced, and K7 on phase 16's pairs are bitwise equal to the "
+            "other checkout's; K3 on phase 7's "
+            f"tile-pairs differs by at most {np.abs(k3_new - k3_old)[fin].max():.3g} (max relative "
+            f"{(np.abs(k3_new - k3_old) / np.maximum(np.abs(k3_old), 1e-30))[fin].max():.3g})")
+        shapes = {"k4_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
+                  "k5_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
+                  "k3_ms": "at phase 7's shape (3 tile-pairs, S=1024)",
+                  "k7_ms": "at phase 16's shape (512 pairs, S=1024, band 16, max_len_diff 63)"}
+        for key, shape in shapes.items():
+            log(f"against: {key[:2].upper()} {shape}: other {runs[0][0][key]:.3f} / "
+                f"{runs[3][0][key]:.3f} ms, this {runs[1][0][key]:.3f} / {runs[2][0][key]:.3f} ms")
 
 
 def main() -> int:
@@ -1291,8 +1512,8 @@ def main() -> int:
     parser.add_argument("--crossover", action="store_true",
                         help="after phase 1, time K4 against K5 per class stripe and stop")
     parser.add_argument("--against", metavar="TREE",
-                        help="after phase 1, compare K4 and K5 with those of another checkout "
-                             "of the repo (in turns, bitwise for K4) and stop")
+                        help="after phase 1, compare K1, K3, K4, K5 and K7 with those of another "
+                             "checkout of the repo (in turns, bitwise for K1, K4 and K7) and stop")
     args = parser.parse_args()
     only = {int(p) for p in args.phases.split(",") if p}
     if not torch.cuda.is_available():

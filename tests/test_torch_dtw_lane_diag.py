@@ -1,7 +1,9 @@
 """K1, the diag-corridor lane kernel, on the CPU: its plain twin
 ``dtw_tile_lane_diag_pairs_ref`` (what the wrapper runs for CPU tensors)
 against the JAX kernel ``dtw_tile_lane_diag_pairs(..., interpret=True)``,
-and the ported class-bound helpers against their JAX originals.
+and the ported class-bound helpers against their JAX originals.  A pair
+whose A sequence has length 1 is held against the NumPy oracle instead:
+the JAX kernel reads a truncated corner there, which the port does not.
 
 The CUDA kernel itself cannot run here (no nvcc, no card): it is held
 against the same twin on the card by ``chip_smoke.py`` phase 2."""
@@ -111,6 +113,62 @@ def test_rows_below_length_is_inf():
     rep = tk.tile_rep_lengths(lens, 2, 4, 8)
     got, want = _both(feats, lens, rep, [1], [0], ti=4, band=3, wv_max=12, rows=10)
     assert np.isinf(got).all() and np.isinf(want).all()
+
+
+def test_length_one_rows_equal_oracle():
+    # An A sequence of length 1 has the whole of row 0 in its corridor
+    # (oracle/dtw.py: den = 0); the twin gives the oracle's distance, where
+    # the reference's frame reads a truncated corner.  The other rows are
+    # the JAX kernel's.
+    rng = np.random.default_rng(15)
+    K, S, d, ti, band = 8, 32, 4, 4, 2
+    lens = np.array([1, 1, 5, 9, 20, 25, 30, 32], np.int32)
+    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
+    rep = tk.tile_rep_lengths(lens, 2, ti, K)
+    wv = max(tk.diag_class_bounds(band, 1, 32, lo, hi)[0] for lo, hi in ((1, 9), (20, 32)))
+    truncated = 0
+    for I, J in ((0, 0), (0, 1), (1, 0)):
+        got, want = _both(feats, lens, rep, [I], [J], ti=ti, band=band, wv_max=wv, rows=S)
+        for r in range(ti):
+            for c in range(ti):
+                ia, ib = I * ti + r, J * ti + c
+                if lens[ia] == 1:
+                    ref = dtw_oracle(feats[ia, :1], feats[ib, : lens[ib]], band=band,
+                                     band_mode="diag")
+                    np.testing.assert_allclose(got[0, r, c], ref, rtol=1e-5, err_msg=(I, J, r, c))
+                    truncated += not np.isclose(want[0, r, c], ref, rtol=1e-5)
+                elif ia != ib:
+                    np.testing.assert_allclose(got[0, r, c], want[0, r, c], rtol=1e-4, atol=1e-3)
+    assert truncated >= 4          # the reference's corner, which the port does not keep
+
+
+def test_length_one_job_does_not_depend_on_the_tile_size(monkeypatch):
+    # The job that showed the reference's corner fault: D of every pair with
+    # a length-1 side equals the oracle at ti = 4, 8 and 16, and every other
+    # pair is bitwise what the job gives without the length-1 branch.
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
+        all_pairs_distances_tiled,
+    )
+
+    rng = np.random.default_rng(16)
+    lens = np.array([1, 5, 6, 7, 20, 21, 22, 23], np.int32)
+    feats = rng.normal(0, 1, (8, 32, 4)).astype(np.float32)
+    for k in range(8):
+        feats[k, lens[k]:] = 0.0
+    cfg = DTWConfig(band=2, band_mode="diag", normalize="none")
+    one = (lens[:, None] == 1) | (lens[None, :] == 1)
+    np.fill_diagonal(one, False)
+    oracle = np.array([[dtw_oracle(feats[a, : lens[a]], feats[b, : lens[b]], band=2,
+                                   band_mode="diag") for b in range(8)] for a in range(8)])
+    for ti in (4, 8, 16):
+        D = all_pairs_distances_tiled(feats, lens, cfg, ti=ti, device="cpu")
+        np.testing.assert_allclose(D[one], oracle[one], rtol=1e-5)
+        with monkeypatch.context() as m:
+            m.setattr(tk, "_single_row", lambda x, lens, a_ids, b_ids, metric:
+                      torch.full(b_ids.shape, float("nan")))
+            unfixed = all_pairs_distances_tiled(feats, lens, cfg, ti=ti, device="cpu")
+        np.testing.assert_array_equal(D[~one], unfixed[~one])
 
 
 def test_class_bounds_and_tile_rep_equal_jax():

@@ -7,6 +7,7 @@ atol 1e-5, cluster partition exact)."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -214,6 +215,19 @@ def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path):
     assert [got[1], got[2]] == want
 
 
+@pytest.mark.parametrize("flags,title", [
+    (["--doctor"], "Runtime extras"),
+    (["--trace", "trace_dir"], "Runtime extras"),
+    (["--top-k", "5"], "query.py, --update, --query, block persistence"),
+])
+def test_reference_only_flags_raise_naming_their_item(flags, title):
+    # The reference's flags are accepted, so a command line written for it
+    # fails with its ROADMAP item rather than argparse's "unrecognized
+    # arguments" (SystemExit).
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md Queue 1: "{re.escape(title)}"'):
+        cli_main(flags)
+
+
 @pytest.mark.parametrize("entry", ["discover", "cli", "all_pairs_distances",
                                    "all_pairs_distances_tiled", "all_pairs_distances_per_pair",
                                    "fit_pca", "spectrogram_corpus"])
@@ -298,6 +312,9 @@ def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
     calls += [
         lambda: discover(seed7, _golden_config(), update_from=tmp_path, device="cpu"),
         lambda: cli_main(["--serve", "sock"]),
+        lambda: cli_main(["--doctor"]),
+        lambda: cli_main(["--trace", "trace_dir"]),
+        lambda: cli_main(["--top-k", "5"]),
         lambda: all_pairs_distances(np.zeros((2, 4200, 2), np.float32), [4200, 4100],
                                     DTWConfig(band=None), device="cpu"),
         lambda: all_pairs_distances(np.zeros((2, 8, 2), np.float32), [8, 7],

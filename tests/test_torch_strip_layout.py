@@ -1,10 +1,11 @@
 """The host side of the strip kernels K1, K2, K4 and K5
-(``csrc/dtw_strip.cuh``) on the CPU: the corpus layouts they read
-(``strip_layout`` for K1, K2 and K4, ``frame_layout`` for K5), their channel
-width (``strip_channels``), the checks of a prebuilt layout, and the launch
-widths.  The kernels themselves run only on the card (``chip_smoke.py``
-phases 2, 6, 12 and 13 hold them against their twins); exact indexing here,
-no tolerance."""
+(``csrc/dtw_strip.cuh``) and of the systolic kernels K3 and K7
+(``csrc/dtw_systolic.cuh``) on the CPU: the corpus layouts they read
+(``strip_layout`` for K1, K2 and K4, ``frame_layout`` for K3, K5 and K7),
+their channel width (``strip_channels``), the checks of a prebuilt layout,
+and the launch widths and rows a lane.  The kernels themselves run only on
+the card (``chip_smoke.py`` phases 2, 6, 7, 12, 13 and 16 hold them against
+their twins); exact indexing here, no tolerance."""
 
 import numpy as np
 import pytest
@@ -144,6 +145,78 @@ def test_stripe_warps(ti, wv, nc4):
     warps = tk._stripe_warps(ti, wv, nc4)
     assert 1 <= warps <= min(4, ti) and warps * per_warp <= tk._SMEM_BUDGET
     assert warps == min(4, ti) or (warps + 1) * per_warp > tk._SMEM_BUDGET
+
+
+@pytest.mark.parametrize("d,metric,same", [(16, "euclidean", True), (8, "sqeuclidean", True),
+                                           (16, "cosine", False), (5, "euclidean", False),
+                                           (20, "euclidean", False)])
+def test_frame_layout_is_the_input_where_it_can_be(d, metric, same):
+    # K7 takes gathered pairs as they are where they already are the frame
+    # layout (d = 4*strip_channels(d), not cosine): no copy at a launch.
+    rng = np.random.default_rng(70 + d)
+    feats = torch.from_numpy(rng.normal(0, 1, (3, 6, d)).astype(np.float32))
+    lay = tk.frame_layout(feats, metric)
+    assert (lay is feats) == same
+    np.testing.assert_array_equal(lay[..., :d].numpy(), tk._unit_frames(feats, metric).numpy())
+    assert not (tk.frame_layout(feats[:, 1:], metric) is feats)    # not contiguous
+
+
+@pytest.mark.parametrize("ti,W,nc4", [(128, 1024, 4), (128, 4096, 4), (128, 4096, 8), (4, 64, 1),
+                                      (128, 1024, 10), (128, 60_000, 4)])
+def test_lane_full_warps(ti, W, nc4):
+    # K3: 8, 4, 2 or 1 warps a block (at most ti), the most resident on an
+    # SM within its shared memory: the block's pass strip of 32R frames and
+    # a boundary row of W floats a warp; a row beyond one block raises.
+    R = tk._systolic_rows(nc4)
+    assert R == (2 if nc4 == 8 else 4)
+
+    def resident(w):
+        smem = 16 * 32 * R * nc4 + 4 * W * w
+        if smem > tk._SMEM_BUDGET:
+            return -1
+        return min(tk._SM_SMEM // (smem + tk._BLOCK_RESERVED), 32, 64 // w) * w
+
+    choices = sorted({min(ti, w) for w in (8, 4, 2, 1)}, reverse=True)
+    if max(resident(w) for w in choices) < 0:
+        with pytest.raises(ValueError, match="shared"):
+            tk._lane_full_warps(ti, W, nc4, R)
+        return
+    warps = tk._lane_full_warps(ti, W, nc4, R)
+    assert warps in choices and resident(warps) == max(resident(w) for w in choices)
+
+
+@pytest.mark.parametrize("wv,nc4", [(16, 4), (63, 4), (64, 4), (127, 4), (511, 8), (100, 10),
+                                    (30_000, 4)])
+def test_stripe_pair_rows_and_warps(wv, nc4):
+    # K7: 2 rows a lane at every class; at most 4 warps (its launch bound)
+    # within one block's shared memory at a pass's A frames (32R x nc4
+    # float4s) and a boundary row of 2*wv+1 floats a warp; a row beyond one
+    # block raises.
+    R = tk.STRIPE_LANE_ROWS
+    assert R == 2
+    per_warp = 4 * (4 * 32 * R * nc4 + 4 * -(-(2 * wv + 1) // 4))
+    if per_warp > tk._SMEM_BUDGET:
+        with pytest.raises(ValueError, match="shared"):
+            tk._stripe_pair_warps(wv, nc4)
+        return
+    warps = tk._stripe_pair_warps(wv, nc4)
+    assert 1 <= warps <= 4 and warps * per_warp <= tk._SMEM_BUDGET
+    assert warps == 4 or (warps + 1) * per_warp > tk._SMEM_BUDGET
+
+
+def test_k3_wrapper_checks_prebuilt_frames():
+    # K3 takes the frame layout as frames= and checks it on any device.
+    rng = np.random.default_rng(61)
+    feats = torch.from_numpy(rng.normal(0, 1, (8, 16, 5)).astype(np.float32))
+    n = torch.from_numpy(rng.integers(2, 17, 8).astype(np.int32))
+    u = torch.tensor([0, 1], dtype=torch.int32)
+    kw = dict(ti=4, width=16)
+    want = tk.dtw_tile_lane_full_pairs(feats, n, u, u, **kw)
+    np.testing.assert_array_equal(
+        tk.dtw_tile_lane_full_pairs(feats, n, u, u, frames=tk.frame_layout(feats), **kw), want)
+    for bad in (tk.strip_layout(feats, 4), tk.frame_layout(feats)[:1]):
+        with pytest.raises(ValueError, match="frame_layout"):
+            tk.dtw_tile_lane_full_pairs(feats, n, u, u, frames=bad, **kw)
 
 
 def test_strip_rows_fit_registers():
