@@ -1,7 +1,7 @@
 """The DTW kernels on Hopper: the tile-pair kernels K1 (diag corridor), K2
 (square tile), K3 (full-width rows), K4 (widen stripe, thread per pair) and
-K5 (widen stripe, warp per pair), and the per-pair kernels K6 (full rows)
-and K7 (widen stripe) over gathered pairs.
+K5 (widen stripe, warp per pair), and the per-pair kernels K6 (full rows,
+any band) and K7 (widen stripe) over gathered pairs.
 
 Port of ``audio_pattern_discovery_tpu/ops/dtw_pallas.py``:
 ``dtw_tile_lane_diag_pairs`` (kernel ``_dtw_lane_diag_kernel``, plus the
@@ -39,11 +39,13 @@ K1, K2, K4 and K5 walk each pair's DP in strips of rows
 the strip's cost builds.  K1, K2 and K4 (a thread per pair) read the corpus
 in ``strip_layout`` ([nT, S, ti, 4*nc4]), K5 (a warp per pair) in
 ``frame_layout`` ([K, S, 4*nc4]); the scheduler builds each once a job and
-passes it as ``frames=``.  K3 and K7 run one warp per pair as a systolic
-pipeline (``csrc/dtw_systolic.cuh``): lane l holds R rows of a pass of 32R
-rows and computes column j at step j + l, taking the row above from lane
-l-1 by one shuffle a step.  K3 reads ``frame_layout`` (``frames=``), K7 its
-gathered pairs, which are that layout already where d is 4, 8, 16 or 32.
+passes it as ``frames=``.  K3, K6 and K7 run a group of G lanes per pair
+as a systolic pipeline (``csrc/dtw_systolic.cuh``): lane l holds R rows of
+a pass of G*R rows and computes column j at step j + l, taking the row
+above from lane l-1 by one shuffle a step.  K3 and K7 take a warp per pair
+(G = 32), K6 32/G pairs a warp (``_rowscan_geometry``).  K3 reads
+``frame_layout`` (``frames=``), K6 and K7 their gathered pairs, which are
+that layout already where d is 4, 8, 16 or 32.
 
 K2 and K3 are exact DTW over the rectangle i < la, j < lb (K2 optionally
 banded).  Their twins evaluate the recurrence cell by cell (an
@@ -56,8 +58,9 @@ column i + s - (wv+1)) of the exact width 2*wv+2, and K5 and K7 a pair's
 own band (2*wv+1 slots at most), where the reference rounds the stripe up
 to 8 or 128 slots: a pair whose half-width exceeds the class bound wv
 comes back +inf, where the reference's rounded frame could read a
-truncated value.  Their twins, and K6's, evaluate the same banded
-recurrence cell by cell.
+truncated value.  K6 walks each pair's own band too, with no class bound
+(its boundary rows hold whole rows).  Their twins, and K6's, evaluate the
+same banded recurrence cell by cell.
 
 Not ported (TPU-only levers, measured null on the TPU): ``stack``,
 ``bgroup``, ``hoist_build``, ``dyn_roll=False`` with its ``kmax``, and the
@@ -220,15 +223,15 @@ def _check_frames(frames: torch.Tensor | None, feats: torch.Tensor, ti: int,
 
 
 def frame_layout(feats: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
-    """[K, S, 4*strip_channels(d)] f32: the corpus as K3, K5 and K7 read it.
+    """[K, S, 4*strip_channels(d)] f32: the corpus as K3, K5, K6 and K7 read it.
     Element [k, j, ch] is frame j, channel ch of sequence k (of its unit
     frame for cosine); channels past d are zero.  One sequence's frames are
     consecutive, so a warp's lanes, each on neighbouring columns, read one
     contiguous span.  ``feats`` itself where it already is that layout
     (contiguous and 16-byte aligned, no padding channels, not cosine).  The
     tiled scheduler builds it once a job and passes it to every K3 and K5
-    launch (``frames=``); K7 takes gathered pairs, whose gather is already
-    this layout at d = 4, 8, 16 or 32."""
+    launch (``frames=``); K6 and K7 take gathered pairs, whose gather is
+    already this layout at d = 4, 8, 16 or 32."""
     K, S, d = feats.shape
     n4 = 4 * strip_channels(d)
     if n4 == d and metric != "cosine" and feats.is_contiguous() and feats.data_ptr() % 16 == 0:
@@ -603,19 +606,6 @@ def lane_full_width(width: int, S: int) -> int:
     if not 1 <= W <= S:
         raise ValueError(f"width={width} must be in [1, S={S}]")
     return W
-
-
-def _rowscan_warps(ti: int, W: int, d: int) -> int:
-    """Warps (one pair each) per block of the K6 kernel: two padded rows of
-    32*(ceil(W/32)+1) floats and one A frame per warp, at most 8 warps."""
-    per_warp = 4 * (2 * 32 * (-(-W // 32) + 1) + d)
-    warps = min(8, ti, _SMEM_BUDGET // per_warp)
-    if warps < 1:
-        raise ValueError(
-            f"two DP rows of width {W} do not fit one block's shared memory "
-            f"({_SMEM_BUDGET} bytes)"
-        )
-    return warps
 
 
 def _systolic_rows(nc4: int) -> int:
@@ -1052,6 +1042,37 @@ def _normalized(dist, len_a, len_b, normalize):
     return dist
 
 
+def _rowscan_geometry(S: int, band: int | None, nc4: int) -> tuple[int, int]:
+    """(G, R) of a K6 launch: G lanes a pair (32/G pairs a warp) and R rows a
+    lane, the fastest of G in {8, 16, 32} x R in {1, 2, 4} on the H100 at the
+    per-pair route's classes and launch sizes (S=128, 256, 512 and 1024;
+    PERF.md).  Narrow groups idle less in a narrow band's short windows,
+    but each holds a boundary row of S floats, which caps residency at long
+    S.  Banded: 8 lanes up to S=128, 16 up to 256, else 32, 2 rows a lane.
+    Unbanded: 8 lanes up to S=256, else 32, 4 rows a lane.  At 8 float4s a
+    frame at most 2 rows: 4 would take 128 registers of A frames
+    (csrc/dtw_rowscan.cu builds exactly these)."""
+    if band is None:
+        G, R = (8, 4) if S <= 256 else (32, 4)
+    else:
+        G, R = (8, 2) if S <= 128 else (16, 2) if S <= 256 else (32, 2)
+    return G, min(R, 2) if nc4 == 8 else R
+
+
+def _rowscan_warps(G: int, R: int, S: int, nc4: int) -> int:
+    """Warps per block of K6 (32/G pairs each): each holds a pass's A frames
+    (32R x nc4 float4s) and a boundary row of S floats a group, rounded up to
+    whole float4s; at most 4 warps (the kernel's launch bound)."""
+    per_warp = 4 * (4 * 32 * R * nc4 + 4 * -(-(32 // G) * int(S) // 4))
+    warps = min(4, _SMEM_BUDGET // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"{32 // G} boundary rows of {S} floats do not fit one block's shared memory "
+            f"({_SMEM_BUDGET} bytes)"
+        )
+    return warps
+
+
 def dtw_batch_pallas(
     a: torch.Tensor,           # [B, R, d] f32, the shorter side of each pair
     b: torch.Tensor,           # [B, S, d] f32, R <= S
@@ -1100,15 +1121,18 @@ def dtw_batch_pallas(
     out = torch.empty((B,), dtype=torch.float32, device=a.device)
     if B == 0:
         return out
-    warps = _rowscan_warps(8, S, d)
-    af = _unit_frames(a, metric).contiguous()
-    bt = _unit_frames(b, metric).permute(0, 2, 1).contiguous()          # [B, d, S]
+    nc4 = strip_channels(d)
+    G, rows = _rowscan_geometry(S, band, nc4)
+    warps = _rowscan_warps(G, rows, S, nc4)
+    # The gathered pairs are the kernel's layout already (one pair's frames
+    # consecutive) unless their channels need padding or unit frames.
+    xa, xb = frame_layout(a, metric), frame_layout(b, metric)
     len_a, len_b = len_a.contiguous(), len_b.contiguous()
     _launch(
-        "dtw_rowscan", 5, 8,
-        af.data_ptr(), bt.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
-        B, R, S, d, -1 if band is None else int(band), int(bool(auto_widen)),
-        METRICS[metric], warps,
+        "dtw_rowscan", 5, 10,
+        xa.data_ptr(), xb.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
+        B, R, S, nc4, -1 if band is None else int(band), int(bool(auto_widen)),
+        METRICS[metric], warps, G, rows,
         stream=torch.cuda.current_stream(a.device).cuda_stream,
     )
     dtw_batch_pallas.launches += 1

@@ -54,6 +54,7 @@ from audio_pattern_discovery_tpu_torch.config import DTWConfig
 from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     MAX_KERNEL_SEQ_LEN,
+    _dtw_batch_stripe,
     diag_class_bounds,
     dtw_batch_pallas,
     dtw_tile_lane_diag_pairs,
@@ -69,6 +70,9 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
 )
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 
+# The per-pair kernels' wrappers (K6, K7): a block's device time goes to
+# the one whose launch counter its call moved.
+_PER_PAIR_KERNELS = (dtw_batch_pallas, _dtw_batch_stripe)
 # Past this matrix size, blocks assemble per sorted row strip instead of
 # scattering straight into original-order D (reference: measured on the
 # host, per-block random-row writes degrade superlinearly past ~2 GB).
@@ -764,8 +768,17 @@ def all_pairs_distances_per_pair(
     the kernels' ranges raises.  Each block is padded to a power of two with
     self-pairs of sequence 0 (discarded), up to ten blocks are in flight,
     each pair lands in one triangle, and ``D += D.T`` closes the matrix.
-    The kernels normalize inside, so the scatter does not.  The default
-    device is the card; without one, pass ``device="cpu"``."""
+    The kernels normalize inside, so the scatter does not.
+
+    ``stats`` receives the block and pad-pair counts, host seconds per
+    activity (enumerate, dispatch, collect: waiting for a block's values,
+    scatter) and, on a CUDA device, from CUDA events around each block:
+    ``gather_s``, the device time of the blocks' gathers, ``kernel_s``, that
+    of the DTW calls, and ``kernel_s_by``, the latter per entry name: the
+    wrapper whose launch counter the call moved (``dtw_batch_pallas`` for
+    K6, ``_dtw_batch_stripe`` for K7), else the entry called (``dtw_batch``
+    for diag blocks).  The default device is the card; without one, pass
+    ``device="cpu"``."""
     _check_dtype(cfg)
     device = resolve_device(device)
     K, L, d = features.shape
@@ -792,29 +805,52 @@ def all_pairs_distances_per_pair(
         stats = {}
     stats.update(
         route="per_pair", dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, enumerate_s=0.0,
-        blocks=0, pad_pairs=0, pairs=n_all_pairs, tiled=False,
+        gather_s=0.0, kernel_s=0.0, kernel_s_by={}, blocks=0, pad_pairs=0, pairs=n_all_pairs,
+        tiled=False,
     )
+    on_cuda = device.type == "cuda"
 
     def run_block(row_cap, bucket, mld, ii, jj):
+        """(the block's distances, the entry that computed them, and on a
+        CUDA device events before the gather and before and after the DTW
+        call)."""
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if on_cuda else []
+        if events:
+            events[0].record()
         a, b = feats_dev[ii, :row_cap], feats_dev[jj, :bucket]
         la, lb = lens_dev[ii], lens_dev[jj]
         kw = dict(metric=cfg.metric, band=cfg.band, auto_widen=cfg.auto_widen_band,
                   normalize=cfg.normalize)
         if not diag and pallas_supported(bucket, cfg.band, cfg.auto_widen_band, mld):
-            return dtw_batch_pallas(a, b, la, lb, max_len_diff=mld, **kw)
-        if bucket > MAX_KERNEL_SEQ_LEN:
+            fn, kw["max_len_diff"] = dtw_batch_pallas, mld
+        elif bucket > MAX_KERNEL_SEQ_LEN:
             raise NotImplementedError(
                 f"a per-pair bucket of {bucket} frames outside the kernels' ranges needs the "
                 f"blocked wavefront ({_LONG_ITEM}), not ported yet"
             )
-        return dtw_batch(a, b, la, lb, band_mode=cfg.band_mode, **kw)
+        else:
+            fn, kw["band_mode"] = dtw_batch, cfg.band_mode
+        if events:
+            events[1].record()
+        counts = [k.launches for k in _PER_PAIR_KERNELS]
+        vals = fn(a, b, la, lb, **kw)
+        if events:
+            events[2].record()
+        moved = [k for k, n in zip(_PER_PAIR_KERNELS, counts) if k.launches != n]
+        return vals, (moved[0] if moved else fn).__name__, events
 
-    pending: list[tuple[np.ndarray, np.ndarray, torch.Tensor]] = []
+    pending: list[tuple[np.ndarray, np.ndarray, torch.Tensor, str, list]] = []
 
     def collect_one():
-        ii, jj, vals = pending.pop(0)
+        ii, jj, vals, name, events = pending.pop(0)
         t0 = time.perf_counter()
         host = vals.cpu().numpy()[: len(ii)]
+        if events:
+            stats["gather_s"] += events[0].elapsed_time(events[1]) / 1e3
+            secs = events[1].elapsed_time(events[2]) / 1e3
+            stats["kernel_s"] += secs
+            by = stats["kernel_s_by"]
+            by[name] = by.get(name, 0.0) + secs
         stats["collect_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         D[ii, jj] = host
@@ -835,10 +871,11 @@ def all_pairs_distances_per_pair(
             ii_pad[: len(ii)], jj_pad[: len(jj)] = ii, jj
             stats["pad_pairs"] += B_blk - len(ii)
             t0 = time.perf_counter()
-            vals = run_block(row_cap, bucket, mld, torch.from_numpy(ii_pad).to(device),
-                             torch.from_numpy(jj_pad).to(device))
+            vals, name, events = run_block(row_cap, bucket, mld,
+                                           torch.from_numpy(ii_pad).to(device),
+                                           torch.from_numpy(jj_pad).to(device))
             stats["dispatch_s"] += time.perf_counter() - t0
-            pending.append((ii, jj, vals))
+            pending.append((ii, jj, vals, name, events))
             if len(pending) >= 10:
                 collect_one()
             t_enum = time.perf_counter()

@@ -67,15 +67,24 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 15. long units widen (band 16, phase 10's corpus, alignments off) through
    ``discover()``: the job must take K5 (K5's main-path cell); 8 distances
    against the oracle;
-16. K6 and K7 against their twins on gathered pairs (S=128 and S=1024), K7
-   also on 64 pairs of each of the per-pair route's first two band-16
-   classes at every frame width and metric it is built for, and a hard
-   band; K7's Euclidean costs bit for bit against the IEEE sqrt of
-   its squared costs across the float range (``sqrt_rn``); K7 timed at the
-   long per-pair job's median launch size (4,096 pairs),
-   then the per-pair route ``all_pairs_distances(tiled=False)`` on a
-   K=2,048 slice of the config-4 corpus and on a job of lengths 900-1024:
-   K6 and K7 must both launch, and D must equal the tiled widen D;
+16. K6 and K7 against their twins on gathered pairs (S=128 and S=1024); K6
+   also unbanded, with a widen band 16 and a hard band (16, or 128 at
+   S=1024, where the route sends narrower ones to K7) at S=128, 256 and
+   1024 (widen at S=1024 in the class only K6 takes, |la-lb| > 127), each
+   at every frame width and metric, with +inf on exactly the pairs outside
+   the hard band and the cut pairs of a rows shortfall; K7 on 64 pairs of
+   each of the per-pair route's first two band-16 classes at every frame
+   width and metric it is built for, and a hard band; both kernels'
+   Euclidean costs bit for bit against the IEEE sqrt of their squared
+   costs across the float range (``sqrt_rn``); K6 timed where the route
+   runs it (131,072 pairs at S=128, widen and unbanded, twice; 2,048 and
+   8,192 pairs at S=1024), K7 at the long per-pair job's median launch size
+   (4,096 pairs); then the per-pair route ``all_pairs_distances(tiled=False)``,
+   widen and unbanded, on a K=2,048 slice of the config-4 corpus and on a
+   job of lengths 900-1024, each job three times: D must equal the tiled D
+   (K2 or K3 unbanded), K6 must launch in the unbanded long job and K7 in
+   the widen one, and each job's walls are printed beside the split of its
+   median run (K6, K7, gathers, dispatch, collect, scatter);
 17. the CLI on the length-varied corpus with a widen band, with
    ``--device cuda`` (K4 or K5 must launch) and with ``--device cpu``: D at
    rtol 1e-4 / atol 1e-5, partition exact.
@@ -83,12 +92,14 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
 (the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs
-K1, K3, K4, K5 and K7 from this checkout and from another (its parent,
-unpacked with ``git archive``) in turns, checks K1's, K4's and K7's outputs
-bitwise and reports K3's largest difference.
+K1, K3, K4, K5, K6 and K7 from this checkout and from another (its parent,
+unpacked with ``git archive``) in turns, checks K1's, K3's, K4's and K7's
+outputs bitwise and reports K6's largest difference and times.
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
-beside their device time.  A bound is the larger of the call's fp32
+beside their device time.  Kernel times are device times (``cuda_ms``:
+CUDA events around calls queued behind a device sleep, so the host's work
+per call does not show).  A bound is the larger of the call's fp32
 operations over 67 TFLOP/s and its bytes over 3.35 TB/s (the H100's
 published peaks): ``3d + 4`` operations for each DP cell the distances
 need (``pair_cells``).
@@ -140,18 +151,18 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-4
 # distance of n <= la+lb terms differs by at most (d + n) * 2^-24 relative:
 # 3.2e-5 at S=256, d=16.  The atol covers cosine costs near 0.
 K2_RTOL, K2_ATOL = 4e-5, 1e-4
-# K3, K4 and K7 walk each row cell by cell like K2 (the same bound: (d + n)
-# 2^-24 relative for a path of n <= la+lb terms; 1.3e-4 at S=1024 for K3 and
-# K7).  K5 and K6 reassociate the additions along each DP row with a warp
-# scan (the twin adds cell by cell), so each side is within n * 2^-24 of the
-# exact sum and the two within 2 (la+lb) * 2^-24 + d * 2^-24 relative:
-# 2.5e-4 at S=1024 (K3's tolerance while it had such a scan).
+# K3, K4, K6 and K7 walk each row cell by cell like K2 (the same bound:
+# (d + n) 2^-24 relative for a path of n <= la+lb terms; 1.3e-4 at S=1024 for
+# K3, K6 and K7).  K5 reassociates the additions along each DP row with a
+# warp scan (the twin adds cell by cell), so each side is within n * 2^-24
+# of the exact sum and the two within 2 (la+lb) * 2^-24 + d * 2^-24
+# relative: 2.5e-4 at S=1024 (K3's and K6's tolerance while they had such a
+# scan).
 K4_RTOL, K4_ATOL = 4e-5, 1e-4
 K7_RTOL, K7_ATOL = 1.5e-4, 1e-3
 K3_RTOL, K3_ATOL = K7_RTOL, K7_ATOL
-SCAN_RTOL, SCAN_ATOL = 2.5e-4, 1e-3
-K5_RTOL, K5_ATOL = SCAN_RTOL, SCAN_ATOL
-K6_RTOL, K6_ATOL = SCAN_RTOL, SCAN_ATOL
+K6_RTOL, K6_ATOL = K7_RTOL, K7_ATOL
+K5_RTOL, K5_ATOL = 2.5e-4, 1e-3
 
 # Frame widths beside d=16 at which phases 2 and 6 hold K1 and K2 against
 # their twins: 1, 2, 8 and 10 float4s a frame (strip_channels), every
@@ -221,6 +232,13 @@ def tile_call_bytes(ii, jj, ti: int, S: int, d: int) -> float:
     return n_tiles * ti * (S * d + 1) * 4.0 + len(ii) * ti * ti * 4.0
 
 
+def pair_bytes(la, lb, d: int) -> float:
+    """Bytes of one call on gathered pairs: each pair's live frames (la and
+    lb of d floats; the padding past them is never read), its two lengths
+    and its output."""
+    return float((la.long() + lb.long()).sum()) * d * 4.0 + len(la) * 12.0
+
+
 def job_cells(lens_np, kind: str, band: int | None = None) -> float:
     """Cells of all K(K-1)/2 pairs of a job, from its length histogram (the
     cell counts are symmetric in the two lengths)."""
@@ -247,17 +265,31 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True, per_call: list | None = None) -> float:
+    """Mean device ms of ``reps`` calls of fn (after a warm call unless
+    ``warm`` is false), from CUDA events between the calls.  The device
+    first sleeps (~50 ms) while the host queues the calls, so no call waits
+    on the host's work for the next one: the time is the device's even where
+    that work outlasts the kernel.  ``per_call`` receives each call's ms."""
     if warm:
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for e in ev[1:]:
         fn()
-    end.record()
+        e.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    if per_call is not None:
+        per_call.extend(times)
+    return sum(times) / reps
+
+
+def spread(times: list[float]) -> str:
+    t = sorted(times)
+    return f"median {t[len(t) // 2]:.3f} ms (min {t[0]:.3f}, max {t[-1]:.3f}, {len(t)} calls)"
 
 
 def config4_corpus(K: int, S: int, d: int, seed: int, dev):
@@ -1121,15 +1153,36 @@ def phase15(dev, tmp: Path) -> dict:
     return {"launches": launches}
 
 
-def k7_pairs(dev, B: int, S: int, d: int, wv: int, diff_lo: int, seed: int):
-    """K7's arguments for B gathered pairs of one per-pair class: lb in the
-    top 124 frames of S, la = lb - diff with diff in [diff_lo, wv] (the
-    scheduler's class of pairs with max_len_diff wv, shorter side first)."""
+def gathered_pairs(dev, B: int, S: int, d: int, wv: int, diff_lo: int, seed: int,
+                   lb_lo: int | None = None, route_order: bool = False):
+    """K6's and K7's arguments for B gathered pairs of one per-pair class:
+    lb in [lb_lo, S] (the top 124 frames of S by default), la = lb - diff
+    with diff in [diff_lo, wv] (the scheduler's class of pairs with
+    max_len_diff wv, shorter side first); with ``route_order`` the pairs
+    sorted by (la, lb), as the per-pair route orders a block."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    lb = torch.randint(S - 123, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    lo = S - 123 if lb_lo is None else lb_lo
+    lb = torch.randint(lo, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
     la = lb - torch.randint(diff_lo, wv + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    if route_order:
+        order = torch.argsort(la.long() * (S + 1) + lb)
+        la, lb = la[order].contiguous(), lb[order].contiguous()
     return (torch.randn((B, S, d), generator=g, device=dev),
             torch.randn((B, S, d), generator=g, device=dev), la, lb)
+
+
+def route_pairs(lens, n: int, seed: int):
+    """n random pairs (ia, ib) of a corpus with lengths ``lens``, shorter side
+    first, in the per-pair route's order (``enumerate_pair_blocks``: the
+    pairs of one shorter sequence together, their longer sides by length)."""
+    K, top = lens.shape[0], int(lens.max()) + 1
+    g = torch.Generator(device=lens.device).manual_seed(seed)
+    ia = torch.randint(0, K, (n,), generator=g, device=lens.device)
+    ib = torch.randint(0, K, (n,), generator=g, device=lens.device)
+    swap = lens[ia] > lens[ib]
+    ia, ib = torch.where(swap, ib, ia), torch.where(swap, ia, ib)
+    order = torch.argsort((lens[ia].long() * K + ia) * top + lens[ib].long())
+    return ia[order], ib[order]
 
 
 # K7's sweep in phase 16: the per-pair route's first two band-16 classes
@@ -1156,7 +1209,7 @@ def k7_sweep(dev) -> list:
         if wv == 63:
             cases.append((16, dict(metric="euclidean", auto_widen=False)))
         for dd, extra in cases:
-            args = k7_pairs(dev, 64, S, dd, wv, diff_lo, seed=wv + dd)
+            args = gathered_pairs(dev, 64, S, dd, wv, diff_lo, seed=wv + dd)
             kw = dict(band=16, max_len_diff=wv, **extra)
             got = _dtw_batch_stripe(*args, **kw)
             if extra.get("auto_widen", True) and not bool(torch.isfinite(got).all()):
@@ -1168,14 +1221,13 @@ def k7_sweep(dev) -> list:
     return done
 
 
-def k7_sqrt_check(dev) -> str:
-    """K7's Euclidean cost bit for bit against the IEEE square root of its
-    squared cost (csrc/dtw_systolic.cuh:sqrt_rn against sqrtf's rounding):
-    single-cell pairs whose two nonzero channels give sums of squares of 0,
+def sqrt_check(dev, name: str, fn, S: int) -> str:
+    """A systolic kernel's Euclidean cost bit for bit against the IEEE square
+    root of its squared cost (csrc/dtw_systolic.cuh:sqrt_rn against sqrtf's
+    rounding): single-cell pairs (``fn(a, b, la, lb, metric=...)`` on
+    [B, S, 4] operands) whose two nonzero channels give sums of squares of 0,
     denormals, values around 2^-101 (sqrt_rn's rescaling edge), every power
     of two and its double, random bit patterns and +inf on overflow."""
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import _dtw_batch_stripe
-
     rng = np.random.default_rng(161)
     pw2 = np.exp2(np.arange(-160, 141) / 2).astype(np.float32)
     edge = (2.0 ** -50.5 * (1 + np.arange(-2048, 2048) * 2.0 ** -12)).astype(np.float32)
@@ -1184,44 +1236,191 @@ def k7_sqrt_check(dev) -> str:
     v0 = np.concatenate([[0.0], pw2, pw2, edge, den, den, bits[0]])
     v1 = np.concatenate([[0.0], 0 * pw2, pw2, 0 * edge, 0 * den, den[::-1], bits[1]])
     B = len(v0)
-    a = torch.zeros((B, 512, 4), device=dev)
+    a = torch.zeros((B, S, 4), device=dev)
     a[:, 0, :2] = torch.from_numpy(np.stack([v0, v1], 1).astype(np.float32)).to(dev)
     b = torch.zeros_like(a)
     one = torch.ones(B, dtype=torch.int32, device=dev)
-    kw = dict(band=16, max_len_diff=0)
-    got = _dtw_batch_stripe(a, b, one, one, **kw).cpu().numpy()
-    acc = _dtw_batch_stripe(a, b, one, one, metric="sqeuclidean", **kw).cpu().numpy()
+    got = fn(a, b, one, one, metric="euclidean").cpu().numpy()
+    acc = fn(a, b, one, one, metric="sqeuclidean").cpu().numpy()
     want = np.sqrt(acc.astype(np.float64)).astype(np.float32)
     bad = got.view(np.uint32) != want.view(np.uint32)
     if bad.any():
         n = int(np.argmax(bad))
-        fail(f"phase 16: K7's sqrt differs from the IEEE sqrt on {int(bad.sum())} of {B} costs "
-             f"(first: sqrt({acc[n]!r}) = {got[n]!r}, want {want[n]!r})")
+        fail(f"phase 16: {name}'s sqrt differs from the IEEE sqrt on {int(bad.sum())} of {B} "
+             f"costs (first: sqrt({acc[n]!r}) = {got[n]!r}, want {want[n]!r})")
     tiny = (acc > 0) & (acc < 2.0 ** -101)
     if not tiny.any():
         fail("phase 16: the sqrt check reached no cost below 2^-101")
-    return (f"K7's sqrt bitwise the IEEE sqrt on {B} costs ({int((acc == 0).sum())} zero, "
+    return (f"{name}'s sqrt bitwise the IEEE sqrt on {B} costs ({int((acc == 0).sum())} zero, "
             f"{int(((acc > 0) & (acc < 2.0 ** -126)).sum())} denormal, {int(tiny.sum())} in "
             f"(0, 2^-101), {int(np.isinf(acc).sum())} +inf)")
 
 
-def phase16(dev) -> dict:
+# K6's sweep in phase 16: (S, pairs, lb_lo) and per mode (band keywords,
+# diffs la - lb), each padded length where dtw_cuda._rowscan_geometry
+# changes its lane group.  The hard band is 16 where K6 takes it (S <= 256);
+# at S=1024 the route sends bands up to 127 to K7, so K6's narrowest hard
+# band there is 128.  Widen at S=1024 is the class only K6 takes (diffs
+# > 127).
+K6_SWEEP = (
+    (128, 64, 64, (("unbanded", dict(band=None), 0, 63), ("widen 16", dict(band=16), 0, 63),
+                   ("hard 16", dict(band=16, auto_widen=False), 0, 63))),
+    (256, 32, 128, (("unbanded", dict(band=None), 0, 127), ("widen 16", dict(band=16), 0, 127),
+                    ("hard 16", dict(band=16, auto_widen=False), 0, 31))),
+    (1024, 32, None, (("unbanded", dict(band=None), 0, 123),
+                      ("widen 16", dict(band=16), 128, 255),
+                      ("hard 128", dict(band=128, auto_widen=False), 64, 191))),
+)
+
+
+def k6_sweep(dev) -> list:
+    """K6 against its twin on gathered pairs of each K6_SWEEP class at every
+    frame width it is built for (d=16, 4, 8, 20, 40) and, at d=16, every
+    metric; +inf on exactly the pairs whose corner is outside a hard band,
+    and on exactly the cut pairs of a rows shortfall (la > R).  Returns the
+    (S, mode) covered."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_batch_pallas, dtw_batch_pallas_ref
+
+    done = []
+    cases = [(16, m) for m in ("euclidean", "sqeuclidean", "cosine")]
+    cases += [(x, "euclidean") for x in SWEEP_DIMS]
+    for S, B, lb_lo, modes in K6_SWEEP:
+        for mode, kw, lo, hi in modes:
+            for dd, metric in cases:
+                args = gathered_pairs(dev, B, S, dd, hi, lo, seed=S + dd + hi, lb_lo=lb_lo)
+                n0 = dtw_batch_pallas.launches
+                got = dtw_batch_pallas(*args, metric=metric, **kw)
+                if dtw_batch_pallas.launches != n0 + 1:
+                    fail(f"phase 16: K6's sweep class S={S} {mode} did not launch K6")
+                over = (args[2] - args[3]).abs() > kw["band"] if "auto_widen" in kw else None
+                tag = f"phase 16 (K6 S={S} {mode}, d={dd}, {metric})"
+                if over is None and not bool(torch.isfinite(got).all()):
+                    fail(f"{tag}: non-finite distances")
+                if over is not None and not (bool(over.any()) and bool((~over).any()) and bool(
+                        torch.isinf(got[over]).all()) and bool(torch.isfinite(got[~over]).all())):
+                    fail(f"{tag}: +inf not on exactly the pairs outside the hard band")
+                agree(tag, got, dtw_batch_pallas_ref(*args, metric=metric, **kw), K6_RTOL, K6_ATOL)
+            done.append((S, mode))
+    a, b, la, lb = gathered_pairs(dev, 64, 128, 16, 63, 0, seed=1616, lb_lo=64)
+    r_cut = int(la.median())
+    shortfall("phase 16 (K6 rows)", dtw_batch_pallas(a[:, :r_cut], b, la, lb, band=16),
+              dtw_batch_pallas(a, b, la, lb, band=16), la > r_cut)
+    return done
+
+
+def k6_times(dev, feats, lens) -> dict:
+    """K6 where the per-pair route runs it, by ``cuda_ms``: 131,072 pairs
+    (``pair_batch``, the route's launch size at S=128) of the config-4
+    corpus in the route's order, widen band 16 and unbanded, each timed
+    twice; 2,048 and 8,192 pairs at S=1024 (lb in the top 124 frames, in
+    the route's order) unbanded (diffs 0-123) and widen band 16 in the class
+    only K6 takes (diffs 128-255).  Logs each with its bound (the gathered
+    pairs' live bytes, or the cells' fp32 operations); returns {case: median
+    ms}."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_batch_pallas
+
+    ia, ib = route_pairs(lens, 131_072, seed=161)
+    cases = [(f"131072 pairs, S=128, {m}", lambda: (feats[ia], feats[ib], lens[ia], lens[ib]),
+              band, 2) for m, band in (("widen band 16", 16), ("unbanded", None))]
+    for B in (2048, 8192):
+        for m, band, lo, hi in (("unbanded", None, 0, 123), ("widen band 16, diffs 128-255", 16,
+                                                            128, 255)):
+            cases.append((f"{B} pairs, S=1024, {m}", partial(
+                gathered_pairs, dev, B, 1024, 16, hi, lo, seed=B + lo, route_order=True), band, 1))
+    res = {}
+    for tag, make, band, n_runs in cases:
+        args = make()
+        S = args[1].shape[1]
+        runs = [[] for _ in range(n_runs)]
+        for r in runs:
+            cuda_ms(partial(dtw_batch_pallas, *args, band=band), 20 if S == 128 else 10, per_call=r)
+        cells = float(pair_cells(args[2], args[3], "full" if band is None else "widen", band).sum())
+        bound_ms, by = bound(cells, 16, pair_bytes(args[2], args[3], 16))
+        med = sorted(runs[0])[len(runs[0]) // 2]
+        log(f"phase 16: K6 at {tag}: " + "; ".join(f"run {n + 1} {spread(r)}"
+                                                   for n, r in enumerate(runs))
+            + f"; bound {bound_ms:.4f} ms ({by}, {cells:.4g} cells), {bound_ms / med:.1%} of it")
+        res[tag] = med
+        del args
+    return res
+
+
+def per_pair_jobs(dev, feats, lens) -> tuple[int, int]:
+    """The per-pair route ``all_pairs_distances(tiled=False)``, widen band 16
+    and unbanded, on a K=2,048 slice of the config-4 corpus and on 256
+    sequences of 900-1024 frames, each job three times: D must equal the
+    tiled D (widen: K4 or K5; unbanded: K2 at S=128, K3 at S=1024).  Prints
+    each job's walls (they move with the host's load) and the split of its
+    median run: K6's and K7's device time, the gathers', and the host's
+    enumerate, dispatch, collect (waiting for values) and scatter.  K6 must
+    launch in the unbanded long job and K7 in the widen one.  Returns the
+    launches of K6 and K7 in all runs."""
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import _dtw_batch_stripe, dtw_batch_pallas
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    long_feats, long_lens = sorted_corpus(256, 1024, 16, 900, 1024, seed=16, dev=dev)
+    dtw_batch_pallas.launches = _dtw_batch_stripe.launches = 0
+    for name, f, n in (("config-4 slice K=2048", feats[:2048], lens[:2048]),
+                       ("lengths 900-1024 K=256", long_feats, long_lens)):
+        n_np = n.cpu().numpy()
+        for band in (16, None):
+            cfg = DTWConfig(band=band, band_mode="widen", normalize="path_len")
+            mode = "unbanded" if band is None else "widen band 16"
+            tiled = all_pairs_distances(f, n_np, cfg, device=dev)
+            runs = []
+            for _ in range(3):
+                before = (dtw_batch_pallas.launches, _dtw_batch_stripe.launches)
+                stats: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                D = all_pairs_distances(f, n_np, cfg, device=dev, tiled=False, stats=stats)
+                wall = time.perf_counter() - t0
+                k6_n = dtw_batch_pallas.launches - before[0]
+                k7_n = _dtw_batch_stripe.launches - before[1]
+                if not np.isfinite(D).all() or not np.allclose(D, tiled, rtol=1e-4, atol=1e-5):
+                    fail(f"phase 16: per-pair D ({name}, {mode}) differs from the tiled D (max "
+                         f"abs {np.abs(D - tiled).max()})")
+                if f is long_feats and (k6_n if band is None else k7_n) < 1:
+                    fail(f"phase 16: the per-pair {mode} job at 900-1024 frames launched K6 "
+                         f"{k6_n} and K7 {k7_n} times")
+                runs.append((wall, stats))
+            walls = [w for w, _ in runs]
+            wall, stats = sorted(runs, key=lambda r: r[0])[1]
+            by = stats["kernel_s_by"]
+            pairs = stats["pairs"]
+            log(f"phase 16: per-pair route, {name}, {mode}: {pairs} pairs, walls "
+                f"{' / '.join(f'{w:.3f}' for w in walls)} s; median {wall:.3f} s = "
+                f"{pairs / wall:.0f} pairs/s, {stats['blocks']} blocks ({k6_n} K6, {k7_n} K7 "
+                f"launches); device: K6 {by.get('dtw_batch_pallas', 0.0):.4f} s + K7 "
+                f"{by.get('_dtw_batch_stripe', 0.0):.4f} s + gathers {stats['gather_s']:.4f} s; "
+                f"host: dispatch {stats['dispatch_s']:.4f} s, collect {stats['collect_s']:.4f} s, "
+                f"scatter {stats['scatter_s']:.4f} s, enumerate {stats['enumerate_s']:.4f} s; "
+                f"D equals the tiled D")
+    return dtw_batch_pallas.launches, _dtw_batch_stripe.launches
+
+
+def k6_pairs(lens, g):
+    """Phase 16's 4,096 K6 pairs (ia, ib) among the first 2,048 sequences,
+    drawn from the generator g, shorter side first."""
+    ia = torch.randint(0, 2048, (4096,), generator=g, device=lens.device)
+    ib = torch.randint(0, 2048, (4096,), generator=g, device=lens.device)
+    swap = lens[ia] > lens[ib]
+    return torch.where(swap, ib, ia), torch.where(swap, ia, ib)
+
+
+def phase16(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
         _dtw_batch_stripe,
         _dtw_batch_stripe_ref,
         dtw_batch_pallas,
         dtw_batch_pallas_ref,
     )
-    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 
     # K6 at the config-4 shape: 4096 gathered pairs, shorter side first.
     feats, lens = config4_corpus(10_240, 128, 16, seed=4, dev=dev)
     g = torch.Generator(device=dev).manual_seed(16)
-    ia = torch.randint(0, 2048, (4096,), generator=g, device=dev)
-    ib = torch.randint(0, 2048, (4096,), generator=g, device=dev)
-    swap = lens[ia] > lens[ib]
-    ia, ib = torch.where(swap, ib, ia), torch.where(swap, ia, ib)
+    ia, ib = k6_pairs(lens, g)
     args6 = (feats[ia], feats[ib], lens[ia], lens[ib])
     k6 = {}
     for tag, kw in (("widen", dict(band=16)), ("unbanded", dict(band=None))):
@@ -1230,11 +1429,15 @@ def phase16(dev) -> dict:
         err = agree(f"phase 16 (K6 {tag})", got, dtw_batch_pallas_ref(*args6, **kw),
                     K6_RTOL, K6_ATOL)
         k6.setdefault("max_abs_err", err)
-    k6["ms"] = cuda_ms(lambda: dtw_batch_pallas(*args6, band=16), 20)
+    k6_variants = k6_sweep(dev)
+    k6_sqrt = sqrt_check(dev, "K6", partial(dtw_batch_pallas, band=None), 8)
+    k6_device: list[float] = []
+    cuda_ms(lambda: dtw_batch_pallas(*args6, band=16), 20, per_call=k6_device)
+    k6["ms"] = sorted(k6_device)[len(k6_device) // 2]
     k6["plain_ms"] = cuda_ms(lambda: dtw_batch_pallas_ref(*args6, band=16), 1, warm=False)
     k6["bound_ms"], k6["bound_by"] = bound(
         float(pair_cells(args6[2], args6[3], "widen", 16).sum()), 16,
-        2 * 4096 * (128 * 16 + 1) * 4.0 + 4096 * 4.0)
+        pair_bytes(args6[2], args6[3], 16))
     # K7 at a long bucket: 512 gathered pairs of 900-1024 frames, S=1024,
     # in the max_len_diff class 63 (a 128-slot stripe on the reference).
     B, S, d = 512, 1024, 16
@@ -1252,10 +1455,11 @@ def phase16(dev) -> dict:
     k7["max_abs_err"] = agree("phase 16 (K7)", got7, want7, K7_RTOL, K7_ATOL)
     shortfall("phase 16 (K7 max_len_diff)", _dtw_batch_stripe(*args7, band=16, max_len_diff=31),
               got7, (la - lb).abs() > 31)
-    k7_variants, sqrt_line = k7_sweep(dev), k7_sqrt_check(dev)
+    k7_variants = k7_sweep(dev)
+    k7_sqrt = sqrt_check(dev, "K7", partial(_dtw_batch_stripe, band=16, max_len_diff=0), 512)
     k7["ms"] = cuda_ms(lambda: _dtw_batch_stripe(*args7, band=16, max_len_diff=63), 5)
     k7["bound_ms"], k7["bound_by"] = bound(float(pair_cells(la, lb, "widen", 16).sum()), d,
-                                           2 * B * (S * d + 1) * 4.0 + B * 4.0)
+                                           pair_bytes(la, lb, d))
     # At a launch size of the per-pair job below: the scheduler pads each
     # block to a power of two, and its 11 K7 launches (32,640 pairs) are
     # 2,048-8,192 pairs, 4,096 the median; the same length distribution.
@@ -1266,12 +1470,15 @@ def phase16(dev) -> dict:
               torch.randn((B_job, S, d), generator=g, device=dev), la_j, lb_j)
     job_ms = cuda_ms(lambda: _dtw_batch_stripe(*args_j, band=16, max_len_diff=63), 3)
     job_bound, _ = bound(float(pair_cells(la_j, lb_j, "widen", 16).sum()), d,
-                         2 * B_job * (S * d + 1) * 4.0 + B_job * 4.0)
-    del args_j
+                         pair_bytes(la_j, lb_j, d))
+    del args_j, args7, a, b
     log(f"phase 16: K6 vs plain on 4096 gathered pairs (S=128, widen band 16 and unbanded): max "
-        f"abs err {k6['max_abs_err']:.3g} (rtol {K6_RTOL}, atol {K6_ATOL}); K6 {k6['ms']:.3f} "
-        f"ms/call (bound {k6['bound_ms']:.4f} ms, {k6['bound_ms'] / k6['ms']:.1%} of it), "
-        f"plain {k6['plain_ms']:.3f} ms/call")
+        f"abs err {k6['max_abs_err']:.3g} (rtol {K6_RTOL}, atol {K6_ATOL}); K6 "
+        f"{spread(k6_device)} (bound {k6['bound_ms']:.4f} ms, {k6['bound_ms'] / k6['ms']:.1%} of "
+        f"it); plain {k6['plain_ms']:.3f} ms/call")
+    log(f"phase 16: K6 vs plain at (S, mode) {k6_variants}, each at d=16, 4, 8, 20, 40 and the "
+        f"three metrics, agree; +inf on exactly the pairs outside the hard bands and the cut "
+        f"pairs of a rows shortfall; {k6_sqrt}")
     log(f"phase 16: K7 vs plain on {B} gathered pairs (S={S}, band 16, max_len_diff 63): max abs "
         f"err {k7['max_abs_err']:.3g} (rtol {K7_RTOL}, atol {K7_ATOL}); max_len_diff shortfall "
         f"+inf on exactly the cut pairs; K7 {k7['ms']:.3f} ms/call (bound "
@@ -1279,34 +1486,9 @@ def phase16(dev) -> dict:
         f"{k7['plain_ms']:.3f} ms/call; at {B_job} pairs (a launch of the long per-pair job) "
         f"{job_ms:.3f} ms/call (bound {job_bound:.4f} ms, {job_bound / job_ms:.1%} of it)")
     log(f"phase 16: K7 vs plain on 64 pairs each at (float4s a frame, metric, class "
-        f"half-width) {k7_variants} agree; {sqrt_line}")
-
-    # The per-pair route: a K=2,048 slice of the config-4 corpus and a job of
-    # 256 sequences of 900-1024 frames, each against the tiled widen D.
-    long_feats, long_lens = sorted_corpus(256, 1024, 16, 900, 1024, seed=16, dev=dev)
-    cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
-    dtw_batch_pallas.launches = _dtw_batch_stripe.launches = 0
-    walls = []
-    for f, n in ((feats[:2048], lens[:2048]), (long_feats, long_lens)):
-        n_np = n.cpu().numpy()
-        stats: dict = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        D = all_pairs_distances(f, n_np, cfg, device=dev, tiled=False, stats=stats)
-        walls.append((time.perf_counter() - t0, stats["blocks"]))
-        tiled = all_pairs_distances(f, n_np, cfg, device=dev)
-        if not np.isfinite(D).all() or not np.allclose(D, tiled, rtol=1e-4, atol=1e-5):
-            fail(f"phase 16: per-pair D differs from the tiled widen D (max abs "
-                 f"{np.abs(D - tiled).max()})")
-    k6["launches"], k7["launches"] = dtw_batch_pallas.launches, _dtw_batch_stripe.launches
-    if k6["launches"] < 1 or k7["launches"] < 1:
-        fail(f"phase 16: the per-pair route launched K6 {k6['launches']} and K7 "
-             f"{k7['launches']} times; both must run")
-    n1, n2 = 2048 * 2047 // 2, 256 * 255 // 2
-    log(f"phase 16: per-pair route, config-4 slice K=2048: {n1} pairs in {walls[0][0]:.2f} s = "
-        f"{n1 / walls[0][0]:.0f} pairs/s ({walls[0][1]} blocks); lengths 900-1024 K=256: {n2} "
-        f"pairs in {walls[1][0]:.2f} s = {n2 / walls[1][0]:.0f} pairs/s ({walls[1][1]} blocks); "
-        f"K6 launches {k6['launches']}, K7 launches {k7['launches']}; D equals the tiled widen D")
+        f"half-width) {k7_variants} agree; {k7_sqrt}")
+    k6_times(dev, feats, lens)
+    k6["launches"], k7["launches"] = per_pair_jobs(dev, feats, lens)
     return {"k6": k6, "k7": k7}
 
 
@@ -1385,9 +1567,10 @@ def crossover(dev) -> None:
 
 
 # Run in a subprocess with one checkout's package first on sys.path: K4 and
-# K1 on phase 12's tiles, K4 on the whole config-4 widen job (K4 forced), K3
-# at phase 7's shape and K7 at phase 16's; the times of K4 and K5 at phase
-# 12's shape (a config-4 wide class), of K3 and of K7.
+# K1 on phase 12's tiles, K4 on the whole config-4 widen job (K4 forced), K6
+# on pairs of that job's corpus (indices from the file argv[3]), K3 at phase
+# 7's shape and K7 at phase 16's; the times of K4 and K5 at phase 12's shape
+# (a config-4 wide class), of K6, of K3 and of K7.
 _AGAINST = r"""
 import inspect, json, sys
 import numpy as np, torch
@@ -1409,8 +1592,10 @@ def corpus(K, S, d, lo, hi, seed, sort):
     return feats.contiguous(), lens.contiguous()
 
 def ms(fn, reps=20):
+    # The device sleeps while the host queues the calls (as cuda_ms).
     fn(); torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -1442,6 +1627,15 @@ res = {"k4_ms": ms(lambda: tk.dtw_tile_lane_pairs(feats, lens, ii, jj, **kw, **f
 f4k, l4k = corpus(10240, 128, 16, 64, 128, 4, False)
 cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
 D = all_pairs_distances_tiled(f4k, l4k.cpu().numpy(), cfg, device=dev, lane=True)
+# K6 (widen band 16) on pairs of the same corpus, the caller's indices:
+# phase 16's 4,096 pairs and 131,072 in the per-pair route's order.
+idx, k6 = np.load(sys.argv[3]), {}
+for n in (4096, 131072):
+    ia, ib = (torch.from_numpy(idx[f"{s}{n}"]).to(dev) for s in ("ia", "ib"))
+    args6 = (f4k[ia], f4k[ib], l4k[ia], l4k[ib])
+    k6[f"k6_{n}"] = tk.dtw_batch_pallas(*args6, band=16).cpu().numpy()
+    res[f"k6_{n}_ms"] = ms(lambda: tk.dtw_batch_pallas(*args6, band=16))
+    del args6
 del f4k
 # K3 at phase 7's shape (S=1024, lengths 257-1024, 3 tile-pairs).
 f3, l3 = corpus(256, 1024, 16, 257, 1024, 7, True)
@@ -1459,45 +1653,59 @@ a7 = torch.randn((512, 1024, 16), generator=g, device=dev)
 b7 = torch.randn((512, 1024, 16), generator=g, device=dev)
 k7 = tk._dtw_batch_stripe(a7, b7, la7, lb7, band=16, max_len_diff=63).cpu().numpy()
 res["k7_ms"] = ms(lambda: tk._dtw_batch_stripe(a7, b7, la7, lb7, band=16, max_len_diff=63), 5)
-np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7)
+np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7, **k6)
 print(json.dumps(res))
 """
 
 
 def against(other: Path) -> None:
-    """K1, K3, K4, K5 and K7 of this checkout against another's (its
+    """K1, K3, K4, K5, K6 and K7 of this checkout against another's (its
     parent), each run in its own process in turns other, this, this, other:
-    K5's and K4's times at a config-4 wide class, K3's at phase 7's shape
-    and K7's at phase 16's; K1's outputs bitwise on phase 12's tiles (diag
-    band 16), K4's on phase 12's tile-pairs and as the config-4 widen D with
-    K4 forced, K7's on phase 16's pairs, and K3's largest difference."""
+    K5's and K4's times at a config-4 wide class, K6's at phase 16's 4,096
+    pairs and at 131,072 in the per-pair route's order (widen band 16), K3's
+    at phase 7's shape and K7's at phase 16's; K1's outputs bitwise on phase
+    12's tiles (diag band 16), K4's on phase 12's tile-pairs and as the
+    config-4 widen D with K4 forced, K3's on phase 7's tile-pairs, K7's on
+    phase 16's pairs, and K6's largest difference (+inf in the same
+    places)."""
     if not (other / "audio_pattern_discovery_tpu_torch").is_dir():
         fail(f"--against {other}: no audio_pattern_discovery_tpu_torch there")
+    dev = torch.device("cuda", 0)
+    _, lens = config4_corpus(10_240, 128, 16, seed=4, dev=dev)
+    ia, ib = k6_pairs(lens, torch.Generator(device=dev).manual_seed(16))
+    ia_r, ib_r = route_pairs(lens, 131_072, seed=161)
     with tempfile.TemporaryDirectory(prefix="apd_against_") as tmp_dir:
+        idx = Path(tmp_dir) / "k6_pairs.npz"
+        np.savez(idx, **{k: v.cpu().numpy() for k, v in (
+            ("ia4096", ia), ("ib4096", ib), ("ia131072", ia_r), ("ib131072", ib_r))})
         runs = []
         for n, tree in enumerate((other, REPO, REPO, other)):
             out = Path(tmp_dir) / f"run{n}.npz"
-            proc = subprocess.run([sys.executable, "-c", _AGAINST, str(tree), str(out)],
+            proc = subprocess.run([sys.executable, "-c", _AGAINST, str(tree), str(out), str(idx)],
                                   cwd=tmp_dir, capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:
                 fail(f"--against: the run in {tree} exited {proc.returncode}:\n"
                      f"{proc.stderr[-3000:]}")
             runs.append((json.loads(proc.stdout.strip().splitlines()[-1]), np.load(out)))
-        for key, name in (("k1", "K1"), ("k4", "K4"), ("D", "K4"), ("k7", "K7")):
+        for key, name in (("k1", "K1"), ("k4", "K4"), ("D", "K4"), ("k3", "K3"), ("k7", "K7")):
             if not all(np.array_equal(runs[0][1][key], r[1][key]) for r in runs[1:]):
                 fail(f"--against: {name}'s {key} differs from the other checkout's")
-        k3_old, k3_new = runs[0][1]["k3"], runs[1][1]["k3"]
-        if not (np.array_equal(np.isinf(k3_old), np.isinf(k3_new))
-                and np.allclose(k3_new, k3_old, rtol=SCAN_RTOL, atol=SCAN_ATOL)):
-            fail("--against: K3 differs from the other checkout's beyond its tolerance")
-        fin = np.isfinite(k3_old)
+        diffs = []
+        for n in (4096, 131072):
+            old, new = runs[0][1][f"k6_{n}"], runs[1][1][f"k6_{n}"]
+            if not np.array_equal(np.isinf(old), np.isinf(new)):
+                fail(f"--against: K6's +inf differ from the other checkout's at {n} pairs")
+            fin = np.isfinite(old)
+            diffs.append(f"{n} pairs {np.abs(new - old)[fin].max():.3g} (relative "
+                         f"{(np.abs(new - old) / np.maximum(np.abs(old), 1e-30))[fin].max():.3g})")
         log("against: K1 on phase 12's tiles (diag band 16), K4 on phase 12's tile-pairs, the "
-            "config-4 widen D with K4 forced, and K7 on phase 16's pairs are bitwise equal to the "
-            "other checkout's; K3 on phase 7's "
-            f"tile-pairs differs by at most {np.abs(k3_new - k3_old)[fin].max():.3g} (max relative "
-            f"{(np.abs(k3_new - k3_old) / np.maximum(np.abs(k3_old), 1e-30))[fin].max():.3g})")
+            "config-4 widen D with K4 forced, K3 on phase 7's tile-pairs and K7 on phase 16's "
+            "pairs are bitwise equal to the other checkout's; K6 (widen band 16) differs by at "
+            f"most {', '.join(diffs)}")
         shapes = {"k4_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k5_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
+                  "k6_4096_ms": "at phase 16's 4,096 pairs (S=128, widen band 16)",
+                  "k6_131072_ms": "at 131,072 pairs in the route's order",
                   "k3_ms": "at phase 7's shape (3 tile-pairs, S=1024)",
                   "k7_ms": "at phase 16's shape (512 pairs, S=1024, band 16, max_len_diff 63)"}
         for key, shape in shapes.items():
@@ -1512,8 +1720,9 @@ def main() -> int:
     parser.add_argument("--crossover", action="store_true",
                         help="after phase 1, time K4 against K5 per class stripe and stop")
     parser.add_argument("--against", metavar="TREE",
-                        help="after phase 1, compare K1, K3, K4, K5 and K7 with those of another "
-                             "checkout of the repo (in turns, bitwise for K1, K4 and K7) and stop")
+                        help="after phase 1, compare K1, K3, K4, K5, K6 and K7 with those of "
+                             "another checkout of the repo (in turns, bitwise for K1, K3, K4 and "
+                             "K7) and stop")
     args = parser.parse_args()
     only = {int(p) for p in args.phases.split(",") if p}
     if not torch.cuda.is_available():

@@ -1,11 +1,11 @@
 """The host side of the strip kernels K1, K2, K4 and K5
-(``csrc/dtw_strip.cuh``) and of the systolic kernels K3 and K7
+(``csrc/dtw_strip.cuh``) and of the systolic kernels K3, K6 and K7
 (``csrc/dtw_systolic.cuh``) on the CPU: the corpus layouts they read
-(``strip_layout`` for K1, K2 and K4, ``frame_layout`` for K3, K5 and K7),
-their channel width (``strip_channels``), the checks of a prebuilt layout,
-and the launch widths and rows a lane.  The kernels themselves run only on
-the card (``chip_smoke.py`` phases 2, 6, 7, 12, 13 and 16 hold them against
-their twins); exact indexing here, no tolerance."""
+(``strip_layout`` for K1, K2 and K4, ``frame_layout`` for K3, K5, K6 and
+K7), their channel width (``strip_channels``), the checks of a prebuilt
+layout, and the launch widths, lane groups and rows a lane.  The kernels
+themselves run only on the card (``chip_smoke.py`` phases 2, 6, 7, 12, 13
+and 16 hold them against their twins); exact indexing here, no tolerance."""
 
 import numpy as np
 import pytest
@@ -226,3 +226,37 @@ def test_strip_rows_fit_registers():
     assert tk._tile_strip_rows(128, 1) == 8 and tk._tile_strip_rows(128, 2) == 8
     assert tk._tile_strip_rows(128, 4) == 4 and tk._tile_strip_rows(128, 8) == 4
     assert tk._tile_strip_rows(512, 9) == 4 and tk.STRIP_ROWS == 4
+
+
+@pytest.mark.parametrize("S,band,nc4,want", [
+    (128, 16, 4, (8, 2)), (96, 3, 1, (8, 2)), (128, None, 4, (8, 4)), (256, 16, 4, (16, 2)),
+    (160, 0, 2, (16, 2)), (256, None, 4, (8, 4)), (288, 16, 4, (32, 2)), (512, None, 4, (32, 4)),
+    (1024, 16, 10, (32, 2)), (1024, None, 10, (32, 4)), (128, None, 8, (8, 2)),
+    (1024, None, 8, (32, 2)), (256, 16, 8, (16, 2))])
+def test_rowscan_geometry(S, band, nc4, want):
+    # K6's lane group G and rows a lane R per class, as measured on the card
+    # (banded: G=8 to S=128, 16 to 256, else 32, R=2; unbanded: G=8 to
+    # S=256, else 32, R=4), and at most 2 rows at 8 float4s a frame.
+    assert tk._rowscan_geometry(S, band, nc4) == want
+
+
+@pytest.mark.parametrize("S,nc4", [(128, 4), (256, 8), (1024, 1), (1024, 4), (1024, 8),
+                                   (1024, 10), (1024, 64), (1024, 160)])
+@pytest.mark.parametrize("G,R", [(8, 2), (8, 4), (16, 2), (32, 2), (32, 4)])
+def test_rowscan_warps_fit_shared_memory(S, nc4, G, R):
+    # K6: at most 4 warps a block (its launch bound), each with a pass's A
+    # frames (32R x nc4 float4s) and 32/G boundary rows of S floats rounded
+    # up to whole float4s, within one block's shared memory; every lane group
+    # fits at S=1024 (the longest bucket K6 takes) at the frame widths the
+    # port runs, and a warp beyond the budget raises.
+    per_warp = 4 * (4 * 32 * R * nc4 + 4 * -(-(32 // G) * S // 4))
+    if per_warp > tk._SMEM_BUDGET:
+        assert nc4 == 160
+        with pytest.raises(ValueError, match="shared"):
+            tk._rowscan_warps(G, R, S, nc4)
+        return
+    warps = tk._rowscan_warps(G, R, S, nc4)
+    assert 1 <= warps <= 4 and warps * per_warp <= tk._SMEM_BUDGET
+    assert warps == 4 or (warps + 1) * per_warp > tk._SMEM_BUDGET
+    if S == 1024 and nc4 <= 10:
+        assert warps >= 2
