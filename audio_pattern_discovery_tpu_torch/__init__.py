@@ -7,11 +7,13 @@ and ``-s section.key=value`` overrides), written in PyTorch for an NVIDIA
 Hopper card.  The JAX package stays the reference this port is tested
 against; nothing here imports JAX.
 
-Ported so far: the PCA embedder with diag-banded DTW (``discover()`` and
-the CLI).  The all-pairs DTW runs through a CUDA C++ kernel
-(``csrc/dtw_lane_diag.cu``) on a CUDA device and through its plain PyTorch
-twin on CPU tensors.  Paths not ported yet raise ``NotImplementedError``
-naming the ROADMAP.md item that will port them.
+Ported so far: ``discover()`` and the CLI at the default config: the
+trained autoencoder (or the PCA embedder) with its checkpoint, and the
+all-pairs DTW unbanded, diag-banded or widen-banded, which runs through
+seven CUDA C++ kernels (``csrc/*.cu``, K1-K7) on a CUDA device and through
+their plain PyTorch twins on CPU tensors.  The entry points run on the card
+unless the caller asks for the CPU.  Paths not ported yet raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 
 __version__ = "0.1.0"

@@ -1,18 +1,47 @@
-"""Feature scaler of the embedders.
+"""Dense (optionally denoising) autoencoder over spectrogram frames, and the
+feature scaler of the embedders.
 
-The reference module (``audio_pattern_discovery_tpu/models/autoencoder.py``)
-also holds the dense autoencoder and its training loop; those are not
-ported yet (ROADMAP.md Queue 1: "models/autoencoder.py and
-utils/checkpoint.py").  ``FeatureScaler`` is ported here, alone, so it
-sits where its counterpart is.
+Port of ``audio_pattern_discovery_tpu/models/autoencoder.py``: the encoder's
+output is the per-frame latent embedding that DTW runs over.  The reference
+computes the model with flax ``Dense`` layers (XLA matmuls, no Pallas kernel)
+and trains it with optax; the port uses ``torch.nn.Linear`` and
+``torch.optim.Adam`` with the same defaults:
+
+* kernels drawn lecun-normal (a normal truncated to +-2 std), biases zero;
+  drawn on the CPU from a ``torch.Generator`` seeded with ``cfg.seed`` and
+  then moved to the device, so the card and the CPU start from the same bits
+  (not JAX's: ``params_from_flax`` carries those across);
+* ``dtype="bfloat16"`` computes each layer in bf16 from fp32 parameters, as
+  ``Dense(dtype=bf16)`` does; the loss stays fp32;
+* gelu is flax's tanh approximation, not torch's erf default;
+* Adam with optax's ``b1=0.9, b2=0.999, eps=1e-8``;
+* the minibatches are the reference's: the same NumPy permutation of the
+  same (quantized) pool every epoch, gathered from frames resident on the
+  device.
+
+The port's ``TrainState`` keeps the parameters under torch's names
+(``enc_layers.0.weight`` [out, in]); the checkpoint (utils/checkpoint.py)
+stores them under flax's leaf names and layout.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audio_pattern_discovery_tpu_torch.config import AutoencoderConfig
+from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
+
+_ACTS = {"relu": F.relu, "tanh": torch.tanh, "gelu": partial(F.gelu, approximate="tanh")}
+
+# optax.adam's defaults.
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
 
 
 @dataclass
@@ -36,3 +65,263 @@ class FeatureScaler:
             std = torch.from_numpy(self.std).to(frames.device)
             return (frames - mean) / std
         return (frames - self.mean) / self.std
+
+
+def _mlp(h: torch.Tensor, layers, act, dtype: torch.dtype) -> torch.Tensor:
+    """Dense layers ``[(weight, bias), ...]`` with ``act`` between them; each
+    casts its input, weight and bias to ``dtype`` (flax ``Dense(dtype=...)``)."""
+    for i, (w, b) in enumerate(layers):
+        h = F.linear(h.to(dtype), w.to(dtype), b.to(dtype))
+        if i < len(layers) - 1:
+            h = act(h)
+    return h
+
+
+class AutoEncoder(nn.Module):
+    """MLP encoder/decoder; bottleneck = latent_dim."""
+
+    def __init__(self, hidden_dims: tuple[int, ...], latent_dim: int, out_dim: int,
+                 activation: str = "relu", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.latent_dim, self.out_dim, self.dtype = latent_dim, out_dim, dtype
+        self.act = _ACTS[activation]
+        enc = (out_dim, *hidden_dims, latent_dim)
+        dec = (latent_dim, *reversed(hidden_dims), out_dim)
+        self.enc_layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(enc, enc[1:]))
+        self.dec_layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dec, dec[1:]))
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return _mlp(x, [(m.weight, m.bias) for m in self.enc_layers], self.act, self.dtype)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return _mlp(z, [(m.weight, m.bias) for m in self.dec_layers], self.act, self.dtype)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        z = self.encode(x)
+        return self.decode(z), z
+
+
+@dataclass
+class TrainState:
+    params: dict[str, torch.Tensor]   # the model's state dict (torch names)
+    opt_state: dict                   # Adam: {"count": int, "mu": {name: t}, "nu": {name: t}}
+    step: int
+
+
+def create_model(cfg: AutoencoderConfig, input_dim: int) -> AutoEncoder:
+    """The model on the CPU, its parameters not yet initialized
+    (``init_state`` sets them); building it leaves torch's global generator
+    as it was."""
+    with torch.random.fork_rng(devices=[]):
+        return AutoEncoder(
+            hidden_dims=cfg.hidden_dims,
+            latent_dim=cfg.latent_dim,
+            out_dim=input_dim,
+            activation=cfg.activation,
+            dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+        )
+
+
+def init_params(model: AutoEncoder, seed: int) -> dict[str, torch.Tensor]:
+    """flax ``Dense``'s default init on the CPU: each weight lecun-normal
+    (std ``sqrt(1/fan_in) / 0.8796...``, truncated to +-2 std through the
+    inverse CDF of a uniform draw, as ``jax.random.truncated_normal`` draws
+    it), each bias zero, drawn in parameter order from a generator seeded
+    with ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    edge = math.erf(2.0 / math.sqrt(2.0))           # 1 - 2 Phi(-2)
+    params = {}
+    for name, p in model.named_parameters():
+        t = torch.zeros(p.shape)
+        if name.endswith("weight"):
+            std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
+            t.uniform_(-edge, edge, generator=g).erfinv_()
+            t.mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+        params[name] = t
+    return params
+
+
+def state_of(model: AutoEncoder, tx: torch.optim.Adam, step: int) -> TrainState:
+    """TrainState over the live parameters and Adam moments (no copies)."""
+    named = list(model.named_parameters())
+    count = int(tx.state[named[0][1]]["step"])
+    return TrainState(
+        model.state_dict(),
+        {"count": count,
+         "mu": {n: tx.state[p]["exp_avg"] for n, p in named},
+         "nu": {n: tx.state[p]["exp_avg_sq"] for n, p in named}},
+        step,
+    )
+
+
+def load_adam_state(model: AutoEncoder, tx: torch.optim.Adam, opt_state: dict) -> None:
+    """Set ``tx``'s moments and count from ``{"count", "mu", "nu"}``."""
+    for name, p in model.named_parameters():
+        tx.state[p] = {
+            "step": torch.tensor(float(opt_state["count"])),
+            "exp_avg": opt_state["mu"][name].to(p.device, torch.float32).clone(),
+            "exp_avg_sq": opt_state["nu"][name].to(p.device, torch.float32).clone(),
+        }
+
+
+def init_state(
+    cfg: AutoencoderConfig,
+    input_dim: int,
+    device: torch.device | str = "cuda",
+    params: dict[str, torch.Tensor] | None = None,
+) -> tuple[AutoEncoder, TrainState, torch.optim.Adam]:
+    """(model, state, optimizer) on ``device`` (the card unless the caller
+    asks for the CPU; no card raises), from ``params`` (a state dict, shape
+    checked against ``cfg`` and ``input_dim``) or else ``init_params``;
+    Adam's moments zero, as ``optax.adam().init`` gives them."""
+    device = resolve_device(device)
+    model = create_model(cfg, input_dim)
+    model.load_state_dict(init_params(model, cfg.seed) if params is None else params)
+    model.to(device)
+    tx = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate, betas=ADAM_BETAS,
+                          eps=ADAM_EPS)
+    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+    load_adam_state(model, tx, {"count": 0, "mu": zeros, "nu": zeros})
+    return model, state_of(model, tx, 0), tx
+
+
+def train_step(model: AutoEncoder, tx: torch.optim.Adam, batch: torch.Tensor,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+    """One Adam step on the reconstruction loss of ``batch`` [B, dim] from
+    ``batch + noise`` (the denoising input; ``noise`` already scaled by
+    ``denoising_std``).  Returns the loss as a 0-d tensor on the device (no
+    sync)."""
+    noisy = batch if noise is None else batch + noise
+    tx.zero_grad(set_to_none=True)
+    recon, _ = model(noisy)
+    loss = torch.mean((recon.float() - batch) ** 2)
+    loss.backward()
+    tx.step()
+    return loss.detach()
+
+
+_POOL_GRID = 4096
+
+
+def _quantize_pool(frames: np.ndarray, seed: int) -> np.ndarray:
+    """Pad a >= 4096-frame training pool UP to the next 4096 multiple with
+    repeated random frames, exactly as the reference does (there, to keep
+    its compiled shapes recurring across corpora).  The port keeps it so
+    that it trains on the reference's pool and minibatches: pools under 4096
+    frames pass through untouched."""
+    n = frames.shape[0]
+    if n < _POOL_GRID or n % _POOL_GRID == 0:
+        return frames
+    n_q = _POOL_GRID * -(-n // _POOL_GRID)
+    extra = np.random.default_rng(seed ^ 0x9E3779B9).integers(0, n, n_q - n)
+    return np.concatenate([frames, frames[extra]], axis=0)
+
+
+def train_autoencoder(
+    frames: np.ndarray,            # [N, dim] standardized training frames
+    cfg: AutoencoderConfig,
+    log_every: int = 5,
+    logger=None,
+    sync_losses: bool = True,
+    device: torch.device | str = "cuda",
+) -> tuple[AutoEncoder, TrainState, list]:
+    """Train on spectrogram frames on ``device``; returns (model, state,
+    per-epoch losses), each epoch's loss the mean of its steps' losses.
+
+    The frames stay resident on the device and each minibatch is gathered
+    there by an index tensor.  The host waits on the device only to log
+    (every ``log_every`` epochs when a logger is given) and, with
+    ``sync_losses``, once at the end; ``sync_losses=False`` returns the
+    losses as 0-d device tensors, so the caller can overlap training with
+    other work (pipeline.discover's two-phase corpus)."""
+    device = resolve_device(device)
+    frames = _quantize_pool(np.asarray(frames), cfg.seed)
+    n, dim = frames.shape
+    model, _, tx = init_state(cfg, dim, device=device)
+    bs = min(cfg.batch_size, n)
+    n_batches = max(1, n // bs)
+    frames_dev = torch.from_numpy(np.ascontiguousarray(frames, np.float32)).to(device)
+    noise_gen = None
+    if cfg.denoising_std > 0.0:
+        noise_gen = torch.Generator(device=device).manual_seed(cfg.seed)
+
+    shuffle_rng = np.random.default_rng(cfg.seed)
+    loss_futs: list[torch.Tensor] = []
+    for epoch in range(cfg.epochs):
+        perm = shuffle_rng.permutation(n)[: n_batches * bs].reshape(n_batches, bs)
+        step_losses = []
+        for idx in torch.from_numpy(perm).to(device):
+            batch = frames_dev[idx]
+            noise = None
+            if noise_gen is not None:
+                noise = cfg.denoising_std * torch.randn(
+                    batch.shape, generator=noise_gen, device=device)
+            step_losses.append(train_step(model, tx, batch, noise))
+        epoch_loss = torch.stack(step_losses).mean()
+        if log_every and logger and (epoch + 1) % log_every == 0:
+            # Sync only when asked to log; otherwise epochs stay in flight.
+            logger.info(f"AE epoch {epoch + 1}/{cfg.epochs} loss={float(epoch_loss):.5f}")
+        loss_futs.append(epoch_loss)
+    losses = torch.stack(loss_futs).tolist() if sync_losses and loss_futs else loss_futs
+    return model, state_of(model, tx, cfg.epochs * n_batches), losses
+
+
+def encode_frames(
+    model: AutoEncoder,
+    params: dict[str, torch.Tensor],
+    frames: np.ndarray | torch.Tensor,
+    chunk: int = 1 << 16,
+) -> torch.Tensor:
+    """Encode [..., dim] frames -> latent [..., latent] float32, through the
+    encoder layers of ``params`` (a state dict) on their device, ``chunk``
+    rows at a time.  The result lies on the input's device (the CPU for a
+    NumPy array), so a tensor on the card stays there."""
+    out_device = frames.device if isinstance(frames, torch.Tensor) else torch.device("cpu")
+    x = torch.as_tensor(frames)
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.shape[0] == 0:
+        return torch.zeros((*lead, model.latent_dim), dtype=torch.float32, device=out_device)
+    layers = [(params[f"enc_layers.{i}.weight"], params[f"enc_layers.{i}.bias"])
+              for i in range(len(model.enc_layers))]
+    dev = layers[0][0].device
+    with torch.no_grad():
+        z = torch.cat([
+            _mlp(flat[s:s + chunk].to(dev, torch.float32), layers, model.act, model.dtype).float()
+            for s in range(0, flat.shape[0], chunk)
+        ])
+    return z.reshape(*lead, -1).to(out_device)
+
+
+def params_from_flax(params) -> dict[str, torch.Tensor]:
+    """The port's state dict from a flax ``AutoEncoder``'s parameter tree of
+    NumPy arrays (``{"params": {"enc_layers_0": {"kernel", "bias"}, ...}}``,
+    the outer key optional): kernel [in, out] -> weight [out, in]."""
+    tree = params.get("params", params)
+    out = {}
+    for layer, leaves in tree.items():
+        side, _, i = layer.rpartition("_")
+        out[f"{side}.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(leaves["kernel"], np.float32).T))
+        out[f"{side}.{i}.bias"] = torch.from_numpy(np.array(leaves["bias"], np.float32))
+    return out
+
+
+def params_to_flax(params: dict[str, torch.Tensor]) -> dict[str, dict[str, np.ndarray]]:
+    """Inverse of ``params_from_flax``: flax leaf names and layout, on the
+    host."""
+    tree: dict[str, dict[str, np.ndarray]] = {}
+    for name, t in params.items():
+        side, i, kind = name.split(".")
+        arr = t.detach().cpu().numpy()
+        tree.setdefault(f"{side}_{i}", {})["kernel" if kind == "weight" else "bias"] = (
+            np.ascontiguousarray(arr.T) if kind == "weight" else arr)
+    return tree
+
+
+def adam_state_from_optax(opt_state) -> dict:
+    """The port's Adam state ``{"count", "mu", "nu"}`` from ``optax.adam``'s
+    state as NumPy arrays: ``(ScaleByAdamState(count, mu, nu), EmptyState())``."""
+    adam = opt_state[0]
+    return {"count": int(adam.count), "mu": params_from_flax(adam.mu),
+            "nu": params_from_flax(adam.nu)}

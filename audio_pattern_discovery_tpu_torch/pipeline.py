@@ -1,14 +1,18 @@
 """End-to-end discovery pipeline: the public entry point of the port.
 
-Port of ``audio_pattern_discovery_tpu/pipeline.py`` for the PCA embedder
-with diag-banded, widen-banded or unbanded DTW.  A directory of WAV files in, pattern
-clusters + DTW alignments out, on one torch ``device`` (default: the card;
-without one, ``discover()`` raises unless the caller passes ``device="cpu"``):
+Port of ``audio_pattern_discovery_tpu/pipeline.py`` for both embedders (the
+trained autoencoder, the default, and PCA) with diag-banded, widen-banded or
+unbanded DTW.  A directory of WAV files in, pattern clusters + DTW
+alignments out, on one torch ``device`` (default: the card; without one,
+``discover()`` raises unless the caller passes ``device="cpu"``):
 
 1. WAV header probe and streaming ingest (host);
 2. spectrogram (device) and energy segmentation (host);
-3. PCA embedding: covariance and projection on the device, eigensolve on
-   the host;
+3. embedding: the AE trained and encoded on the device (with
+   ``autoencoder.overlap_clip_fraction``, trained on a worker thread while
+   the rest of the corpus goes through its spectrograms), or PCA
+   (covariance and projection on the device, eigensolve on the host);
+   either restored from ``autoencoder.checkpoint``;
 4. all-pairs DTW through the tiled scheduler and its kernel: K1 for a diag
    band, K4 or K5 for a widen band, K2 (segments up to 256 frames) or K3 (up
    to 4096) unbanded;
@@ -24,8 +28,10 @@ ROADMAP.md item that will port them (``check_supported``).
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -36,7 +42,11 @@ from audio_pattern_discovery_tpu_torch.cluster.agglomerative import cluster_dist
 from audio_pattern_discovery_tpu_torch.config import PipelineConfig
 from audio_pattern_discovery_tpu_torch.io.corpus import Clip, StreamingCorpus, pad_and_stack
 from audio_pattern_discovery_tpu_torch.io.wavio import write_wav
-from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
+from audio_pattern_discovery_tpu_torch.models.autoencoder import (
+    FeatureScaler,
+    encode_frames,
+    train_autoencoder,
+)
 from audio_pattern_discovery_tpu_torch.models.pca import encode_pca, fit_pca
 from audio_pattern_discovery_tpu_torch.ops.backtrace import paths_from_dirs
 from audio_pattern_discovery_tpu_torch.ops.backtrace_ckpt import dtw_paths_checkpointed
@@ -56,6 +66,7 @@ from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
     all_pairs_distances,
     route_for,
 )
+from audio_pattern_discovery_tpu_torch.utils import checkpoint as ckpt
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
 
@@ -70,18 +81,11 @@ def check_supported(cfg: PipelineConfig, update_from=None) -> None:
     """Raise ``NotImplementedError`` for every configuration this port does
     not run yet, before any work starts."""
     ae, dt, sp = cfg.autoencoder, cfg.dtw, cfg.spectrogram
-    ae_item = 'ROADMAP.md Queue 1: "models/autoencoder.py and utils/checkpoint.py"'
     update_item = 'ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"'
     context_item = 'ROADMAP.md Queue 1: "ops/context.py and the mu-law upload codec"'
     todo = []
     if update_from is not None:
         todo.append(f"--update / update_from ({update_item})")
-    if ae.enabled and ae.method == "ae":
-        todo.append(
-            f"autoencoder.method=ae (the trained AE; {ae_item}) — use -s autoencoder.method=pca"
-        )
-    if ae.enabled and ae.checkpoint:
-        todo.append(f"autoencoder.checkpoint ({ae_item})")
     if ae.enabled and ae.context_frames > 0:
         todo.append(f"autoencoder.context_frames > 0 ({context_item})")
     if cfg.parallel.checkpoint_blocks:
@@ -210,6 +214,17 @@ class DiscoveryResult:
             "ae_losses": [round(x, 6) for x in self.ae_losses],
             "counters": self.counters.to_dict(),
         }
+
+
+def _flat_frames(
+    seg_frames: np.ndarray,        # [K, L, bins]
+    seg_lengths: np.ndarray,
+    n_segments: int,
+) -> np.ndarray:
+    """All real (unpadded) segment frames as one [N, dim] training pool."""
+    return np.concatenate(
+        [seg_frames[k, : seg_lengths[k]] for k in range(n_segments)]
+    )
 
 
 def extract_segment_features(
@@ -400,9 +415,67 @@ def discover(
         )
     counters.add("clips", len(stream))
 
-    clips, frame_counts, segments, seg_frames, seg_frames_dev, seg_lengths = (
-        _prepare_corpus(cfg, stream, counters, log, device)
+    # ---- spectrograms -> segmentation -> segment frames.  With
+    # autoencoder.overlap_clip_fraction the corpus runs through the same
+    # derivation in two contiguous phases, and the AE trains on phase 1's
+    # segment frames on a worker thread while phase 2's spectrograms run.
+    # Segmentation is per clip, so the segment table is the single-phase
+    # one; only the AE's training pool (and so the embedding) differs.
+    ae = cfg.autoencoder
+    ckpt_dir = None
+    if ae.enabled and ae.checkpoint and out_dir is not None:
+        ckpt_dir = Path(out_dir) / ae.checkpoint_dir
+    frac = ae.overlap_clip_fraction
+    two_phase = (
+        0.0 < frac < 1.0
+        and ae.enabled
+        and ae.method == "ae"
+        and len(stream) >= 2
+        # A restorable checkpoint means training never runs.
+        and not (ckpt_dir is not None and ckpt.has_ae_checkpoint(ckpt_dir))
     )
+    pre_train = None          # (future of train_autoencoder's result, scaler)
+    if two_phase:
+        m = max(1, min(len(stream) - 1, int(np.ceil(frac * len(stream)))))
+        c1, fc1, segs1, sf1, sfd1, sl1 = _prepare_corpus(
+            cfg, stream.view(0, m), counters, log, device
+        )
+        if len(segs1) >= 2:
+            flat1 = _flat_frames(sf1, sl1, len(segs1))
+            scaler1 = FeatureScaler.fit(flat1)
+            pre_train = (
+                _train_in_background(scaler1.transform(flat1).astype(np.float32), ae, device),
+                scaler1,
+            )
+            counters.add("ae_train_frames", len(flat1))
+            log.info(
+                f"overlap: AE training launched on {len(segs1)} segments "
+                f"from the first {m}/{len(stream)} clips; remaining "
+                "spectrograms proceed beside it"
+            )
+        else:
+            log.warning(
+                f"overlap: only {len(segs1)} segment(s) in the first "
+                f"{m} clips — training deferred to the full corpus"
+            )
+        c2, fc2, segs2, sf2, sfd2, sl2 = _prepare_corpus(
+            cfg, stream.view(m, len(stream)), counters, log, device
+        )
+        clips = c1 + c2
+        frame_counts = np.concatenate([fc1, fc2])
+        segments = segs1 + [Segment(s.clip + m, s.start_frame, s.end_frame) for s in segs2]
+        # Both phases pad to cfg.dtw.max_seq_len, so their segment tensors
+        # concatenate directly; a phase without segments has none.
+        halves = [h for h in ((sf1, sfd1, sl1), (sf2, sfd2, sl2)) if h[0] is not None]
+        seg_frames = np.concatenate([h[0] for h in halves]) if halves else None
+        seg_frames_dev = torch.cat([h[1] for h in halves]) if halves else None
+        seg_lengths = (np.concatenate([h[2] for h in halves]) if halves
+                       else np.zeros(0, np.int32))
+        del sf1, sf2, sfd1, sfd2, halves
+    else:
+        clips, frame_counts, segments, seg_frames, seg_frames_dev, seg_lengths = (
+            _prepare_corpus(cfg, stream, counters, log, device)
+        )
     counters.add("frames", float(frame_counts.sum()))
     counters.add("segments", len(segments))
     log.info(f"segmented into {len(segments)} candidates")
@@ -411,27 +484,65 @@ def discover(
             f"only {len(segments)} segments found; loosen segmentation config"
         )
 
-    # ---- embedding: PCA fit (covariance on device, eigh on host) + encode
+    # ---- embedding (device): PCA, or the AE trained (or restored) + encode
     ae_losses: list[float] = []
-    if cfg.autoencoder.enabled:
+    if ae.enabled and ae.method == "pca":
+        # Covariance on the device, eigensolve on the host (models/pca.py).
         with counters.time_stage("embedding_fit"):
-            flat = np.concatenate(
-                [seg_frames[k, : seg_lengths[k]] for k in range(len(segments))]
-            )
-            scaler = FeatureScaler.fit(flat)
-            pca_state = fit_pca(
-                scaler.transform(flat).astype(np.float32),
-                cfg.autoencoder.latent_dim,
-                whiten=cfg.autoencoder.pca_whiten,
-                device=device,
-            )
-            log.info(
-                f"PCA embedding: {cfg.autoencoder.latent_dim} components "
-                f"capture {100 * float(pca_state.explained.sum()):.1f}% "
-                "of frame variance"
-            )
+            if ckpt_dir is not None and ckpt.has_pca_checkpoint(ckpt_dir):
+                pca_state, scaler = ckpt.restore_pca_checkpoint(ckpt_dir)
+                log.info(f"restored PCA embedding from {ckpt_dir}")
+            else:
+                flat = _flat_frames(seg_frames, seg_lengths, len(segments))
+                scaler = FeatureScaler.fit(flat)
+                pca_state = fit_pca(
+                    scaler.transform(flat).astype(np.float32),
+                    ae.latent_dim,
+                    whiten=ae.pca_whiten,
+                    device=device,
+                )
+                log.info(
+                    f"PCA embedding: {ae.latent_dim} components "
+                    f"capture {100 * float(pca_state.explained.sum()):.1f}% "
+                    "of frame variance"
+                )
+                if ckpt_dir is not None:
+                    ckpt.save_pca_checkpoint(ckpt_dir, pca_state, scaler)
         with counters.time_stage("embedding_encode"):
             features_dev = encode_pca(pca_state, scaler.transform(seg_frames_dev))
+            features = features_dev.cpu().numpy()
+    elif ae.enabled:
+        with counters.time_stage("autoencoder_train"):
+            # Trains on the real (unpadded) frames of all segments, unless a
+            # checkpoint restores the model (and its scaler).
+            if ckpt_dir is not None and ckpt.has_ae_checkpoint(ckpt_dir):
+                model, state, scaler = ckpt.restore_ae_checkpoint(
+                    ckpt_dir, ae, seg_frames.shape[-1], device=device
+                )
+                if scaler is None:
+                    scaler = FeatureScaler.fit(
+                        _flat_frames(seg_frames, seg_lengths, len(segments)))
+                log.info(f"restored AE checkpoint from {ckpt_dir}")
+            else:
+                if pre_train is not None:
+                    # Launched mid-corpus: this stage times only the drain;
+                    # epochs already done beside phase 2 cost nothing here.
+                    future, scaler = pre_train
+                    model, state, loss_futs = future.result()
+                    ae_losses = torch.stack(loss_futs).tolist() if loss_futs else []
+                else:
+                    flat = _flat_frames(seg_frames, seg_lengths, len(segments))
+                    scaler = FeatureScaler.fit(flat)
+                    counters.add("ae_train_frames", len(flat))
+                    model, state, ae_losses = train_autoencoder(
+                        scaler.transform(flat).astype(np.float32), ae, logger=log,
+                        device=device,
+                    )
+                if ckpt_dir is not None:
+                    ckpt.save_ae_checkpoint(ckpt_dir, state, scaler)
+        with counters.time_stage("autoencoder_encode"):
+            # Standardized on the device from the resident segment tensor.
+            features_dev = encode_frames(model, state.params, scaler.transform(seg_frames_dev))
             features = features_dev.cpu().numpy()
     else:
         features_dev, features = seg_frames_dev, seg_frames
@@ -507,6 +618,27 @@ def discover(
     if out_dir is not None:
         write_artifacts(result, out_dir, log)
     return result
+
+
+def _train_in_background(frames: np.ndarray, cfg, device: torch.device):
+    """Start ``train_autoencoder(frames, cfg, sync_losses=False)`` on a
+    worker thread and return its future.  On the card the thread queues its
+    work on a stream of its own and waits for that stream before it
+    returns, so once the future is done its tensors are ready on every
+    stream."""
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def run():
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            out = train_autoencoder(frames, cfg, sync_losses=False, device=device)
+        if stream is not None:
+            stream.synchronize()
+        return out
+
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="apd-ae-train")
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
 
 
 def _extract_clusters(

@@ -87,7 +87,26 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    median run (K6, K7, gathers, dispatch, collect, scatter);
 17. the CLI on the length-varied corpus with a widen band, with
    ``--device cuda`` (K4 or K5 must launch) and with ``--device cpu``: D at
-   rtol 1e-4 / atol 1e-5, partition exact.
+   rtol 1e-4 / atol 1e-5, partition exact;
+18. the AE (the default embedder) on 65,536 seeded frames of 513 bins at the
+   default widths (batch 1024, 20 epochs), trained on the card and on the
+   CPU from the port's own init: losses, parameters and latents within the
+   stated tolerances (``AE_*``), the same parameters encoded on both devices,
+   TF32 off; again at bf16 (2 epochs); prints the train wall, steps/s, the
+   fp32 bound and its share, a training call's kernel time and idle share
+   under torch.profiler, and ``encode_frames``' time; a checkpoint saved
+   and restored on the card encodes bit for bit;
+19. config 2 through the CLI at the default config (no ``-s``: the AE and
+   unbanded K2, which must launch; the loss must fall); prints the wall,
+   the stages, the AE's pool, the planted-truth purity and the time of
+   importing ``torch._dynamo`` (torch.optim's first use); then twice with
+   ``autoencoder.checkpoint=true``: the second run restores (no epochs) and
+   gives the same D bit for bit;
+20. ``discover()`` on the seed-7 corpus at the default config with band 16
+   (the AE and K1) on the card and on the CPU: D within ``AE_D_ATOL``,
+   partition exact; again with ``autoencoder.overlap_clip_fraction=0.5``
+   (the AE trained on a worker thread beside the second half's
+   spectrograms): the single-phase segment table, and card vs CPU as above.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
@@ -507,21 +526,36 @@ def phase3(dev, tmp: Path) -> dict:
     return {"launches": launches}
 
 
-def phase4(tmp: Path) -> dict:
+def config2_corpus(tmp: Path) -> tuple[Path, list[dict]]:
+    """Config 2's corpus (100 clips of 10 s at 44.1 kHz, 5 motifs), made once
+    under ``tmp``, and its planted occurrences."""
     from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
 
-    corpus, out = tmp / "config2", tmp / "config2_out"
-    make_corpus(corpus, n_clips=100, n_motifs=5, occurrences_per_clip=4,
-                clip_seconds=10.0, sample_rate=44_100, seed=2)
-    cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus),
-           "-o", str(out), "-s", "dtw.band=16", "-s", "autoencoder.method=pca"]
+    corpus, truth_file = tmp / "config2", tmp / "config2_truth.json"
+    if not truth_file.exists():
+        truth = make_corpus(corpus, n_clips=100, n_motifs=5, occurrences_per_clip=4,
+                            clip_seconds=10.0, sample_rate=44_100, seed=2)
+        truth_file.write_text(json.dumps([vars(o) for o in truth]))
+    return corpus, json.loads(truth_file.read_text())
+
+
+def cli(tag: str, corpus: Path, out: Path, *flags: str) -> tuple[dict, float, dict]:
+    """The CLI as a subprocess (on the card unless ``flags`` say otherwise):
+    (summary, wall incl. start-up, clusters.json)."""
+    cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus), "-o", str(out),
+           *flags]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"phase 4: CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    summary = json.loads(proc.stdout)
-    manifest = json.loads((out / "clusters.json").read_text())
+        fail(f"{tag}: CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout), wall, json.loads((out / "clusters.json").read_text())
+
+
+def phase4(tmp: Path) -> dict:
+    corpus, _ = config2_corpus(tmp)
+    summary, wall, manifest = cli("phase 4", corpus, tmp / "config2_out",
+                                  "-s", "dtw.band=16", "-s", "autoencoder.method=pca")
     if manifest["n_clusters"] < 1:
         fail("phase 4: no clusters found")
     launches = int(summary["counts"].get("dtw_kernel_launches", 0))
@@ -713,16 +747,9 @@ def phase7(dev) -> dict:
 
 
 def phase8(tmp: Path) -> dict:
-    corpus, out = tmp / "config2", tmp / "config2_unbanded_out"
-    cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus),
-           "-o", str(out), "-s", "autoencoder.method=pca"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"phase 8: CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    summary = json.loads(proc.stdout)
-    manifest = json.loads((out / "clusters.json").read_text())
+    corpus, _ = config2_corpus(tmp)
+    summary, wall, manifest = cli("phase 8", corpus, tmp / "config2_unbanded_out",
+                                  "-s", "autoencoder.method=pca")
     if manifest["n_clusters"] < 1:
         fail("phase 8: no clusters found")
     launches = int(summary["counts"].get("launches.dtw_tile_pairs", 0))
@@ -1500,16 +1527,10 @@ def phase17(tmp: Path) -> dict:
     runs = {}
     for where, device in (("card", "cuda"), ("cpu", "cpu")):
         out = tmp / f"lenvar_widen_{where}"
-        cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus), "-o",
-               str(out), "--device", device, "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
-               "-s", "autoencoder.method=pca"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"phase 17: CLI on the {where} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-        manifest = json.loads((out / "clusters.json").read_text())
-        runs[where] = (json.loads(proc.stdout), np.load(out / "distance_matrix.npy"),
+        summary, wall, manifest = cli(f"phase 17 ({where})", corpus, out, "--device", device,
+                                      "-s", "dtw.band=16", "-s", "dtw.band_mode=widen",
+                                      "-s", "autoencoder.method=pca")
+        runs[where] = (summary, np.load(out / "distance_matrix.npy"),
                        sorted(tuple(sorted(m["segment"] for m in c["members"]))
                               for c in manifest["clusters"]), wall)
     (s_gpu, D, part, wall), (s_cpu, D_cpu, part_cpu, wall_cpu) = runs["card"], runs["cpu"]
@@ -1525,6 +1546,286 @@ def phase17(tmp: Path) -> dict:
     log(f"phase 17: CLI widen on the length-varied corpus ({s_gpu['n_segments']} segments, "
         f"{len(part)} clusters): card {wall:.2f} s with {launches} K4/K5 launches, CPU "
         f"{wall_cpu:.2f} s; D max abs err {np.abs(D - D_cpu).max():.3g}, partition equal")
+    return {"launches": launches}
+
+
+# Phase 18: the AE (the default embedder) trained on the card and on the
+# CPU from the same initial bits.  fp32 runs with TF32 off.  The AE has no
+# hand-written kernel (the reference computes it with XLA matmuls and
+# optax): its layers are cuBLAS and torch's Adam on the card.
+AE_POOL_FRAMES, AE_BINS = 65_536, 513
+# Encoding one pool with the same parameters: fp32 products of <= 513 terms
+# summed in another order (cuBLAS vs the CPU's BLAS), so within ~1e-6 of
+# the latents' scale; bf16 rounds each layer's product and activation to
+# 2^-8 relative, as tests/test_torch_autoencoder.py's bf16 tolerance.
+AE_ENC_RTOL, AE_ENC_ATOL = 1e-5, 1e-5
+AE_ENC_BF16_RTOL, AE_ENC_BF16_ATOL = 2e-2, 2e-2
+# Trained on each device from the same initial bits (1,280 steps): every
+# epoch's loss to rtol 1e-3, the latents of the pool to 0.1 of their largest
+# magnitude and the parameters to 0.5 of the largest parameter magnitude.
+# Adam turns a few ulps of a gradient element near 0 into an update of up to
+# lr, so two reduction orders drift apart step by step (the JAX package's
+# own 1- and 8-device runs differ the same way); measured in fp32 on an
+# H100 80GB HBM3 at 700 W: losses 3.6e-4 apart, latents 0.036, parameters
+# 0.11 (one bias leaf 0.305 off its own largest magnitude).  bf16 (2
+# epochs, to bound the CPU's bf16 time) the same, the losses to rtol 2e-2.
+AE_LOSS_RTOL, AE_BF16_LOSS_RTOL = 1e-3, 2e-2
+AE_LATENT_REL, AE_PARAM_REL = 0.1, 0.5
+# The default config's D on the card against the CPU (phase 20): the AE's
+# 20 epochs amplify the devices' reduction orders as above; the CPU's run
+# misses the JAX golden by 0.097 in D, the JAX package's own 1-device run by
+# 0.079 (tests/test_torch_pipeline.py holds the golden to 0.3).
+AE_D_ATOL = 0.3
+
+
+def ae_pool(seed: int) -> np.ndarray:
+    """A seeded pool of [65,536, 513] standardized-scale frames: rank-32
+    structure plus noise, so the loss falls."""
+    rng = np.random.default_rng(seed)
+    basis = rng.standard_normal((32, AE_BINS), dtype=np.float32) / np.float32(np.sqrt(32))
+    x = rng.standard_normal((AE_POOL_FRAMES, 32), dtype=np.float32) @ basis
+    return x + np.float32(0.3) * rng.standard_normal(x.shape, dtype=np.float32)
+
+
+def param_rel(got: dict, want: dict) -> float:
+    """Largest |got - want| over all parameters, over the largest |want|."""
+    diff = max(float((got[k].cpu() - want[k].cpu()).abs().max()) for k in want)
+    return diff / max(float(want[k].abs().max()) for k in want)
+
+
+def ae_device_split(tae, cfg, pool, dev) -> str:
+    """One more training call (64 steps) under torch.profiler: the device's
+    kernel time and its copies (the pool's upload) against the wall, and
+    kernels a step.  Annotation ranges (``Optimizer.step#Adam.step``) are
+    not device work and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tae.train_autoencoder(pool, cfg, device=dev)
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    if not dev_events:
+        return "device time not measured (the profiler saw no device events)"
+    copies = [e for e in dev_events if e.name.startswith("Memcpy")]
+    kernels = [e for e in dev_events if not e.name.startswith(("Memcpy", "Memset"))]
+    copy_s = sum(e.time_range.elapsed_us() for e in copies) * 1e-6
+    kern_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    steps = AE_POOL_FRAMES // cfg.batch_size * cfg.epochs
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:6]
+    return (f"profiled call ({steps} steps): wall {wall:.3f} s ({wall / steps * 1e3:.2f} ms a "
+            f"step), kernels {kern_s:.4f} s ({kern_s / wall:.1%} of the wall; "
+            f"{len(kernels) / steps:.1f} a step, {kern_s / steps * 1e6:.1f} us a step), copies "
+            f"{copy_s:.4f} s ({len(copies)}, the pool's upload among them); idle "
+            f"{1 - (kern_s + copy_s) / wall:.1%}; most kernel time: "
+            + "; ".join(f"{name[:60]} {len(t) / steps:.1f}/step {sum(t) / steps:.1f} us/step"
+                        for name, t in top))
+
+
+def phase18(dev, tmp: Path) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import AutoencoderConfig
+    from audio_pattern_discovery_tpu_torch.models import autoencoder as tae
+    from audio_pattern_discovery_tpu_torch.utils import checkpoint as ckpt
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("phase 18: a TF32 flag is on")
+    pool = ae_pool(18)
+    pool_dev = torch.from_numpy(pool).to(dev)
+    bad = []
+    for dtype, epochs in (("float32", 20), ("bfloat16", 2)):
+        cfg = AutoencoderConfig(dtype=dtype, epochs=epochs, denoising_std=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, losses = tae.train_autoencoder(pool, cfg, device=dev)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model_c, state_c, losses_c = tae.train_autoencoder(pool, cfg, device="cpu")
+        wall_c = time.perf_counter() - t0
+        steps = state.step
+        z = tae.encode_frames(model, state.params, pool_dev)
+        z_c = tae.encode_frames(model_c, state_c.params, pool)
+        # The CPU's parameters encoded on the card: the same bits through
+        # both devices' layers.
+        z_same = tae.encode_frames(model_c, {k: v.to(dev) for k, v in state_c.params.items()},
+                                   pool_dev).cpu()
+        enc_err = float((z_same - z_c).abs().max())
+        loss_rel = np.abs(np.array(losses) - losses_c) / np.abs(losses_c)
+        p_rel = param_rel(state.params, state_c.params)
+        z_rel = float((z.cpu() - z_c).abs().max() / z_c.abs().max())
+        fp32 = dtype == "float32"
+        enc_rtol, enc_atol = ((AE_ENC_RTOL, AE_ENC_ATOL) if fp32
+                              else (AE_ENC_BF16_RTOL, AE_ENC_BF16_ATOL))
+        loss_rtol = AE_LOSS_RTOL if fp32 else AE_BF16_LOSS_RTOL
+        if not torch.allclose(z_same, z_c, rtol=enc_rtol, atol=enc_atol):
+            bad.append(f"{dtype} encode of the same parameters: max abs err {enc_err}")
+        if loss_rel.max() > loss_rtol or p_rel > AE_PARAM_REL or z_rel > AE_LATENT_REL:
+            bad.append(f"{dtype} trained: loss rel {loss_rel.max():.3g}, params {p_rel:.3g}, "
+                       f"latents {z_rel:.3g}")
+        if not losses[-1] < losses[0]:
+            bad.append(f"{dtype}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+        n_params = sum(t.numel() for t in state.params.values())
+        frames = steps * cfg.batch_size
+        log(f"phase 18: AE {dtype}, {epochs} epochs on {AE_POOL_FRAMES} x {AE_BINS} frames "
+            f"(batch {cfg.batch_size}, {steps} steps, {n_params} parameters): card {wall:.3f} s "
+            f"({steps / wall:.1f} steps/s), CPU {wall_c:.3f} s; loss {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f} (card) vs {losses_c[-1]:.5f} (CPU): loss rel err first epoch "
+            f"{loss_rel[0]:.3g}, max {loss_rel.max():.3g} (rtol {loss_rtol}); params "
+            f"{p_rel:.3g} (<= {AE_PARAM_REL}), latents {z_rel:.3g} (<= {AE_LATENT_REL}) of "
+            f"their largest magnitude; the same parameters encoded on both: max abs err "
+            f"{enc_err:.3g} (rtol {enc_rtol}, atol {enc_atol})")
+        if fp32:
+            bound_s = 6.0 * n_params * frames / FP32_OPS_S
+            log(f"phase 18: fp32 train bound {bound_s * 1e3:.3f} ms (6 x {n_params} parameters x "
+                f"{frames} frames over 67 TFLOP/s): {bound_s / wall:.2%} of it")
+            enc_ms = cuda_ms(lambda: tae.encode_frames(model, state.params, pool_dev), 10)
+            enc_ops = 2.0 * AE_POOL_FRAMES * sum(
+                t.numel() for k, t in state.params.items() if k.startswith("enc"))
+            enc_bound = max(enc_ops / FP32_OPS_S, (pool.nbytes + z.numel() * 4) / HBM_BYTES_S)
+            log(f"phase 18: encode_frames on the pool {enc_ms:.3f} ms (cuda_ms), bound "
+                f"{enc_bound * 1e3:.3f} ms ({enc_bound * 1e3 / enc_ms:.1%})")
+            log(f"phase 18: {ae_device_split(tae, AutoencoderConfig(epochs=1), pool, dev)}")
+            # Checkpoint on the card: the restored encoder gives the same bits.
+            scaler = tae.FeatureScaler.fit(pool)
+            ckpt.save_ae_checkpoint(tmp / "ae_ckpt18", state, scaler)
+            model_r, state_r, scaler_r = ckpt.restore_ae_checkpoint(
+                tmp / "ae_ckpt18", cfg, AE_BINS, device=dev)
+            if not torch.equal(tae.encode_frames(model_r, state_r.params, pool_dev), z):
+                bad.append("the restored checkpoint's encode_frames differs from the saved state's")
+            if state_r.step != state.step or not np.array_equal(scaler_r.mean, scaler.mean):
+                bad.append("the restored checkpoint's step or scaler differs")
+    if bad:
+        fail("phase 18: " + "; ".join(bad))
+    return {}
+
+
+def manifest_purity(manifest: dict, truth: list[dict]) -> float:
+    """Planted-truth purity of a clusters.json (tests/test_pipeline_e2e.py's
+    rule): each member takes the motif whose occurrence its samples overlap
+    most; the share of members agreeing with their cluster's majority."""
+    agree = total = 0
+    for c in manifest["clusters"]:
+        motifs = []
+        for m in c["members"]:
+            clip = int(Path(m["file"]).stem.split("_")[-1])
+            best, best_ov = None, 0
+            for o in truth:
+                ov = min(m["end_sample"], o["start"] + o["length"]) - max(m["start_sample"],
+                                                                          o["start"])
+                if o["clip"] == clip and ov > best_ov:
+                    best, best_ov = o["motif"], ov
+            if best is not None:
+                motifs.append(best)
+        if motifs:
+            majority = max(set(motifs), key=motifs.count)
+            agree += sum(x == majority for x in motifs)
+            total += len(motifs)
+    return agree / max(total, 1)
+
+
+def phase19(tmp: Path) -> dict:
+    corpus, truth = config2_corpus(tmp)
+    summary, wall, manifest = cli("phase 19", corpus, tmp / "config2_default_out")
+    launches = int(summary["counts"].get("launches.dtw_tile_pairs", 0))
+    losses = manifest["ae_losses"]
+    if launches < 1:
+        fail("phase 19: the CLI at the default config never launched K2")
+    if manifest["n_clusters"] < 1:
+        fail("phase 19: no clusters found")
+    if not (losses and losses[-1] < losses[0]):
+        fail(f"phase 19: the AE's loss did not fall: {losses}")
+    t = {k: round(v, 3) for k, v in summary["timings_s"].items()}
+    # torch.optim's first use imports torch._dynamo (its decorators): time
+    # that import alone in a fresh process, beside autoencoder_train.
+    probe = subprocess.run([sys.executable, "-c", "import time, torch; t0 = time.perf_counter(); "
+                            "import torch._dynamo; print(time.perf_counter() - t0)"],
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        fail(f"phase 19: the torch._dynamo import probe exited {probe.returncode}")
+    log(f"phase 19: importing torch._dynamo in a fresh process (torch.optim's first use): "
+        f"{float(probe.stdout.strip()):.2f} s")
+    log(f"phase 19: config 2 CLI at the default config (no -s: the AE, unbanded K2; 100 clips, "
+        f"{summary['n_segments']} segments, AE pool {int(summary['counts']['ae_train_frames'])} "
+        f"frames, loss {losses[0]:.5f} -> {losses[-1]:.5f}, {manifest['n_clusters']} clusters, "
+        f"planted-truth purity {manifest_purity(manifest, truth):.4f}, K2 launches {launches}): "
+        f"wall {wall:.2f} s (process incl. start-up); stages {t}")
+    # autoencoder.checkpoint: the first run trains and saves, the second
+    # restores (no training) and gives the same D bit for bit.
+    out, runs = tmp / "config2_ckpt_out", []
+    for _ in range(2):
+        s_run, w_run, m_run = cli("phase 19", corpus, out, "-s", "autoencoder.checkpoint=true")
+        runs.append((s_run, w_run, m_run, np.load(out / "distance_matrix.npy")))
+    (s1, w1, m1, D1), (s2, w2, m2, D2) = runs
+    if not m1["ae_losses"] or m2["ae_losses"]:
+        fail(f"phase 19: checkpoint runs trained {len(m1['ae_losses'])} and "
+             f"{len(m2['ae_losses'])} epochs (want 20, then 0: restored)")
+    if not np.array_equal(D1, D2):
+        fail(f"phase 19: the restored run's D differs (max abs {np.abs(D1 - D2).max()})")
+    log(f"phase 19: autoencoder.checkpoint=true: trained and saved in {w1:.2f} s "
+        f"(autoencoder_train {s1['timings_s']['autoencoder_train']:.3f} s), restored in "
+        f"{w2:.2f} s (autoencoder_train {s2['timings_s']['autoencoder_train']:.3f} s); D bitwise "
+        f"equal")
+    return {"launches": launches}
+
+
+def phase20(dev, tmp: Path) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
+    from audio_pattern_discovery_tpu_torch.pipeline import discover
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    corpus = tmp / "seed7"
+    if not corpus.is_dir():
+        make_corpus(corpus, n_clips=12, n_motifs=3, seed=7)
+    cfg = PipelineConfig()
+    cfg.dtw.band = 16
+    cfg.output.write_snippets = cfg.output.write_images = cfg.output.write_html_report = False
+    dtw_tile_lane_diag_pairs.launches = 0
+    t0 = time.perf_counter()
+    res = discover(corpus, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dtw_tile_lane_diag_pairs.launches
+    ref = discover(corpus, cfg, device="cpu")
+    D, D_cpu = res.distance_matrix, ref.distance_matrix
+    if launches < 1:
+        fail("phase 20: discover() at the default config with band 16 never launched K1")
+    if D.shape != D_cpu.shape or not np.allclose(D, D_cpu, rtol=0, atol=AE_D_ATOL):
+        fail(f"phase 20: the card's D differs from the CPU's (max abs {np.abs(D - D_cpu).max()}, "
+             f"atol {AE_D_ATOL})")
+    if partition(res.labels) != partition(ref.labels):
+        fail("phase 20: the card's cluster partition differs from the CPU's")
+    t = {k: round(v, 3) for k, v in res.counters.timings_s.items()}
+    log(f"phase 20: seed 7 at the default config with band 16 (the AE, K1): K={D.shape[0]}, "
+        f"card vs CPU D max abs err {np.abs(D - D_cpu).max():.3g} (atol {AE_D_ATOL}), "
+        f"partition equal, {len(res.clusters)} clusters, K1 launches {launches}, loss "
+        f"{res.ae_losses[-1]:.5f} (card) vs {ref.ae_losses[-1]:.5f} (CPU); card wall "
+        f"{wall:.2f} s, stages {t}")
+    # autoencoder.overlap_clip_fraction: the AE trains on the first half's
+    # clips on a worker thread (its own stream on the card) while the second
+    # half's spectrograms run; the segment table is the single-phase one.
+    cfg.autoencoder.overlap_clip_fraction = 0.5
+    ov = discover(corpus, cfg, device=dev)
+    ov_cpu = discover(corpus, cfg, device="cpu")
+    seg = [(s.clip, s.start_frame, s.end_frame) for s in res.segments]
+    if [(s.clip, s.start_frame, s.end_frame) for s in ov.segments] != seg:
+        fail("phase 20: the two-phase run's segment table differs from the single-phase one")
+    D_ov, D_ov_cpu = ov.distance_matrix, ov_cpu.distance_matrix
+    if not (ov.ae_losses and np.isfinite(ov.ae_losses).all() and np.isfinite(D_ov).all()):
+        fail("phase 20: the two-phase run gave non-finite losses or distances")
+    if not np.allclose(D_ov, D_ov_cpu, rtol=0, atol=AE_D_ATOL):
+        fail(f"phase 20: the two-phase run's D differs between the card and the CPU (max abs "
+             f"{np.abs(D_ov - D_ov_cpu).max()})")
+    if partition(ov.labels) != partition(ov_cpu.labels):
+        fail("phase 20: the two-phase run's partition differs between the card and the CPU")
+    log(f"phase 20: overlap_clip_fraction=0.5: pool {int(ov.counters.counts['ae_train_frames'])} "
+        f"of {int(res.counters.counts['ae_train_frames'])} frames, card vs CPU D max abs err "
+        f"{np.abs(D_ov - D_ov_cpu).max():.3g}, partition equal; autoencoder_train (the drain) "
+        f"{ov.counters.timings_s['autoencoder_train']:.3f} s against "
+        f"{res.counters.timings_s['autoencoder_train']:.3f} s single-phase")
     return {"launches": launches}
 
 
@@ -1779,6 +2080,9 @@ def main() -> int:
             lambda: long_widen(phase15(dev, tmp)),
             lambda: per_pair(phase16(dev)),
             lambda: phase17(tmp),
+            lambda: phase18(dev, tmp),
+            lambda: k2.update(phase19(tmp)),
+            lambda: phase20(dev, tmp),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):

@@ -1,9 +1,11 @@
 """The port's whole slice on the CPU: discover() and the CLI against the
-committed golden and the JAX pipeline, import hygiene, and the routes that
-raise NotImplementedError.
+committed goldens and the JAX pipeline, the AE's checkpoint resume and
+two-phase training pool, import hygiene, and the routes that raise
+NotImplementedError.
 
 Golden tolerances are those of tests/test_pipeline_e2e.py (D at rtol 1e-4 /
-atol 1e-5, cluster partition exact)."""
+atol 1e-5, cluster partition exact), except for the AE goldens' D: see
+test_discover_default_config_matches_ae_golden."""
 
 import json
 import os
@@ -151,6 +153,14 @@ cfg = PipelineConfig().override({{"dtw.band": 8, "autoencoder.method": "pca",
                                   "autoencoder.latent_dim": 4, "dtw.max_seq_len": 48}})
 r = discover({str(tmp_path / 'c')!r}, cfg, device="cpu")
 assert r.distance_matrix.shape[0] >= 2
+# The trained AE (the default embedder), its checkpoint written and restored.
+cfg = PipelineConfig().override({{"dtw.band": 8, "autoencoder.epochs": 2,
+                                  "autoencoder.hidden_dims": [16], "autoencoder.latent_dim": 4,
+                                  "autoencoder.checkpoint": True, "dtw.max_seq_len": 48,
+                                  "output.write_images": False}})
+for n in range(2):
+    r = discover({str(tmp_path / 'c')!r}, cfg, out_dir={str(tmp_path / 'out')!r}, device="cpu")
+    assert bool(r.ae_losses) == (n == 0) and r.distance_matrix.shape[0] >= 2
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m.startswith("audio_pattern_discovery_tpu.") or m == "audio_pattern_discovery_tpu"
                for m in sys.modules)
@@ -166,10 +176,8 @@ print("OK")
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        ({"autoencoder.method": "ae"}, "autoencoder.method=ae"),
         ({"dtw.band": None, "dtw.max_seq_len": 8192}, "ops/dtw_long.py"),
         ({"dtw.dtype": "bfloat16"}, "float32 only"),
-        ({"autoencoder.checkpoint": True}, "autoencoder.checkpoint"),
         ({"parallel.checkpoint_blocks": True}, "checkpoint_blocks"),
         ({"spectrogram.upload_codec": "mulaw8"}, "mulaw8"),
         ({"autoencoder.context_frames": 2}, "context_frames"),
@@ -250,7 +258,6 @@ def test_no_card_raises_unless_cpu_is_asked_for(seed7, tmp_path, monkeypatch, en
             lambda **kw: spectrogram_corpus(clips, SpectrogramConfig(), **kw),
         "discover": lambda **kw: discover(seed7, _golden_config(), **kw),
         "cli": lambda **kw: cli_main([str(seed7), "-o", str(tmp_path / "out"),
-                                      "-s", "autoencoder.method=pca",
                                       *(["--device", kw["device"]] if kw else [])]),
         "all_pairs_distances": lambda **kw: tps.all_pairs_distances(feats, lens, cfg, **kw),
         "all_pairs_distances_tiled":
@@ -302,7 +309,6 @@ def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
     calls = [
         lambda o=o: discover(tmp_path, PipelineConfig().override({**base, **o}), device="cpu")
         for o in (
-            {"autoencoder.method": "ae"}, {"autoencoder.checkpoint": True},
             {"autoencoder.context_frames": 2}, {"parallel.checkpoint_blocks": True},
             {"spectrogram.upload_codec": "mulaw8"}, {"dtw.dtype": "bfloat16"},
             {"dtw.band": None, "dtw.max_seq_len": 5000},
@@ -387,3 +393,231 @@ def test_cli_runs_widen(lenvar, tmp_path, capsys):
     D = np.load(out / "distance_matrix.npy")
     ref = discover(lenvar, _widen_config(), device="cpu")
     np.testing.assert_allclose(D, ref.distance_matrix, rtol=1e-6, atol=1e-7)
+
+
+# ---- the trained AE, the default embedder
+
+def _carry_jax_init(monkeypatch, dim: int = 513) -> None:
+    """The port's AE init replaced by the JAX package's initial parameters
+    for the default config: ``init_state(cfg, dim, split(PRNGKey(seed))[1])``,
+    as the reference's ``train_autoencoder`` draws them."""
+    import jax
+
+    from audio_pattern_discovery_tpu.config import AutoencoderConfig as JAECfg
+    from audio_pattern_discovery_tpu.models.autoencoder import init_state as jinit
+
+    from audio_pattern_discovery_tpu_torch.models import autoencoder as tae
+
+    _, init_rng = jax.random.split(jax.random.PRNGKey(JAECfg().seed))
+    _, state, _ = jinit(JAECfg(), dim, init_rng)
+    carried = tae.params_from_flax(jax.device_get(state.params))
+    real = tae.init_state
+    monkeypatch.setattr(
+        tae, "init_state",
+        lambda cfg, d, device="cuda", params=None:
+            real(cfg, d, device=device, params=carried if params is None else params))
+
+
+def _default_config(cls=PipelineConfig):
+    cfg = cls()
+    cfg.dtw.band = 16
+    cfg.output.write_snippets = False
+    cfg.output.write_images = False
+    cfg.output.write_html_report = False
+    return cfg
+
+
+def _purity(segments, labels, truth, cfg) -> float:
+    """tests/test_pipeline_e2e.py's planted-truth purity over a labelling:
+    each segment takes the motif whose occurrence it overlaps most; purity
+    is the share of members that agree with their cluster's majority, over
+    clusters of at least cluster.min_cluster_size."""
+    hop, win = cfg.spectrogram.hop_length, cfg.spectrogram.win_length
+
+    def motif_of(seg):
+        s0, s1 = seg.start_frame * hop, (seg.end_frame - 1) * hop + win
+        best, best_ov = None, 0
+        for occ in truth:
+            ov = min(s1, occ.start + occ.length) - max(s0, occ.start)
+            if occ.clip == seg.clip and ov > best_ov:
+                best, best_ov = occ.motif, ov
+        return best
+
+    agree = total = 0
+    for lab in np.unique(labels):
+        members = np.flatnonzero(labels == lab)
+        if len(members) < cfg.cluster.min_cluster_size:
+            continue
+        motifs = [m for m in (motif_of(segments[i]) for i in members) if m is not None]
+        if motifs:
+            majority = max(set(motifs), key=motifs.count)
+            agree += sum(m == majority for m in motifs)
+            total += len(motifs)
+    return agree / max(total, 1)
+
+
+@pytest.mark.parametrize("corpus,golden,d_atol", [
+    ("seed7", "GOLDEN_cpu_seed7.npz", 0.3),
+    ("lenvar", "GOLDEN_cpu_lenvar_seed11.npz", 0.15),
+])
+def test_discover_default_config_matches_ae_golden(request, monkeypatch, corpus, golden,
+                                                   d_atol):
+    # The default config (the trained AE, 513 -> 256 -> 64 -> 16) with band
+    # 16, from the JAX package's initial parameters.  Partition exact.  D:
+    # the goldens were recorded on the suite's 8 virtual devices, whose
+    # gradient reduction order the AE's 20 epochs amplify (Adam turns a few
+    # ulps of a near-zero gradient into an update of up to lr): the JAX
+    # package itself on 1 device misses GOLDEN_cpu_seed7.npz by 0.079 in D,
+    # and the port by 0.097 (seed 7) and 0.045 (lenvar), as
+    # tests/torch_ae_drift.py measures.  So D is held to ~3x those maxima
+    # (well under 10x), not to rtol 1e-4.
+    _carry_jax_init(monkeypatch)
+    res = discover(request.getfixturevalue(corpus), _default_config(), device="cpu")
+    ref = np.load(REPO / "tests" / "golden" / golden)
+    assert res.distance_matrix.shape == ref["D"].shape
+    np.testing.assert_allclose(res.distance_matrix, ref["D"], rtol=0, atol=d_atol)
+    assert _partition(res.labels) == _partition(ref["labels"])
+    assert len(res.ae_losses) == 20 and res.ae_losses[-1] < res.ae_losses[0]
+    assert res.counters.counts["launches.dtw_tile_lane_diag_pairs"] == 0
+
+
+def test_own_init_purity_matches_jax(tmp_path):
+    # The port's own init (not JAX's bits) on the seed-7 corpus and AE config
+    # of tests/test_pipeline_e2e.py::test_discovery_recovers_planted_motifs:
+    # planted-truth purity no lower than the JAX package's run in this
+    # process.  (At the default config on the 12-clip seed-7 corpus the AE
+    # takes only 40 steps and purity rests on the init's luck: over
+    # autoencoder.seed 0-5 the JAX package reaches 1.0 at seed 0 and 0.79
+    # at the others, the port's own init 1.0 at seed 3 and 0.79 at the
+    # others, tests/torch_ae_drift.py; the AE golden test carries JAX's
+    # seed-0 init.)
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+    from audio_pattern_discovery_tpu.pipeline import discover as jdiscover
+
+    corpus = tmp_path / "corpus"
+    truth = make_corpus(corpus, n_clips=10, n_motifs=3, occurrences_per_clip=2,
+                        clip_seconds=2.0, sample_rate=16_000, seed=7)
+    jcfg = JCfg().override({
+        "spectrogram.sample_rate": 16_000, "spectrogram.win_length": 256,
+        "spectrogram.hop_length": 128, "spectrogram.max_bins": 64,
+        "segmentation.threshold_db": -25.0, "segmentation.min_len_frames": 6,
+        "segmentation.merge_gap_frames": 3, "autoencoder.epochs": 8,
+        "autoencoder.hidden_dims": [64], "autoencoder.latent_dim": 8, "dtw.max_seq_len": 64,
+        "dtw.pair_batch": 128, "cluster.linkage": "average", "output.write_snippets": False,
+        "output.write_images": False, "output.write_html_report": False})
+    want = jdiscover(corpus, jcfg)
+    got = discover(corpus, PipelineConfig.from_dict(jcfg.to_dict()), device="cpu")
+    assert [tuple(vars(s).values()) for s in got.segments] == [
+        tuple(vars(s).values()) for s in want.segments]
+    assert _purity(got.segments, got.labels, truth, jcfg) >= _purity(
+        want.segments, want.labels, truth, jcfg) >= 0.9
+
+
+def _small_ae_config(**overrides):
+    # tests/test_checkpoint.py's resume config.
+    cfg = PipelineConfig()
+    cfg.spectrogram.sample_rate = 16_000
+    cfg.spectrogram.win_length = 256
+    cfg.spectrogram.hop_length = 128
+    cfg.spectrogram.max_bins = 32
+    cfg.segmentation.threshold_db = -25.0
+    cfg.segmentation.min_len_frames = 6
+    cfg.autoencoder.epochs = 2
+    cfg.autoencoder.hidden_dims = (16,)
+    cfg.autoencoder.latent_dim = 4
+    cfg.autoencoder.checkpoint = True
+    cfg.dtw.max_seq_len = 64
+    cfg.dtw.pair_batch = 64
+    cfg.output.write_images = False
+    return cfg.override(overrides)
+
+
+@pytest.mark.parametrize("method,state_file", [("ae", "ae_state.npz"),
+                                               ("pca", "pca_state.npz")])
+def test_pipeline_resume_skips_training(tmp_path, monkeypatch, method, state_file):
+    # Mirrors tests/test_checkpoint.py::test_pipeline_resume_skips_training;
+    # the second run must not fit anything.
+    from audio_pattern_discovery_tpu_torch import pipeline as tpipe
+
+    corpus, out = tmp_path / "corpus", tmp_path / "out"
+    make_corpus(corpus, n_clips=6, n_motifs=2, clip_seconds=1.5, seed=3)
+    cfg = _small_ae_config(**{"autoencoder.method": method})
+    r1 = discover(corpus, cfg, out_dir=out, device="cpu")
+    assert (out / cfg.autoencoder.checkpoint_dir / state_file).is_file()
+    assert bool(r1.ae_losses) == (method == "ae")
+
+    def refuse(*a, **k):
+        raise AssertionError("a restored run fitted its embedder again")
+
+    monkeypatch.setattr(tpipe, "train_autoencoder", refuse)
+    monkeypatch.setattr(tpipe, "fit_pca", refuse)
+    r2 = discover(corpus, cfg, out_dir=out, device="cpu")
+    assert not r2.ae_losses
+    np.testing.assert_array_equal(r1.labels, r2.labels)
+    np.testing.assert_array_equal(r1.distance_matrix, r2.distance_matrix)
+    np.testing.assert_array_equal(r1.seg_features, r2.seg_features)
+
+
+def test_overlap_training_pool_is_the_prefix_derivation(tmp_path, monkeypatch):
+    # overlap_clip_fraction=0.5: the AE trains on the first ceil(0.5 n)
+    # clips' segment frames, standardized by a scaler fitted on them: the
+    # reference's rule, its pool and scaler bitwise equal to the port's own
+    # derivation over that prefix.  The segment table is the single-phase
+    # run's.
+    import math
+
+    from audio_pattern_discovery_tpu_torch import pipeline as tpipe
+    from audio_pattern_discovery_tpu_torch.io.corpus import StreamingCorpus
+    from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
+    from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
+
+    corpus, out = tmp_path / "corpus", tmp_path / "out"
+    truth = make_corpus(corpus, n_clips=10, n_motifs=3, occurrences_per_clip=2,
+                        clip_seconds=2.0, sample_rate=16_000, seed=7)
+    cfg = _small_ae_config(**{"autoencoder.overlap_clip_fraction": 0.5,
+                              "autoencoder.epochs": 8, "autoencoder.hidden_dims": [64],
+                              "autoencoder.latent_dim": 8, "spectrogram.max_bins": 64,
+                              "segmentation.merge_gap_frames": 3,
+                              "cluster.linkage": "average", "dtw.pair_batch": 128})
+    pools = []
+    real = tpipe.train_autoencoder
+
+    def record(frames, ae_cfg, **kw):
+        pools.append(np.array(frames))
+        return real(frames, ae_cfg, **kw)
+
+    monkeypatch.setattr(tpipe, "train_autoencoder", record)
+    res = discover(corpus, cfg, out_dir=out, device="cpu")
+    single = discover(corpus, cfg.override({"autoencoder.overlap_clip_fraction": 0.0,
+                                            "autoencoder.checkpoint": False}), device="cpu")
+    assert len(pools) == 2      # the overlap run's, then the single-phase run's
+
+    stream = StreamingCorpus(corpus)
+    m = math.ceil(0.5 * len(stream))
+    _, _, segs1, sf1, _, sl1 = tpipe._prepare_corpus(
+        cfg, stream.view(0, m), StageCounters(), get_logger(), torch.device("cpu"))
+    flat1 = tpipe._flat_frames(sf1, sl1, len(segs1))
+    scaler1 = FeatureScaler.fit(flat1)
+    np.testing.assert_array_equal(pools[0], scaler1.transform(flat1).astype(np.float32))
+    with np.load(out / cfg.autoencoder.checkpoint_dir / "ae_state.npz") as z:
+        np.testing.assert_array_equal(z["scaler_mean"], scaler1.mean)
+        np.testing.assert_array_equal(z["scaler_std"], scaler1.std)
+    assert len(pools[0]) < len(pools[1])
+    assert [tuple(vars(s).values()) for s in res.segments] == [
+        tuple(vars(s).values()) for s in single.segments]
+    assert len(res.ae_losses) == 8 and all(np.isfinite(res.ae_losses))
+    assert _purity(res.segments, res.labels, truth, cfg) >= 0.9
+
+
+def test_cli_default_config(seed7, tmp_path, capsys):
+    # No -s at all: the trained AE and the unbanded default DTW (K2's route;
+    # its twin on the CPU).
+    out = tmp_path / "out"
+    assert cli_main([str(seed7), "-o", str(out), "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    manifest = json.loads((out / "clusters.json").read_text())
+    assert manifest["n_clusters"] == summary["n_clusters"] >= 1
+    assert len(manifest["ae_losses"]) == 20
+    assert {"autoencoder_train", "autoencoder_encode", "dtw"} <= set(summary["timings_s"])
+    assert summary["counts"]["feature_dim"] == 16
+    assert summary["counts"]["launches.dtw_tile_pairs"] == 0
