@@ -1,11 +1,13 @@
 """Command line: ``python -m audio_pattern_discovery_tpu_torch <wav-dir>``.
 
-Port of ``audio_pattern_discovery_tpu/cli.py``, trimmed to discovery: the
-same ``-c`` config file, ``-s section.key=value`` overrides and
-``--dump-config``.  ``--update``, ``--query``, ``--top-k``, ``--serve``,
-``--doctor`` and ``--trace`` are accepted so that a command line written
-for the reference fails loudly here: they raise ``NotImplementedError``
-naming their ROADMAP.md items.
+Port of ``audio_pattern_discovery_tpu/cli.py``: the same ``-c`` config
+file, ``-s section.key=value`` overrides, ``--dump-config``, ``--update``
+(grow the index in ``--out-dir``), ``--query`` with ``--top-k`` (rank the
+indexed segments against new WAVs) and ``--serve`` (a resident worker on a
+Unix socket), with the reference's conflict checks; ``--device`` picks the
+card (the default) or the CPU.  ``--doctor`` and ``--trace`` are accepted
+so that a command line written for the reference fails loudly here: they
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,11 +54,39 @@ def build_parser() -> argparse.ArgumentParser:
         metavar="KEY=VALUE",
         help="dotted config override, e.g. -s dtw.band=32 -s cluster.n_clusters=5",
     )
-    p.add_argument("--update", action="store_true", help="not ported yet")
-    p.add_argument("--query", action="append", default=[], type=Path,
-                   metavar="WAV", help="not ported yet")
-    p.add_argument("--top-k", type=int, default=None, help="not ported yet (goes with --query)")
-    p.add_argument("--serve", type=Path, metavar="SOCKET", help="not ported yet")
+    p.add_argument(
+        "--update",
+        action="store_true",
+        help="incremental update: reuse the distance matrix in --out-dir "
+        "from a prior run over the same directory; only DTW pairs touching "
+        "newly added WAVs are computed (the embedding model is frozen from "
+        "the prior run)",
+    )
+    p.add_argument(
+        "--query",
+        action="append",
+        default=[],
+        type=Path,
+        metavar="WAV",
+        help="query-by-example instead of discovery: rank the corpus "
+        "segments indexed in --out-dir (a prior run) by DTW distance to "
+        "each segment of this WAV and print JSON matches with their "
+        "clusters; repeatable",
+    )
+    p.add_argument(
+        "--top-k", type=int, default=10,
+        help="matches per query segment for --query (default 10)",
+    )
+    p.add_argument(
+        "--serve",
+        type=Path,
+        metavar="SOCKET",
+        help="run as a resident worker serving discover/update/query "
+        "requests over this Unix socket (newline-delimited JSON; see "
+        "serve.py) on --device; pays the process's start-up once instead "
+        "of per invocation.  -c/-s set the server's default config; "
+        "requests may override per call",
+    )
     p.add_argument("--doctor", action="store_true", help="not ported yet")
     p.add_argument("--trace", type=Path, metavar="DIR", help="not ported yet")
     p.add_argument(
@@ -78,17 +108,45 @@ def main(argv: list[str] | None = None) -> int:
     if args.dump_config:
         print(json.dumps(cfg.to_dict(), indent=2))
         return 0
-    if args.serve or args.query or args.top_k is not None:
-        raise NotImplementedError(
-            "--serve, --query and --top-k are not ported to audio_pattern_discovery_tpu_torch "
-            'yet (ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"; '
-            'ROADMAP.md Queue 1: "Runtime extras")'
-        )
     if args.doctor or args.trace:
         raise NotImplementedError(
             "--doctor and --trace are not ported to audio_pattern_discovery_tpu_torch yet "
             '(ROADMAP.md Queue 1: "Runtime extras")'
         )
+    log = get_logger(json_lines=args.json_logs)
+    if args.serve:
+        if args.wav_dir is not None or args.update or args.query:
+            build_parser().error(
+                "--serve runs a resident worker; send discover/update/query "
+                "as requests on the socket instead of CLI arguments"
+            )
+        try:
+            cfg.validate()
+        except ValueError as e:
+            build_parser().error(str(e))
+        from audio_pattern_discovery_tpu_torch.serve import serve
+
+        served = serve(args.serve, cfg, logger=log, device=args.device)
+        print(json.dumps({"served": served}))
+        return 0
+    if args.query:
+        if args.update or args.wav_dir is not None:
+            # Dropping either would run against a stale index or ignore an
+            # intended discovery: the user picks one action.
+            build_parser().error(
+                "--query cannot be combined with wav_dir or --update; "
+                "run the update first, then query the refreshed index"
+            )
+        try:
+            cfg.validate()
+        except ValueError as e:
+            build_parser().error(str(e))
+        from audio_pattern_discovery_tpu_torch.query import query_corpus
+
+        report = query_corpus(args.out_dir, args.query, cfg, top_k=args.top_k, logger=log,
+                              device=args.device)
+        print(json.dumps(report, indent=2))
+        return 0
     if args.wav_dir is None:
         build_parser().error("wav_dir is required (unless --dump-config)")
     try:
@@ -98,8 +156,7 @@ def main(argv: list[str] | None = None) -> int:
     from audio_pattern_discovery_tpu_torch.pipeline import discover
 
     result = discover(
-        args.wav_dir, cfg, out_dir=args.out_dir,
-        logger=get_logger(json_lines=args.json_logs),
+        args.wav_dir, cfg, out_dir=args.out_dir, logger=log,
         update_from=args.out_dir if args.update else None,
         device=args.device,
     )

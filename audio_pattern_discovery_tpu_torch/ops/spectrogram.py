@@ -13,8 +13,9 @@ Tiling is simpler than the reference's: clips go in groups of
 ``clip_batch``, each group padded to its longest clip, and the frames of a
 group in chunks of ``chunk_frames``.  Frames do not straddle chunks (framing
 is a view of the whole clip), so the result equals a single-shot call.
-The mu-law upload codec is not ported (ROADMAP.md Queue 1: "ops/context.py
-and the mu-law upload codec").
+Samples reach the device as float32, as int16 PCM, or as 8-bit mu-law
+codes of the peak-normalized signal (``upload_codec="mulaw8"``), each
+decoded on the device (``decode_signals``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,26 @@ def dct_ortho(n_in: int, n_out: int) -> np.ndarray:
     m = np.cos(np.pi * (2.0 * i + 1.0) * j / (2.0 * n_in)) * np.sqrt(2.0 / n_in)
     m[:, 0] *= np.sqrt(0.5)
     return m.astype(np.float32)
+
+
+# 8-bit mu-law companding (mu=255) over peak-normalized samples: the
+# optional half-of-int16 upload codec (SpectrogramConfig.upload_codec=
+# "mulaw8"), as in the reference.
+_MULAW_MU = 255.0
+
+
+def mulaw_encode_host(x: np.ndarray) -> np.ndarray:
+    """float in [-1, 1] -> int8 codes in [-127, 127] (host side; the
+    reference's NumPy function)."""
+    x = np.clip(np.asarray(x, np.float32), -1.0, 1.0)
+    y = np.sign(x) * np.log1p(_MULAW_MU * np.abs(x)) / np.log1p(_MULAW_MU)
+    return np.round(y * 127.0).astype(np.int8)
+
+
+def mulaw_decode_device(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes -> float32 samples on the device of ``q``."""
+    y = q.float() / 127.0
+    return torch.sign(y) * (torch.pow(1.0 + _MULAW_MU, torch.abs(y)) - 1.0) / _MULAW_MU
 
 
 def _dft_matrix(win_length: int, n_fft: int, device) -> torch.Tensor:
@@ -255,12 +276,19 @@ def _cfg_kwargs(cfg: SpectrogramConfig) -> dict:
 
 def decode_signals(sig: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
     """Device-side sample decode: int16 PCM -> x/32768 (then / per-clip
-    scale when normalizing, bit-identical to the host's x/peak); float32
-    passes through."""
+    scale when normalizing, bit-identical to the host's x/peak); int8 mu-law
+    codes of the peak-normalized signal -> samples (then * per-clip scale,
+    which restores the amplitude when not normalizing); float32 passes
+    through."""
     if sig.dtype == torch.int16:
         sig = sig.float() / 32768.0
         if scales is not None:
             sig = sig / scales[:, None]
+        return sig
+    if sig.dtype == torch.int8:
+        sig = mulaw_decode_device(sig)
+        if scales is not None:
+            sig = sig * scales[:, None]
         return sig
     if sig.dtype != torch.float32:
         raise ValueError(f"unsupported sample dtype {sig.dtype}")
@@ -281,8 +309,9 @@ def spectrogram_corpus(
     """Ragged clips -> ([B, F_max, feat] features, [B] frame counts,
     [B, F_max] frame energies).
 
-    ``sigs`` is a sequence of 1-D int16 or float32 arrays (uniform dtype);
-    ``scales`` (optional [B]) divides int16 clips after decode.  Features
+    ``sigs`` is a sequence of 1-D int16, int8 (mu-law) or float32 arrays
+    (uniform dtype); ``scales`` (optional [B]) divides int16 clips and
+    multiplies mu-law clips after decode (``decode_signals``).  Features
     come back as a tensor on ``device`` with ``return_device``, else as a
     host array; energies always on the host (segmentation is host code).
     ``device`` is the card unless the caller asks for the CPU; no card
@@ -317,7 +346,7 @@ def spectrogram_corpus(
         g = len(group)
         n_max = max(int(n) for n in sig_lengths[g0 : g0 + g])
         n_pad = max(n_max, win)
-        dtype = group[0].dtype if group[0].dtype == np.int16 else np.float32
+        dtype = group[0].dtype if group[0].dtype in (np.int16, np.int8) else np.float32
         buf = np.zeros((g, n_pad), dtype=dtype)
         for k, s in enumerate(group):
             buf[k, : len(s)] = s

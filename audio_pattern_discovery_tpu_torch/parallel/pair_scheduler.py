@@ -32,18 +32,30 @@ blocks, the plain ``ops/dtw.dtw_batch`` for diag blocks (the reference has
 no kernel there), blocks padded to a power of two, a window of blocks in
 flight, and ``D += D.T``.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md
-item: unbanded jobs past 4096 frames and per-pair buckets past the kernels'
-ranges (``ops/dtw_long.py``); block persistence, retries and incremental
-``known=`` reuse.
+Both schedulers also keep the reference's index reuse and failure
+handling: ``known=(k_old, D_old)`` takes the distances among the first
+k_old sequences from a prior run and computes only the pairs that touch a
+new one; ``block_dir`` persists each dispatched block as an ``.npz`` and a
+rerun reads it back instead of dispatching it (``_block_key``: the block's
+pair indices, the DTW config and a fingerprint of the features, so a block
+is never reused after either changes); ``max_retries`` re-dispatches a block
+whose launch or collection raised, from its inputs.  Block keys depend on
+the chunking and so on ``ti`` (``DEFAULT_TI``): blocks written on the card
+do not resume a CPU run, nor the other way round.
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md item:
+unbanded jobs past 4096 frames and per-pair buckets past the kernels'
+ranges (``ops/dtw_long.py``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import queue
 import threading
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -96,7 +108,60 @@ def padded_len(L: int) -> int:
 
 
 _LONG_ITEM = 'ROADMAP.md Queue 1: "ops/dtw_long.py"'
-_UPDATE_ITEM = 'ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"'
+
+
+def _with_retries(fn: Callable, max_retries: int, pending_exc: BaseException):
+    """Re-run ``fn`` up to max_retries times after an initial failure
+    (the reference's contract): ``pending_exc``, the exception that
+    triggered the retry, is raised as it is when max_retries < 1, and the
+    last retry's failure propagates."""
+    if max_retries < 1:
+        raise pending_exc
+    for attempt in range(max_retries):
+        try:
+            return fn()
+        except Exception:
+            if attempt == max_retries - 1:
+                raise
+    raise AssertionError("unreachable")
+
+
+def _block_key(ii: np.ndarray, jj: np.ndarray, cfg_tag: bytes = b"") -> str:
+    """Resume key: pair indices + the DTW config fingerprint, so blocks
+    persisted under one metric/band/normalization are never reused after a
+    config change (the reference's key)."""
+    h = hashlib.sha1(ii.tobytes() + b"|" + jj.tobytes() + b"|" + cfg_tag)
+    return f"block_{ii[0]}_{jj[0]}_{len(ii)}_{h.hexdigest()[:16]}"
+
+
+def _cfg_tag(cfg: DTWConfig, features, lengths: np.ndarray) -> bytes:
+    """DTW config + a feature fingerprint (the reference's): shapes,
+    lengths, and a 64-row stride of the feature tensor, so blocks are also
+    invalidated when upstream config changes the features.  A tensor's
+    stride is hashed as its float32 host copy."""
+    h = hashlib.sha1(
+        repr(
+            (cfg.metric, cfg.band, cfg.auto_widen_band, cfg.normalize,
+             cfg.dtype, cfg.band_mode)
+        ).encode()
+    )
+    h.update(repr(tuple(features.shape)).encode())
+    h.update(np.ascontiguousarray(lengths).tobytes())
+    step = max(1, features.shape[0] // 64)
+    sample = features[::step]
+    if isinstance(sample, torch.Tensor):
+        sample = sample.detach().to("cpu", torch.float32).numpy()
+    h.update(np.ascontiguousarray(sample).tobytes())
+    return h.hexdigest().encode()
+
+
+def _check_known(known, K: int) -> None:
+    k_old, D_old = known
+    if not (0 <= k_old <= K and np.shape(D_old) == (k_old, k_old)):
+        raise ValueError(
+            f"known: D_old shape {np.shape(D_old)} != ({k_old}, {k_old}) "
+            f"or k_old {k_old} out of range for K={K}"
+        )
 
 
 def _check_dtype(cfg: DTWConfig) -> None:
@@ -355,6 +420,9 @@ def all_pairs_distances_tiled(
     stats: dict | None = None,
     lane: bool | None = None,
     stripe: bool | None = None,
+    known: tuple[int, np.ndarray] | None = None,
+    block_dir: str | Path | None = None,
+    max_retries: int = 1,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW matrix through the tile-pair kernels of the
     job's route (``route_for``).  On the widen route ``widen_kernel`` picks
@@ -367,16 +435,33 @@ def all_pairs_distances_tiled(
     of ``chunk_programs``; on a CUDA device up to eight chunks are in flight
     while a worker thread scatters finished blocks into D.
 
+    ``known=(k_old, D_old)``: the distances among the first k_old sequences
+    come from D_old.  The sort groups old sequences before new ones (each
+    group length-sorted), and tile-pairs with no new sequence are skipped;
+    the one boundary tile recomputes its old x old pairs with the same
+    kernels.  Tiles are then not globally length-sorted (a new tile can be
+    shorter than an old one): every class function bounds both
+    orientations, and the diag route puts each tile-pair's longer tile on
+    the DP rows.  ``block_dir``: each chunk's raw blocks persist as an
+    ``.npz`` under a key of its tile-pairs, class, kernel, DTW config and
+    feature fingerprint, and a chunk whose file exists is read back and
+    never dispatched.  ``max_retries``: a chunk whose launch or collection
+    raises is launched again from its inputs up to this many times (0: the
+    first exception propagates).
+
     ``stats`` receives the route, host seconds per activity (dispatch,
-    collect: waiting for a chunk's copy, scatter, upload), whether the
-    native scatter ran and with OpenMP, and, on a CUDA device, ``kernel_s``:
-    the kernel launches' device time from CUDA events around each launch,
-    and ``kernel_s_by``: that time per kernel entry name.
+    collect: waiting for a chunk's copy, scatter, persist, upload), the
+    chunks read back (``blocks_resumed``), whether the native scatter ran
+    and with OpenMP, and, on a CUDA device, ``kernel_s``: the kernel
+    launches' device time from CUDA events around each launch, and
+    ``kernel_s_by``: that time per kernel entry name.
     The default device is the card; without one, pass ``device="cpu"``."""
     device = resolve_device(device)
     K, L, d = features.shape
     route = route_for(L, cfg)
     lengths = np.asarray(lengths, dtype=np.int32)
+    if known is not None:
+        _check_known(known, K)
     forced = None
     if lane is not None or stripe is not None:
         use_lane = bool(lane) if lane is not None else not stripe
@@ -391,9 +476,19 @@ def all_pairs_distances_tiled(
     ti = int(ti or DEFAULT_TI[device.type])
     Lp = padded_len(L)
     Kp = -(-K // ti) * ti
-    direct = K * K * 4 <= _DIRECT_SCATTER_BYTES
+    # Updates scatter straight into D (the reference's rule): skipped
+    # tile-pairs would leave row strips incomplete.
+    direct = known is not None or K * K * 4 <= _DIRECT_SCATTER_BYTES
     D = np.zeros((K, K), dtype=np.float32)
-    perm = np.argsort(lengths, kind="stable").astype(np.int64)
+    if known is not None:
+        k_old, D_old = known
+        D[:k_old, :k_old] = D_old
+        perm = np.concatenate([
+            np.argsort(lengths[:k_old], kind="stable"),
+            k_old + np.argsort(lengths[k_old:], kind="stable"),
+        ]).astype(np.int64)
+    else:
+        perm = np.argsort(lengths, kind="stable").astype(np.int64)
     lens_p = np.ones((Kp,), np.int32)
     lens_p[:K] = lengths[perm]
     nT = Kp // ti
@@ -425,15 +520,27 @@ def all_pairs_distances_tiled(
     upload_s = time.perf_counter() - t_up
 
     pairs_list = [(i, j) for i in range(nT) for j in range(i, nT)]
+    n_pairs = K * (K - 1) // 2
+    if known is not None:
+        # Tile-pairs with no new sequence on either side are all in D_old
+        # (pad positions >= K are never new).
+        pos_new = np.zeros(nT * ti, bool)
+        pos_new[:K] = perm >= k_old
+        tile_new = pos_new.reshape(nT, ti).any(axis=1)
+        pairs_list = [(i, j) for i, j in pairs_list if tile_new[i] or tile_new[j]]
+        n_pairs -= k_old * (k_old - 1) // 2
     if route == "diag":
         pair_class = make_tile_lane_diag_class_fn(lens_p, nT, ti, Lp, int(cfg.band), K)
-        # Long side on DP rows (tiles are length-sorted, so J >= I is the
-        # longer tile): the corridor's per-row half-width is then exactly
-        # `band`, and the class stripes stay narrow.  The scatter writes
-        # both triangles of every block, so (J, I) blocks land like (I, J)
-        # ones.  K2-K5 keep the shorter A tile on rows: their rows class key
-        # assumes it.
-        pairs_list = [(j, i) for i, j in pairs_list]
+        # Long side on DP rows: the corridor's per-row half-width is then
+        # exactly `band`, and the class stripes stay narrow (with the short
+        # side on rows it grows with the length ratio).  Sorted tiles make
+        # J >= I the longer tile; under `known` a new tile can be shorter
+        # than an old one, so the tiles' longest real lengths decide.  The
+        # scatter writes both triangles of every block, so (J, I) blocks
+        # land like (I, J) ones.  K2-K5 keep the A tile on rows: their class
+        # keys bound both orientations.
+        tmax = [int(lens_p[t * ti : min((t + 1) * ti, K)].max()) for t in range(nT)]
+        pairs_list = [(j, i) if tmax[j] >= tmax[i] else (i, j) for i, j in pairs_list]
     elif route == "widen":
         pair_class = make_tile_stripe_class_fn(
             lens_p, nT, ti, Lp, int(cfg.band), cfg.auto_widen_band, K,
@@ -508,10 +615,14 @@ def all_pairs_distances_tiled(
     if stats is None:
         stats = {}
     stats.update(
-        route=route, dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, kernel_s=0.0,
-        kernel_s_by={}, upload_s=upload_s, blocks=len(chunks), pairs=K * (K - 1) // 2,
+        route=route, dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, persist_s=0.0, kernel_s=0.0,
+        kernel_s_by={}, upload_s=upload_s, blocks=len(chunks), blocks_resumed=0, pairs=n_pairs,
         tiled=True, tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
     )
+    if block_dir is not None:
+        block_dir = Path(block_dir)
+        block_dir.mkdir(parents=True, exist_ok=True)
+        cfg_tag = _cfg_tag(cfg, features, lengths) + f"|tiled|{route}".encode()
 
     norm = cfg.normalize == "path_len"
     ls_f = lens_p.astype(np.float32)
@@ -597,18 +708,26 @@ def all_pairs_distances_tiled(
             if scatter_err:
                 continue  # drain so the producer never blocks on put()
             try:
-                ii, jj, host, events, name = item
+                ii, jj, host, events, name, dispatch, path = item
                 t0 = time.perf_counter()
-                if events is not None:
-                    events[2].synchronize()
-                    secs = events[0].elapsed_time(events[1]) / 1e3
-                    stats["kernel_s"] += secs
-                    by = stats["kernel_s_by"]
-                    by[name] = by.get(name, 0.0) + secs
+                try:
+                    if events is not None:
+                        events[2].synchronize()
+                        secs = events[0].elapsed_time(events[1]) / 1e3
+                        stats["kernel_s"] += secs
+                        by = stats["kernel_s_by"]
+                        by[name] = by.get(name, 0.0) + secs
+                    vals = host.numpy()
+                except Exception as exc:
+                    vals = _with_retries(lambda: dispatch().cpu().numpy(), max_retries, exc)
                 stats["collect_s"] += time.perf_counter() - t0
                 t0 = time.perf_counter()
-                scatter_chunk(ii, jj, host.numpy())
+                scatter_chunk(ii, jj, vals)
                 stats["scatter_s"] += time.perf_counter() - t0
+                if path is not None:
+                    t0 = time.perf_counter()
+                    np.savez(path, ii=ii, jj=jj, blocks=vals)
+                    stats["persist_s"] += time.perf_counter() - t0
             except BaseException as exc:
                 scatter_err.append(exc)
 
@@ -619,12 +738,31 @@ def all_pairs_distances_tiled(
         for ii, jj, cls in chunks:
             if scatter_err:
                 raise scatter_err[0]
+            name = kernel_of(cls).__name__
+            path = None
+            if block_dir is not None:
+                tag = cfg_tag + f"|{name}|{'|'.join(map(str, cls))}".encode()
+                path = block_dir / (_block_key(ii, jj, tag) + ".npz")
+                if path.exists():
+                    with np.load(path) as saved:
+                        resumed = (saved["ii"], saved["jj"], torch.from_numpy(saved["blocks"]))
+                    stats["blocks_resumed"] += 1
+                    scatter_q.put((*resumed, None, name, None, None))
+                    continue
+
+            def dispatch(ii=ii, jj=jj, cls=cls) -> torch.Tensor:
+                return launch(torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device),
+                              cls)
+
             t0 = time.perf_counter()
             events = None
             if on_cuda:
                 events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 events[0].record()
-            blocks = launch(torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device), cls)
+            try:
+                blocks = dispatch()
+            except Exception as exc:
+                blocks = _with_retries(dispatch, max_retries, exc)
             if on_cuda:
                 events[1].record()
                 host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
@@ -636,7 +774,7 @@ def all_pairs_distances_tiled(
             stats["dispatch_s"] += time.perf_counter() - t0
             # The bounded queue keeps at most 8 chunks between launch and
             # scatter, so pinned buffers stay bounded.
-            scatter_q.put((ii, jj, host, events, kernel_of(cls).__name__))
+            scatter_q.put((ii, jj, host, events, name, dispatch, path))
     finally:
         scatter_q.put(None)
         worker.join()
@@ -656,28 +794,27 @@ def all_pairs_distances(
     stats: dict | None = None,
     tiled: bool | None = None,
     bucket_step: int = 32,
-    block_dir=None,
-    known=None,
-    max_retries: int = 0,
+    block_dir: str | Path | None = None,
+    known: tuple[int, np.ndarray] | None = None,
+    max_retries: int = 1,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW distance matrix over all segment pairs.
 
     ``tiled`` None or True: the tiled scheduler (``route_for`` picks the
     kernel).  ``tiled=False``: the per-pair scheduler
-    (``all_pairs_distances_per_pair``), the reference's legacy path.  Block
-    persistence (``block_dir``), incremental reuse (``known``) and retries
-    (``max_retries``) are not ported and raise ``NotImplementedError``.
-    The default device is the card; without one, pass ``device="cpu"``."""
-    if block_dir is not None or known is not None or max_retries:
-        raise NotImplementedError(
-            "block persistence (block_dir), incremental reuse (known=) and block "
-            f"retries (max_retries) are not ported yet ({_UPDATE_ITEM})"
-        )
+    (``all_pairs_distances_per_pair``), the reference's legacy path.
+    ``block_dir``: persist each block for crash resume.  ``max_retries``: a
+    block whose dispatch or collection raises is dispatched again up to this
+    many times before the error propagates.  ``known=(k_old, D_old)``: the
+    first k_old sequences' pairwise distances come from D_old (a prior run
+    over the same features); only pairs touching a new sequence are
+    computed.  The default device is the card; without one, pass
+    ``device="cpu"``."""
+    kw = dict(device=device, stats=stats, block_dir=block_dir, known=known,
+              max_retries=max_retries)
     if tiled is False:
-        return all_pairs_distances_per_pair(
-            features, lengths, cfg, device=device, bucket_step=bucket_step, stats=stats,
-        )
-    return all_pairs_distances_tiled(features, lengths, cfg, device=device, stats=stats)
+        return all_pairs_distances_per_pair(features, lengths, cfg, bucket_step=bucket_step, **kw)
+    return all_pairs_distances_tiled(features, lengths, cfg, **kw)
 
 
 def bucket_lengths(lengths: np.ndarray, step: int, max_len: int) -> np.ndarray:
@@ -693,10 +830,12 @@ def enumerate_pair_blocks(
     max_len: int,
     band: int | None = None,
     auto_widen: bool = True,
+    new_from: int | None = None,
 ):
     """Yield (row_cap, bucket_len, max_len_diff, ii, jj) blocks covering the
-    upper triangle (exact port of the reference, without its incremental
-    ``new_from`` filter).
+    upper triangle (exact port of the reference).  ``new_from``: only pairs
+    with at least one index >= new_from are emitted (the pairs among the
+    first new_from sequences are known to the caller).
 
     Every pair is oriented shorter-first (ii the shorter sequence).  Pairs
     are bucketed by the longer side's padded length and sub-bucketed by the
@@ -734,6 +873,11 @@ def enumerate_pair_blocks(
                     continue
                 ii = np.repeat(ga, len(gb))
                 jj = np.tile(gb, len(ga))
+            if new_from is not None:
+                keep = (ii >= new_from) | (jj >= new_from)
+                if not keep.any():
+                    continue
+                ii, jj = ii[keep], jj[keep]
             if len(classes) == 1:
                 splits = [(int(classes[0]), ii, jj)]
             else:
@@ -757,6 +901,9 @@ def all_pairs_distances_per_pair(
     device: torch.device | str = "cuda",
     bucket_step: int = 32,
     stats: dict | None = None,
+    known: tuple[int, np.ndarray] | None = None,
+    block_dir: str | Path | None = None,
+    max_retries: int = 1,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW matrix through the per-pair scheduler (port of
     the reference's legacy loop in ``all_pairs_distances``).
@@ -770,19 +917,28 @@ def all_pairs_distances_per_pair(
     each pair lands in one triangle, and ``D += D.T`` closes the matrix.
     The kernels normalize inside, so the scatter does not.
 
-    ``stats`` receives the block and pad-pair counts, host seconds per
-    activity (enumerate, dispatch, collect: waiting for a block's values,
-    scatter) and, on a CUDA device, from CUDA events around each block:
-    ``gather_s``, the device time of the blocks' gathers, ``kernel_s``, that
-    of the DTW calls, and ``kernel_s_by``, the latter per entry name: the
-    wrapper whose launch counter the call moved (``dtw_batch_pallas`` for
-    K6, ``_dtw_batch_stripe`` for K7), else the entry called (``dtw_batch``
-    for diag blocks).  The default device is the card; without one, pass
-    ``device="cpu"``."""
+    ``known=(k_old, D_old)``: only pairs touching a sequence >= k_old are
+    enumerated (``new_from``), and D_old fills the old block after the
+    symmetrization.  ``block_dir``: each block's distances persist as an
+    ``.npz``; a block whose file exists is read back, never dispatched.
+    ``max_retries``: a block whose dispatch or collection raises is
+    dispatched again from its indices up to this many times.
+
+    ``stats`` receives the block, resumed-block and pad-pair counts, host
+    seconds per activity (enumerate, dispatch, collect: waiting for a
+    block's values, scatter, persist) and, on a CUDA device, from CUDA
+    events around each block: ``gather_s``, the device time of the blocks'
+    gathers, ``kernel_s``, that of the DTW calls, and ``kernel_s_by``, the
+    latter per entry name: the wrapper whose launch counter the call moved
+    (``dtw_batch_pallas`` for K6, ``_dtw_batch_stripe`` for K7), else the
+    entry called (``dtw_batch`` for diag blocks).  The default device is the
+    card; without one, pass ``device="cpu"``."""
     _check_dtype(cfg)
     device = resolve_device(device)
     K, L, d = features.shape
     lengths = np.asarray(lengths, dtype=np.int32)
+    if known is not None:
+        _check_known(known, K)
     D = np.zeros((K, K), dtype=np.float32)
     if K < 2:
         return D
@@ -793,9 +949,16 @@ def all_pairs_distances_per_pair(
     else:
         feats_dev = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(device)
     lens_dev = torch.from_numpy(lengths).to(device)
+    if block_dir is not None:
+        block_dir = Path(block_dir)
+        block_dir.mkdir(parents=True, exist_ok=True)
+        cfg_tag = _cfg_tag(cfg, features, lengths)
     # The corpus's own pair count rounded to 8, at most pair_batch; the
     # plain twins on the CPU build per-diagonal costs, so blocks stay small.
     n_all_pairs = K * (K - 1) // 2
+    if known is not None:
+        k_old, D_old = known
+        n_all_pairs -= k_old * (k_old - 1) // 2
     B = int(min(cfg.pair_batch, max(8, -(-n_all_pairs // 8) * 8)))
     if device.type == "cpu":
         B = min(B, 1024)
@@ -804,9 +967,9 @@ def all_pairs_distances_per_pair(
     if stats is None:
         stats = {}
     stats.update(
-        route="per_pair", dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, enumerate_s=0.0,
-        gather_s=0.0, kernel_s=0.0, kernel_s_by={}, blocks=0, pad_pairs=0, pairs=n_all_pairs,
-        tiled=False,
+        route="per_pair", dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, persist_s=0.0,
+        enumerate_s=0.0, gather_s=0.0, kernel_s=0.0, kernel_s_by={}, blocks=0,
+        blocks_resumed=0, pad_pairs=0, pairs=n_all_pairs, tiled=False,
     )
     on_cuda = device.type == "cuda"
 
@@ -839,47 +1002,75 @@ def all_pairs_distances_per_pair(
         moved = [k for k, n in zip(_PER_PAIR_KERNELS, counts) if k.launches != n]
         return vals, (moved[0] if moved else fn).__name__, events
 
-    pending: list[tuple[np.ndarray, np.ndarray, torch.Tensor, str, list]] = []
+    pending: list[tuple] = []
 
     def collect_one():
-        ii, jj, vals, name, events = pending.pop(0)
+        ii, jj, vals, name, events, dispatch, path = pending.pop(0)
         t0 = time.perf_counter()
-        host = vals.cpu().numpy()[: len(ii)]
-        if events:
-            stats["gather_s"] += events[0].elapsed_time(events[1]) / 1e3
-            secs = events[1].elapsed_time(events[2]) / 1e3
-            stats["kernel_s"] += secs
-            by = stats["kernel_s_by"]
-            by[name] = by.get(name, 0.0) + secs
+        try:
+            host = vals.cpu().numpy()[: len(ii)]
+            if events:
+                stats["gather_s"] += events[0].elapsed_time(events[1]) / 1e3
+                secs = events[1].elapsed_time(events[2]) / 1e3
+                stats["kernel_s"] += secs
+                by = stats["kernel_s_by"]
+                by[name] = by.get(name, 0.0) + secs
+        except Exception as exc:
+            host = _with_retries(lambda: dispatch()[0].cpu().numpy()[: len(ii)], max_retries,
+                                 exc)
         stats["collect_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         D[ii, jj] = host
         stats["scatter_s"] += time.perf_counter() - t0
+        if path is not None:
+            t0 = time.perf_counter()
+            np.savez(path, ii=ii, jj=jj, d=host)
+            stats["persist_s"] += time.perf_counter() - t0
 
     t_enum = time.perf_counter()
     for row_cap, bucket, mld, ii_all, jj_all in enumerate_pair_blocks(
         lengths, B, step, L, band=cfg.band, auto_widen=cfg.auto_widen_band,
+        new_from=None if known is None else k_old,
     ):
         cap = max(512, gather_budget // (bucket * d * 8))
         for s in range(0, len(ii_all), cap):
             ii, jj = ii_all[s : s + cap], jj_all[s : s + cap]
             stats["enumerate_s"] += time.perf_counter() - t_enum
             stats["blocks"] += 1
+            path = None
+            if block_dir is not None:
+                path = block_dir / (_block_key(ii, jj, cfg_tag) + ".npz")
+                if path.exists():
+                    with np.load(path) as saved:
+                        D[saved["ii"], saved["jj"]] = saved["d"]
+                    stats["blocks_resumed"] += 1
+                    t_enum = time.perf_counter()
+                    continue
             B_blk = min(B, max(8, 1 << (len(ii) - 1).bit_length()))
             ii_pad = np.zeros(B_blk, dtype=np.int64)
             jj_pad = np.zeros(B_blk, dtype=np.int64)
             ii_pad[: len(ii)], jj_pad[: len(jj)] = ii, jj
             stats["pad_pairs"] += B_blk - len(ii)
+
+            def dispatch(row_cap=row_cap, bucket=bucket, mld=mld, ii_pad=ii_pad, jj_pad=jj_pad):
+                return run_block(row_cap, bucket, mld, torch.from_numpy(ii_pad).to(device),
+                                 torch.from_numpy(jj_pad).to(device))
+
             t0 = time.perf_counter()
-            vals, name, events = run_block(row_cap, bucket, mld,
-                                           torch.from_numpy(ii_pad).to(device),
-                                           torch.from_numpy(jj_pad).to(device))
+            try:
+                vals, name, events = dispatch()
+            except Exception as exc:
+                vals, name, events = _with_retries(dispatch, max_retries, exc)
             stats["dispatch_s"] += time.perf_counter() - t0
-            pending.append((ii, jj, vals, name, events))
+            pending.append((ii, jj, vals, name, events, dispatch, path))
             if len(pending) >= 10:
                 collect_one()
             t_enum = time.perf_counter()
     while pending:
         collect_one()
     D += D.T
+    if known is not None:
+        # The old x old block was never enumerated; its distances come from
+        # the prior run (after the symmetrization, so nothing doubles).
+        D[:k_old, :k_old] = D_old
     return D

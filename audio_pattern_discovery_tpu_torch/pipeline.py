@@ -12,15 +12,24 @@ alignments out, on one torch ``device`` (default: the card; without one,
    ``autoencoder.overlap_clip_fraction``, trained on a worker thread while
    the rest of the corpus goes through its spectrograms), or PCA
    (covariance and projection on the device, eigensolve on the host);
-   either restored from ``autoencoder.checkpoint``;
+   either restored from ``autoencoder.checkpoint``; with
+   ``autoencoder.context_frames`` the embedder reads (2k+1)-frame slices
+   stacked on the device (``ops/context.py``);
 4. all-pairs DTW through the tiled scheduler and its kernel: K1 for a diag
    band, K4 or K5 for a widen band, K2 (segments up to 256 frames) or K3 (up
-   to 4096) unbanded;
+   to 4096) unbanded; with ``parallel.checkpoint_blocks`` each block
+   persists under ``out_dir`` and a rerun reads it back;
 5. clustering (host C++ NN-chain);
 6. medoids and exemplar<->member alignments (plain-torch DTW with
    directions on the device, checkpointed for segments of 512 frames or
    more, backtrace on the host);
 7. artifacts.
+
+``discover(update_from=prior_out_dir)`` grows an index: the embedder is
+frozen from the prior run's checkpoint, the prior segment table and a spot
+check of stored distances guard the reuse, and the scheduler's ``known=``
+computes only the pairs that touch a new clip.  ``query.py`` ranks new clips
+against an index the same way.
 
 Paths that are not ported yet raise ``NotImplementedError`` naming the
 ROADMAP.md item that will port them (``check_supported``).
@@ -50,6 +59,7 @@ from audio_pattern_discovery_tpu_torch.models.autoencoder import (
 from audio_pattern_discovery_tpu_torch.models.pca import encode_pca, fit_pca
 from audio_pattern_discovery_tpu_torch.ops.backtrace import paths_from_dirs
 from audio_pattern_discovery_tpu_torch.ops.backtrace_ckpt import dtw_paths_checkpointed
+from audio_pattern_discovery_tpu_torch.ops.context import flat_context, stack_context_device
 from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch_with_dirs
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     _dtw_batch_stripe,
@@ -61,7 +71,11 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     dtw_tile_stripe_pairs,
 )
 from audio_pattern_discovery_tpu_torch.ops.segmentation import Segment, segment_corpus
-from audio_pattern_discovery_tpu_torch.ops.spectrogram import num_frames, spectrogram_corpus
+from audio_pattern_discovery_tpu_torch.ops.spectrogram import (
+    mulaw_encode_host,
+    num_frames,
+    spectrogram_corpus,
+)
 from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
     all_pairs_distances,
     route_for,
@@ -77,30 +91,17 @@ DTW_KERNELS = (
 )
 
 
-def check_supported(cfg: PipelineConfig, update_from=None) -> None:
-    """Raise ``NotImplementedError`` for every configuration this port does
-    not run yet, before any work starts."""
-    ae, dt, sp = cfg.autoencoder, cfg.dtw, cfg.spectrogram
-    update_item = 'ROADMAP.md Queue 1: "query.py, --update, --query, block persistence"'
-    context_item = 'ROADMAP.md Queue 1: "ops/context.py and the mu-law upload codec"'
-    todo = []
-    if update_from is not None:
-        todo.append(f"--update / update_from ({update_item})")
-    if ae.enabled and ae.context_frames > 0:
-        todo.append(f"autoencoder.context_frames > 0 ({context_item})")
-    if cfg.parallel.checkpoint_blocks:
-        todo.append(f"parallel.checkpoint_blocks ({update_item})")
-    if sp.upload_codec == "mulaw8":
-        todo.append(f"spectrogram.upload_codec=mulaw8 ({context_item})")
-    # The DTW route depends only on the padded segment length, max_seq_len.
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration this port does not
+    run yet (DTW past the kernels' ranges, ``dtw.dtype=bfloat16``), before
+    any work starts.  The DTW route depends only on the padded segment
+    length, max_seq_len."""
     try:
-        route_for(dt.max_seq_len, dt)
+        route_for(cfg.dtw.max_seq_len, cfg.dtw)
     except NotImplementedError as exc:
-        todo.append(str(exc))
-    if todo:
         raise NotImplementedError(
-            "not ported to audio_pattern_discovery_tpu_torch yet: " + "; ".join(todo)
-        )
+            f"not ported to audio_pattern_discovery_tpu_torch yet: {exc}"
+        ) from None
 
 
 class _PreparedSignals:
@@ -109,8 +110,9 @@ class _PreparedSignals:
     Element i is clip i's samples ready for the device: "int16" for
     all-PCM16 corpora (exact: read_wav is raw/32768 for PCM16, so
     round(s*32768) round-trips bit-identically; the device divides by the
-    clip peak), "f32" otherwise (peak-normalized here when normalizing).
-    Peaks record into ``.peaks`` as clips load."""
+    clip peak), "mulaw8" for 8-bit mu-law of the peak-normalized signal
+    (half of int16 again), "f32" otherwise (peak-normalized here when
+    normalizing).  Peaks record into ``.peaks`` as clips load."""
 
     def __init__(self, stream: StreamingCorpus, codec: str, normalize: bool):
         self._stream = stream
@@ -130,6 +132,8 @@ class _PreparedSignals:
             self.peaks[i] = peak
             if self._codec == "int16":
                 v = np.round(s * 32768.0).astype(np.int16)
+            elif self._codec == "mulaw8":
+                v = mulaw_encode_host(s / peak)
             elif self._normalize:
                 v = (s / peak).astype(np.float32)
             else:
@@ -220,8 +224,12 @@ def _flat_frames(
     seg_frames: np.ndarray,        # [K, L, bins]
     seg_lengths: np.ndarray,
     n_segments: int,
+    ctx: int = 0,
 ) -> np.ndarray:
-    """All real (unpadded) segment frames as one [N, dim] training pool."""
+    """All real (unpadded) segment frames as one [N, dim] training pool:
+    (2k+1)-frame context slices when ctx > 0 (``ops/context.py``)."""
+    if ctx > 0:
+        return flat_context(seg_frames, seg_lengths, ctx)
     return np.concatenate(
         [seg_frames[k, : seg_lengths[k]] for k in range(n_segments)]
     )
@@ -306,6 +314,69 @@ def _feature_fingerprint(cfg: PipelineConfig) -> str:
     return hashlib.sha1(payload.encode()).hexdigest()
 
 
+def _check_band_mode(state: dict, cfg: PipelineConfig, what: str) -> None:
+    """Index reuse under another band mode gets an error naming the fix:
+    state.json records the band_mode its distances were computed under (None
+    when band was None); indexes without the key fall through to the spot
+    check."""
+    if cfg.dtw.band is None or "band_mode" not in state:
+        return
+    stored = state["band_mode"]
+    current = cfg.dtw.band_mode
+    if stored is not None and stored != current:
+        raise ValueError(
+            f"{what}: the prior index was computed with "
+            f"dtw.band_mode={stored!r} but this run uses "
+            f"dtw.band_mode={current!r} — banded distances are not "
+            f"comparable across modes.  Re-run with "
+            f"-s dtw.band_mode={stored} to reuse the index, or run a "
+            f"full discovery to rebuild it under the new mode."
+        )
+
+
+def _validate_prior_segments(update_state: dict, segments: list[Segment]) -> int:
+    """The corpus prefix must reproduce the stored segment table exactly, at
+    the same indices (prior clips lead the clip order, and segmentation is
+    per clip and deterministic); a mismatch means a prior file's content
+    changed.  Returns k_old."""
+    n_old_clips = len(update_state["clip_paths"])
+    old_table = [tuple(s) for s in update_state["segments"]]
+    k_old = len(old_table)
+    got = [(s.clip, s.start_frame, s.end_frame) for s in segments[:k_old]]
+    if got != old_table or any(s.clip < n_old_clips for s in segments[k_old:]):
+        raise ValueError(
+            "the prior clips segment differently than the stored table — "
+            "were their files modified?  Stored distances would not match; "
+            "run a full discovery instead"
+        )
+    return k_old
+
+
+def _load_update_state(update_from: Path) -> tuple[dict, np.ndarray]:
+    """(state.json, distance_matrix.npy) of a prior run's out_dir."""
+    state_path = update_from / "state.json"
+    d_path = update_from / "distance_matrix.npy"
+    if not state_path.exists() or not d_path.exists():
+        raise FileNotFoundError(
+            f"--update needs a prior run's state.json + distance_matrix.npy "
+            f"under {update_from}; run a full discovery there first"
+        )
+    state = json.loads(state_path.read_text())
+    D_old = np.load(d_path)
+    if D_old.shape != (len(state["segments"]),) * 2:
+        raise ValueError(
+            f"{d_path}: shape {D_old.shape} does not match the "
+            f"{len(state['segments'])} segments recorded in state.json"
+        )
+    return state, D_old
+
+
+def _has_embedder_checkpoint(cfg: PipelineConfig, ckpt_dir: Path) -> bool:
+    if cfg.autoencoder.method == "pca":
+        return ckpt.has_pca_checkpoint(ckpt_dir)
+    return ckpt.has_ae_checkpoint(ckpt_dir)
+
+
 def _prepare_corpus(
     cfg: PipelineConfig,
     stream: StreamingCorpus,
@@ -314,11 +385,23 @@ def _prepare_corpus(
     device: torch.device,
 ):
     """Codec selection -> spectrogram -> energy segmentation -> segment
-    frames.  Returns (clips, frame_counts, segments, seg_frames,
-    seg_frames_dev, seg_lengths); seg_frames_dev is the device copy."""
-    codec = "int16" if stream.all_pcm16 else "f32"
-    sigs = _PreparedSignals(stream, codec=codec, normalize=cfg.spectrogram.normalize_signal)
-    scales = sigs.peaks if codec == "int16" and cfg.spectrogram.normalize_signal else None
+    frames: the one derivation that ``discover()`` and ``query.py`` share,
+    since index reuse rests on fresh features reproducing the stored ones.
+    Returns (clips, frame_counts, segments, seg_frames, seg_frames_dev,
+    seg_lengths); seg_frames_dev is the device copy."""
+    if cfg.spectrogram.upload_codec == "mulaw8":
+        codec = "mulaw8"
+    elif stream.all_pcm16:
+        codec = "int16"
+    else:
+        codec = "f32"
+    normalize = cfg.spectrogram.normalize_signal
+    sigs = _PreparedSignals(stream, codec=codec, normalize=normalize)
+    # int16 divides by the peak on the device when normalizing; mu-law codes
+    # are of the peak-normalized signal, so the peak multiplies them back
+    # when not normalizing.
+    scales = (sigs.peaks if (codec == "int16" and normalize) or (codec == "mulaw8" and not normalize)
+              else None)
     rates = np.unique(stream.sample_rates)
     n_resampled = int(getattr(stream, "_resample_mask", np.zeros(0, bool)).sum())
     if n_resampled:
@@ -345,7 +428,8 @@ def _prepare_corpus(
         )
     log.info(
         f"probed headers of {len(stream)} clips"
-        + (" (PCM16: int16 device upload)" if codec == "int16" else "")
+        + {"int16": " (PCM16: int16 device upload)",
+           "mulaw8": " (mu-law int8 device upload)"}.get(codec, "")
     )
     # The spectrogram corpus stays on the device when it fits the budget;
     # only the energy matrix crosses to the host for segmentation.
@@ -395,18 +479,69 @@ def discover(
 ) -> DiscoveryResult:
     """Run the discovery pipeline over a directory of WAV files on
     ``device``: the card by default; without one this raises unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``.
+
+    ``update_from``: a prior run's out_dir (state.json,
+    distance_matrix.npy and, with the embedder on, its checkpoint).  Only
+    DTW pairs touching clips added since that run are computed; the linear
+    stages re-run over the whole corpus and the embedder is frozen from the
+    prior run's checkpoint, which keeps the stored distances valid.  It
+    requires the feature-affecting config unchanged, every prior WAV still
+    present, and a saved checkpoint when the embedder is on."""
     cfg = (config or PipelineConfig()).validate()
-    check_supported(cfg, update_from)
+    check_supported(cfg)
     device = resolve_device(device)
     log = logger or get_logger()
     counters = StageCounters()
     log.info(f"device {device}")
+    ae = cfg.autoencoder
+
+    update_state: dict | None = None
+    D_old: np.ndarray | None = None
+    k_old = 0
+    if update_from is not None:
+        update_from = Path(update_from)
+        update_state, D_old = _load_update_state(update_from)
+        _check_band_mode(update_state, cfg, "update_from")
+        if update_state["feature_fingerprint"] != _feature_fingerprint(cfg):
+            raise ValueError(
+                "update_from: a feature-affecting config section "
+                "(spectrogram/segmentation/autoencoder/dtw) differs from the "
+                "prior run's — the stored distances would not match; run a "
+                "full discovery instead"
+            )
+        if ae.enabled and not _has_embedder_checkpoint(cfg, update_from / ae.checkpoint_dir):
+            raise ValueError(
+                "update_from: the embedding is enabled but the prior "
+                "run saved no checkpoint — the frozen embedding model is "
+                "required to reuse its distances (rerun the full "
+                "discovery with -s autoencoder.checkpoint=true)"
+            )
 
     # ---- ingest (headers now, samples as the spectrogram stage needs them)
     with counters.time_stage("ingest"):
+        ordered_paths = None
+        if update_state is not None:
+            # Prior clips keep their indices (stored order); new files
+            # append after them, sorted.
+            stored = [Path(p) for p in update_state["clip_paths"]]
+            listing = sorted(Path(wav_dir).glob("*.wav"))
+            listing_resolved = {p.resolve() for p in listing}
+            missing = [str(p) for p in stored if p.resolve() not in listing_resolved]
+            if missing:
+                raise ValueError(
+                    f"update_from: {len(missing)} clip(s) from the prior run "
+                    f"are no longer under {wav_dir} (e.g. {missing[0]}); "
+                    "removing clips invalidates the stored distances — run a "
+                    "full discovery instead"
+                )
+            old_resolved = {p.resolve() for p in stored}
+            new_paths = [p for p in listing if p.resolve() not in old_resolved]
+            ordered_paths = stored + new_paths
+            log.info(f"update: {len(stored)} prior clips, {len(new_paths)} new")
         stream = StreamingCorpus(
             wav_dir,
+            paths=ordered_paths,
             resample_to=(
                 cfg.spectrogram.sample_rate
                 if cfg.spectrogram.resample == "auto"
@@ -420,16 +555,21 @@ def discover(
     # derivation in two contiguous phases, and the AE trains on phase 1's
     # segment frames on a worker thread while phase 2's spectrograms run.
     # Segmentation is per clip, so the segment table is the single-phase
-    # one; only the AE's training pool (and so the embedding) differs.
-    ae = cfg.autoencoder
+    # one; only the AE's training pool (and so the embedding) differs.  An
+    # update restores the prior embedder, so it never trains.
+    ctx = ae.context_frames if ae.enabled else 0
     ckpt_dir = None
     if ae.enabled and ae.checkpoint and out_dir is not None:
         ckpt_dir = Path(out_dir) / ae.checkpoint_dir
+    # An update restores the PRIOR run's checkpoint whatever this run's
+    # checkpoint flag: the frozen embedder keeps the reused distances valid.
+    restore_dir = update_from / ae.checkpoint_dir if update_state is not None else ckpt_dir
     frac = ae.overlap_clip_fraction
     two_phase = (
         0.0 < frac < 1.0
         and ae.enabled
         and ae.method == "ae"
+        and update_state is None
         and len(stream) >= 2
         # A restorable checkpoint means training never runs.
         and not (ckpt_dir is not None and ckpt.has_ae_checkpoint(ckpt_dir))
@@ -441,7 +581,7 @@ def discover(
             cfg, stream.view(0, m), counters, log, device
         )
         if len(segs1) >= 2:
-            flat1 = _flat_frames(sf1, sl1, len(segs1))
+            flat1 = _flat_frames(sf1, sl1, len(segs1), ctx)
             scaler1 = FeatureScaler.fit(flat1)
             pre_train = (
                 _train_in_background(scaler1.transform(flat1).astype(np.float32), ae, device),
@@ -483,17 +623,31 @@ def discover(
         raise ValueError(
             f"only {len(segments)} segments found; loosen segmentation config"
         )
+    if update_state is not None:
+        try:
+            k_old = _validate_prior_segments(update_state, segments)
+        except ValueError as e:
+            raise ValueError(f"update_from: {e}") from None
 
-    # ---- embedding (device): PCA, or the AE trained (or restored) + encode
+    # ---- embedding (device): PCA, or the AE trained (or restored) + encode.
+    # Temporal context: the embedder reads (2k+1)-frame slices stacked on
+    # the device from the resident segment tensor; seg_frames stays raw (it
+    # feeds images and snippets too).
+    emb_frames_dev = seg_frames_dev
+    if ctx > 0:
+        with counters.time_stage("context_stack"):
+            emb_frames_dev = stack_context_device(seg_frames_dev, seg_lengths, ctx)
     ae_losses: list[float] = []
     if ae.enabled and ae.method == "pca":
         # Covariance on the device, eigensolve on the host (models/pca.py).
         with counters.time_stage("embedding_fit"):
-            if ckpt_dir is not None and ckpt.has_pca_checkpoint(ckpt_dir):
-                pca_state, scaler = ckpt.restore_pca_checkpoint(ckpt_dir)
-                log.info(f"restored PCA embedding from {ckpt_dir}")
+            if restore_dir is not None and ckpt.has_pca_checkpoint(restore_dir):
+                pca_state, scaler = ckpt.restore_pca_checkpoint(restore_dir)
+                log.info(f"restored PCA embedding from {restore_dir}")
+                if ckpt_dir is not None and ckpt_dir.resolve() != restore_dir.resolve():
+                    ckpt.save_pca_checkpoint(ckpt_dir, pca_state, scaler)
             else:
-                flat = _flat_frames(seg_frames, seg_lengths, len(segments))
+                flat = _flat_frames(seg_frames, seg_lengths, len(segments), ctx)
                 scaler = FeatureScaler.fit(flat)
                 pca_state = fit_pca(
                     scaler.transform(flat).astype(np.float32),
@@ -509,20 +663,29 @@ def discover(
                 if ckpt_dir is not None:
                     ckpt.save_pca_checkpoint(ckpt_dir, pca_state, scaler)
         with counters.time_stage("embedding_encode"):
-            features_dev = encode_pca(pca_state, scaler.transform(seg_frames_dev))
+            features_dev = encode_pca(pca_state, scaler.transform(emb_frames_dev))
             features = features_dev.cpu().numpy()
     elif ae.enabled:
         with counters.time_stage("autoencoder_train"):
             # Trains on the real (unpadded) frames of all segments, unless a
             # checkpoint restores the model (and its scaler).
-            if ckpt_dir is not None and ckpt.has_ae_checkpoint(ckpt_dir):
+            if restore_dir is not None and ckpt.has_ae_checkpoint(restore_dir):
                 model, state, scaler = ckpt.restore_ae_checkpoint(
-                    ckpt_dir, ae, seg_frames.shape[-1], device=device
+                    restore_dir, ae, seg_frames.shape[-1] * (2 * ctx + 1), device=device
                 )
                 if scaler is None:
+                    if update_state is not None:
+                        raise ValueError(
+                            "update_from: the prior checkpoint has no saved "
+                            "feature scaler; refitting on the grown corpus "
+                            "would shift every embedding — run a full "
+                            "discovery instead"
+                        )
                     scaler = FeatureScaler.fit(
-                        _flat_frames(seg_frames, seg_lengths, len(segments)))
-                log.info(f"restored AE checkpoint from {ckpt_dir}")
+                        _flat_frames(seg_frames, seg_lengths, len(segments), ctx))
+                log.info(f"restored AE checkpoint from {restore_dir}")
+                if ckpt_dir is not None and ckpt_dir.resolve() != restore_dir.resolve():
+                    ckpt.save_ae_checkpoint(ckpt_dir, state, scaler)
             else:
                 if pre_train is not None:
                     # Launched mid-corpus: this stage times only the drain;
@@ -531,7 +694,7 @@ def discover(
                     model, state, loss_futs = future.result()
                     ae_losses = torch.stack(loss_futs).tolist() if loss_futs else []
                 else:
-                    flat = _flat_frames(seg_frames, seg_lengths, len(segments))
+                    flat = _flat_frames(seg_frames, seg_lengths, len(segments), ctx)
                     scaler = FeatureScaler.fit(flat)
                     counters.add("ae_train_frames", len(flat))
                     model, state, ae_losses = train_autoencoder(
@@ -542,23 +705,45 @@ def discover(
                     ckpt.save_ae_checkpoint(ckpt_dir, state, scaler)
         with counters.time_stage("autoencoder_encode"):
             # Standardized on the device from the resident segment tensor.
-            features_dev = encode_frames(model, state.params, scaler.transform(seg_frames_dev))
+            features_dev = encode_frames(model, state.params, scaler.transform(emb_frames_dev))
             features = features_dev.cpu().numpy()
     else:
         features_dev, features = seg_frames_dev, seg_frames
-    seg_frames_dev = None
+    seg_frames_dev = emb_frames_dev = None
     counters.add("feature_dim", features.shape[-1])
 
+    if update_state is not None:
+        # Drift guard before committing to reuse: a few stored pairs
+        # recomputed from the fresh features against D_old.
+        from audio_pattern_discovery_tpu_torch.query import spot_check_prior_distances
+
+        spot_check_prior_distances(features_dev, seg_lengths, cfg.dtw, D_old, k_old)
+
     # ---- all-pairs DTW (device, the hot loop)
+    block_dir = None
+    if cfg.parallel.checkpoint_blocks and out_dir is not None:
+        block_dir = Path(out_dir) / cfg.parallel.block_dir
     launches0 = [k.launches for k in DTW_KERNELS]
+    dtw_stats: dict = {}
     with counters.time_stage("dtw"):
-        D = all_pairs_distances(features_dev, seg_lengths, cfg.dtw, device=device)
+        D = all_pairs_distances(
+            features_dev, seg_lengths, cfg.dtw, device=device, block_dir=block_dir,
+            known=None if update_state is None else (k_old, D_old), stats=dtw_stats,
+        )
     features_dev = None
     launched = [k.launches - n0 for k, n0 in zip(DTW_KERNELS, launches0)]
     counters.add("dtw_kernel_launches", sum(launched))
+    # The work the kernels were given: tile-pairs (ti x ti pairs each), and
+    # the blocks read back from block_dir instead.
+    counters.add("dtw_tile_programs", dtw_stats["tile_programs"])
+    counters.add("dtw_blocks_resumed", dtw_stats["blocks_resumed"])
     for k, n in zip(DTW_KERNELS, launched):
         counters.add(f"launches.{k.__name__}", n)
     n_pairs = len(segments) * (len(segments) - 1) // 2
+    if update_state is not None:
+        reused = k_old * (k_old - 1) // 2
+        n_pairs -= reused
+        counters.add("dtw_pairs_reused", reused)
     counters.add("dtw_pairs", n_pairs)
     dtw_s = counters.timings_s.get("dtw", 0.0)
     if dtw_s > 0:

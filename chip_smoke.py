@@ -106,7 +106,38 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    (the AE and K1) on the card and on the CPU: D within ``AE_D_ATOL``,
    partition exact; again with ``autoencoder.overlap_clip_fraction=0.5``
    (the AE trained on a worker thread beside the second half's
-   spectrograms): the single-phase segment table, and card vs CPU as above.
+   spectrograms): the single-phase segment table, and card vs CPU as above;
+21. index reuse through the CLI at the default config (the AE, K2): 90 of
+   config 2's clips indexed with ``autoencoder.checkpoint=true``, the other
+   10 added with ``--update``, and a full run over all 100 from the restored
+   checkpoint: D at rtol 1e-4 / atol 1e-5, partition exact, the update's K2
+   launches no more and its tile-pairs fewer than the full run's; prints
+   ``dtw_pairs_reused`` and each wall; then ``--query`` of a held-out clip
+   (clip 100 of the same generator) with ``--top-k 5``: its wall and best
+   cluster;
+22. ``known=`` on the tiled route: config 4 grown by 1,024 of its 10,240
+   sequences, diag (K1) and unbanded (K2), against phases 5 and 11's D
+   (tile-pairs, launches, kernel seconds and walls beside the full job's,
+   and whether D is bitwise equal); then a job of 384 sequences per route
+   (K1, K2, K3, K4, K5) whose new sequences are shorter than the old, so
+   tiles are out of length order: every chunk its kernel launches held
+   against the plain twin on the card, D against the sorted full job and
+   256 new pairs against the plain ``dtw_batch``;
+23. ``known=`` (``new_from``) on the per-pair route: phase 16's K=2,048
+   slice and its 900-1024-frame job, widen band 16 and unbanded, the first
+   7/8 of each job old: D against the tiled full D, K6 and K7 launches;
+24. block resume: ``discover()`` on seed 7 with
+   ``parallel.checkpoint_blocks=true`` twice, and the per-pair slice with a
+   ``block_dir`` twice: each second run launches no DTW kernel and gives the
+   same D bit for bit;
+25. ``--serve`` as a subprocess on the card: ping, ``discover`` on seed 7,
+   a request that fails, the same ``query`` twice, ``doctor``'s refusal,
+   shutdown; prints the
+   start-up and each request's wall; the served D equals the CLI's bit for
+   bit;
+26. ``autoencoder.context_frames=2`` and ``spectrogram.upload_codec=mulaw8``,
+   each through ``discover()`` on seed 7 (the golden config) on the card and
+   on the CPU: D at rtol 1e-4 / atol 1e-5, partition exact.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
@@ -539,11 +570,12 @@ def config2_corpus(tmp: Path) -> tuple[Path, list[dict]]:
     return corpus, json.loads(truth_file.read_text())
 
 
-def cli(tag: str, corpus: Path, out: Path, *flags: str) -> tuple[dict, float, dict]:
-    """The CLI as a subprocess (on the card unless ``flags`` say otherwise):
-    (summary, wall incl. start-up, clusters.json)."""
-    cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch", str(corpus), "-o", str(out),
-           *flags]
+def cli(tag: str, corpus: Path | None, out: Path, *flags: str) -> tuple[dict, float, dict]:
+    """The CLI as a subprocess (on the card unless ``flags`` say otherwise;
+    no corpus argument for ``--query``): (its JSON output, wall incl.
+    start-up, out's clusters.json)."""
+    cmd = [sys.executable, "-m", "audio_pattern_discovery_tpu_torch",
+           *([str(corpus)] if corpus is not None else []), "-o", str(out), *flags]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
@@ -568,12 +600,13 @@ def phase4(tmp: Path) -> dict:
     return {}
 
 
-def phase5(dev) -> dict:
+def phase5(dev, keep: dict) -> dict:
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
 
     cfg = DTWConfig(band=16, band_mode="diag", normalize="path_len")
-    config4_all_pairs("phase 5", dev, cfg, (dtw_tile_lane_diag_pairs,), "diag", seed=5)
+    config4_all_pairs("phase 5", dev, cfg, (dtw_tile_lane_diag_pairs,), "diag", seed=5,
+                      keep=keep)
 
 
 def sorted_corpus(K: int, S: int, d: int, lo: int, hi: int, seed: int, dev):
@@ -858,14 +891,15 @@ def phase10(dev, tmp: Path) -> dict:
 
 
 def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
-                      split: dict | None = None) -> list[int]:
+                      split: dict | None = None, keep: dict | None = None) -> list[int]:
     """All pairs of the config-4 corpus (K=10,240, S=128, d=16, lengths
     64-128) through the scheduler: the route, each kernel's launches (all
     must run, or with ``split``, {entry name: (launches, cells)}, exactly the
     launches it predicts), 64 pairs against the plain torch DTW and 8
     against the oracle, native scatter.  Prints each kernel's device time
     (``kernel_s_by``), and with ``split`` its share of its cells' bound.
-    Returns the launches."""
+    ``keep[route]`` receives (D, stats, wall) for phase 22.  Returns the
+    launches."""
     from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
     from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
     from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
@@ -925,15 +959,17 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
             k_bound, _ = bound(k_cells, d, 0.0)
             line += f" ({k_cells:.4g} cells, {rate_line(secs * 1e3, k_cells, k_bound)})"
         log(line)
+    if keep is not None:
+        keep[route] = (D, stats, wall)
     return launches
 
 
-def phase11(dev) -> dict:
+def phase11(dev, keep: dict) -> dict:
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_pairs
 
     config4_all_pairs("phase 11", dev, DTWConfig(band=None, normalize="path_len"),
-                      (dtw_tile_pairs,), "tile", seed=11)
+                      (dtw_tile_pairs,), "tile", seed=11, keep=keep)
 
 
 def shortfall(tag: str, cut, full, over) -> None:
@@ -1829,6 +1865,450 @@ def phase20(dev, tmp: Path) -> dict:
     return {"launches": launches}
 
 
+def seed7_corpus(tmp: Path) -> Path:
+    """The seed-7 corpus (phase 3's), made once under ``tmp``."""
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    corpus = tmp / "seed7"
+    if not corpus.is_dir():
+        make_corpus(corpus, n_clips=12, n_motifs=3, seed=7)
+    return corpus
+
+
+def partition_of(manifest: dict) -> list[tuple[int, ...]]:
+    """A clusters.json's cluster partition (segment indices)."""
+    return sorted(tuple(sorted(m["segment"] for m in c["members"])) for c in manifest["clusters"])
+
+
+def phase21(tmp: Path) -> dict:
+    import shutil
+
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    corpus, _ = config2_corpus(tmp)
+    wavs = sorted(corpus.glob("*.wav"))
+    grow, out, out_full = tmp / "config2_grow", tmp / "config2_index", tmp / "config2_full"
+    grow.mkdir()
+    for p in wavs[:90]:
+        shutil.copy(p, grow / p.name)
+    ck = ("-s", "autoencoder.checkpoint=true")
+    s_idx, w_idx, m_idx = cli("phase 21 (index 90)", grow, out, *ck)
+    for p in wavs[90:]:
+        shutil.copy(p, grow / p.name)
+    s_up, w_up, m_up = cli("phase 21 (update)", grow, out, "--update", *ck)
+    D_up = np.load(out / "distance_matrix.npy")
+    shutil.copytree(out / "ae_ckpt", out_full / "ae_ckpt")
+    s_full, w_full, m_full = cli("phase 21 (full run, restored)", grow, out_full, *ck)
+    D_full = np.load(out_full / "distance_matrix.npy")
+    if m_up["ae_losses"] or m_full["ae_losses"] or not m_idx["ae_losses"]:
+        fail("phase 21: the index must train the AE and the update and full run restore it")
+    if D_up.shape != D_full.shape or not np.allclose(D_up, D_full, rtol=1e-4, atol=1e-5):
+        fail(f"phase 21: the update's D differs from the full run's (max abs "
+             f"{np.abs(D_up - D_full).max()})")
+    if partition_of(m_up) != partition_of(m_full):
+        fail("phase 21: the update's partition differs from the full run's")
+    c_up, c_full = s_up["counts"], s_full["counts"]
+    k2 = [int(c.get("launches.dtw_tile_pairs", 0)) for c in (c_up, c_full)]
+    tp = [int(c["dtw_tile_programs"]) for c in (c_up, c_full)]
+    # One launch carries up to 64 tile-pairs: at this size both runs fit
+    # one, so the update's smaller share shows in its tile-pairs.
+    if not (1 <= k2[0] <= k2[1] and tp[0] < tp[1]):
+        fail(f"phase 21: K2 launches update {k2[0]} vs full {k2[1]}, tile-pairs {tp[0]} vs "
+             f"{tp[1]}")
+    # A held-out clip: clip 100 of the same generator (its first 100 clips
+    # are config 2's).
+    make_corpus(tmp / "config2_q", n_clips=101, n_motifs=5, occurrences_per_clip=4,
+                clip_seconds=10.0, sample_rate=44_100, seed=2)
+    qwav = tmp / "config2_q" / "clip_0100.wav"
+    report, w_q, _ = cli("phase 21 (query)", None, out, "--query", str(qwav), "--top-k", "5", *ck)
+    q0 = report["queries"][0]
+    t = {k: round(v, 3) for k, v in s_up["timings_s"].items()}
+    log(f"phase 21: config 2 at the default config (the AE), 90 clips indexed in {w_idx:.2f} s "
+        f"({s_idx['n_segments']} segments), --update with 10 more in {w_up:.2f} s "
+        f"(dtw_pairs_reused {int(c_up['dtw_pairs_reused'])}, dtw_pairs {int(c_up['dtw_pairs'])}; "
+        f"stages {t}), the full run from the restored checkpoint in {w_full:.2f} s "
+        f"({s_full['n_segments']} segments, dtw_pairs {int(c_full['dtw_pairs'])}); D max abs "
+        f"err {np.abs(D_up - D_full).max():.3g}, bitwise {np.array_equal(D_up, D_full)}, "
+        f"partition equal; K2 launches {k2[0]} (update) vs {k2[1]} (full), tile-pairs "
+        f"{tp[0]} vs {tp[1]}; walls are processes incl. start-up")
+    log(f"phase 21: --query clip_0100 --top-k 5: {w_q:.2f} s (process incl. start-up), "
+        f"{report['n_query_segments']} query segments against {report['n_corpus_segments']}; "
+        f"first segment's best cluster {q0['best_cluster']}, top match segment "
+        f"{q0['matches'][0]['segment']} at {q0['matches'][0]['distance']}")
+    return {"launches": k2[0]}
+
+
+def twin_checked(kernel, twin, rtol: float, atol: float, errs: list):
+    """``kernel`` as the scheduler calls it, each call held against its
+    plain twin on the same arguments on the card (``agree``)."""
+    import functools
+
+    @functools.wraps(kernel)
+    def run(*args, frames=None, **kw):
+        got = kernel(*args, frames=frames, **kw)
+        errs.append(agree(f"phase 22 ({kernel.__name__} vs twin, out-of-order tiles)", got,
+                          twin(*args, **kw), rtol, atol))
+        return got
+
+    return run
+
+
+def known_config4(tag: str, dev, cfg, kernel, full: tuple | None) -> dict:
+    """Config 4 grown by 1,024 sequences: the first 9,216 are the index
+    (their distances taken from the full job's D), the last 1,024 new; D
+    against the full job's.  Returns the launches and the work."""
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    K, S, d, k_old = 10_240, 128, 16, 9_216
+    feats, lens = config4_corpus(K, S, d, seed=4, dev=dev)
+    lens_np = lens.cpu().numpy()
+    if full is None:   # phases 5 and 11 skipped by --phases
+        st: dict = {}
+        t0 = time.perf_counter()
+        D_full = all_pairs_distances(feats, lens_np, cfg, device=dev, stats=st)
+        full = (D_full, st, time.perf_counter() - t0)
+    D_full, st_full, wall_full = full
+    kernel.launches = 0
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats,
+                            known=(k_old, D_full[:k_old, :k_old]))
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    if launches < 1 or not np.isfinite(D).all():
+        fail(f"{tag}: {kernel.__name__} launched {launches} times, or D is not finite")
+    if not np.allclose(D, D_full, rtol=1e-4, atol=1e-5):
+        fail(f"{tag}: the known= D differs from the full job's (max abs "
+             f"{np.abs(D - D_full).max()})")
+    log(f"{tag}: config 4 grown by 1,024 of {K} ({stats['route']}, known=): "
+        f"{stats['tile_programs']} of {st_full['tile_programs']} tile-pairs, {launches} "
+        f"{kernel.__name__} launches (full job {st_full['blocks']}), kernel "
+        f"{stats['kernel_s']:.3f} s (full {st_full['kernel_s']:.3f} s), wall {wall:.3f} s (full "
+        f"{wall_full:.3f} s), scatter {stats['scatter_s']:.3f} s; {stats['pairs']} new pairs; "
+        f"D vs the full job: max abs err {np.abs(D - D_full).max():.3g}, bitwise "
+        f"{np.array_equal(D, D_full)}")
+    return {"launches": launches, "tile_programs": stats["tile_programs"]}
+
+
+# The out-of-order jobs of phase 22: (route, kernel, config, S, old
+# lengths, new lengths).  New sequences are shorter than the old, so the
+# grouped sort of known= puts short new tiles against long old ones.  The
+# first widen job's classes stay within K4's gate (stripes <= 256 slots);
+# the second's spread puts its classes past it, on K5 (its one narrow class,
+# new x new, merges into them: too thin to launch alone).
+OOO_JOBS = (
+    ("diag", "dtw_tile_lane_diag_pairs", dict(band=16, band_mode="diag"), 128, (64, 128),
+     (8, 40)),
+    ("tile", "dtw_tile_pairs", dict(band=None), 256, (128, 256), (8, 64)),
+    ("full", "dtw_tile_lane_full_pairs", dict(band=None), 384, (300, 384), (257, 300)),
+    ("widen", "dtw_tile_lane_pairs", dict(band=16, band_mode="widen"), 128, (80, 128), (8, 40)),
+    ("widen", "dtw_tile_stripe_pairs", dict(band=16, band_mode="widen"), 256, (180, 256),
+     (8, 60)),
+)
+
+
+def ooo_jobs(dev) -> dict:
+    """Each tiled route on K=384 sequences (3 tiles of 128: old, boundary,
+    new) with known= (k_old 224) on the card: every chunk each kernel
+    launches held against its plain twin on the card, D against the full
+    job's on sorted tiles and 256 new pairs against the plain ``dtw_batch``.
+    Returns {kernel name: launches}."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops import dtw_cuda as tk
+    from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as tps
+
+    twins = {
+        "dtw_tile_lane_diag_pairs": (tk.dtw_tile_lane_diag_pairs_ref, K1_RTOL, K1_ATOL),
+        "dtw_tile_pairs": (tk.dtw_tile_pairs_ref, K2_RTOL, K2_ATOL),
+        "dtw_tile_lane_full_pairs": (tk.dtw_tile_lane_full_pairs_ref, K3_RTOL, K3_ATOL),
+        "dtw_tile_lane_pairs": (tk.dtw_tile_lane_pairs_ref, K4_RTOL, K4_ATOL),
+        "dtw_tile_stripe_pairs": (tk.dtw_tile_lane_pairs_ref, K5_RTOL, K5_ATOL),
+    }
+    K, k_old, d = 384, 224, 16
+    launched: dict[str, int] = {}
+    for n, (route, kernel, kw, S, old, new) in enumerate(OOO_JOBS):
+        cfg = DTWConfig(normalize="path_len", **kw)
+        g = torch.Generator(device=dev).manual_seed(220 + n)
+        lens = torch.cat([torch.randint(old[0], old[1] + 1, (k_old,), generator=g, device=dev),
+                          torch.randint(new[0], new[1] + 1, (K - k_old,), generator=g,
+                                        device=dev)]).to(torch.int32)
+        feats = torch.randn((K, S, d), generator=g, device=dev)
+        feats *= torch.arange(S, device=dev)[None, :, None] < lens[:, None, None]
+        lens_np = lens.cpu().numpy()
+        D_full = tps.all_pairs_distances(feats, lens_np, cfg, device=dev)
+        errs: list[float] = []
+        real = {name: getattr(tps, name) for name in twins}
+        counts0 = {name: fn.launches for name, fn in real.items()}
+        for name, (twin, rtol, atol) in twins.items():
+            setattr(tps, name, twin_checked(real[name], twin, rtol, atol, errs))
+        stats: dict = {}
+        try:
+            D = tps.all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats,
+                                        known=(k_old, D_full[:k_old, :k_old]))
+        finally:
+            for name, fn in real.items():
+                setattr(tps, name, fn)
+        ran = {name: fn.launches - counts0[name] for name, fn in real.items()
+               if fn.launches != counts0[name]}
+        if stats["route"] != route or set(ran) != {kernel} or len(errs) != sum(ran.values()):
+            fail(f"phase 22: the out-of-order {route} job launched {ran} on route "
+                 f"{stats['route']} ({len(errs)} twin checks)")
+        if not np.allclose(D, D_full, rtol=1e-4, atol=1e-5):
+            fail(f"phase 22: the out-of-order {route} job's D differs from the sorted full job's "
+                 f"(max abs {np.abs(D - D_full).max()})")
+        rng = np.random.default_rng(22 + n)
+        ia = rng.integers(k_old, K, 256)
+        ib = rng.integers(0, K, 256)
+        sa, sb = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
+        plain = dtw_batch(feats[sa], feats[sb], lens[sa], lens[sb], normalize="path_len",
+                          band=cfg.band, band_mode=cfg.band_mode).cpu().numpy()
+        plain[ia == ib] = 0.0
+        if not np.allclose(D[ia, ib], plain, rtol=1e-4, atol=1e-5):
+            fail(f"phase 22: the out-of-order {route} job disagrees with plain dtw_batch (max abs "
+                 f"{np.abs(D[ia, ib] - plain).max()})")
+        for name, n_l in ran.items():
+            launched[name] = launched.get(name, 0) + n_l
+        log(f"phase 22: out-of-order {route} job (S={S}, old {old[0]}-{old[1]}, new "
+            f"{new[0]}-{new[1]} frames, known= k_old {k_old} of {K}): launches {ran}, each "
+            f"chunk vs its twin on the card max abs err {max(errs):.3g}; D vs the sorted full "
+            f"job max abs err {np.abs(D - D_full).max():.3g}; 256 new pairs match plain "
+            f"dtw_batch")
+    return launched
+
+
+def phase22(dev, keep: dict) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+        dtw_tile_lane_diag_pairs,
+        dtw_tile_pairs,
+    )
+
+    res = {
+        "dtw_tile_lane_diag_pairs": known_config4(
+            "phase 22 (diag)", dev, DTWConfig(band=16, band_mode="diag", normalize="path_len"),
+            dtw_tile_lane_diag_pairs, keep.get("diag")),
+        "dtw_tile_pairs": known_config4(
+            "phase 22 (unbanded)", dev, DTWConfig(band=None, normalize="path_len"),
+            dtw_tile_pairs, keep.get("tile")),
+    }
+    keep.clear()
+    return {"config4": res, "ooo": ooo_jobs(dev)}
+
+
+def phase23(dev) -> dict:
+    """The per-pair route with known= (``new_from``): the config-4 slice
+    K=2,048 and 256 sequences of 900-1024 frames, widen band 16 and
+    unbanded, the first 7/8 of each job old; D against the tiled full D."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import _dtw_batch_stripe, dtw_batch_pallas
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    feats, lens = config4_corpus(10_240, 128, 16, seed=4, dev=dev)
+    long_feats, long_lens = sorted_corpus(256, 1024, 16, 900, 1024, seed=16, dev=dev)
+    totals = {"dtw_batch_pallas": 0, "_dtw_batch_stripe": 0}
+    for name, f, n in (("config-4 slice K=2048", feats[:2048], lens[:2048]),
+                       ("lengths 900-1024 K=256", long_feats, long_lens)):
+        n_np = n.cpu().numpy()
+        k_old = len(n_np) * 7 // 8
+        for band in (16, None):
+            cfg = DTWConfig(band=band, band_mode="widen", normalize="path_len")
+            mode = "unbanded" if band is None else "widen band 16"
+            full = all_pairs_distances(f, n_np, cfg, device=dev)
+            before = (dtw_batch_pallas.launches, _dtw_batch_stripe.launches)
+            stats: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            D = all_pairs_distances(f, n_np, cfg, device=dev, tiled=False, stats=stats,
+                                    known=(k_old, full[:k_old, :k_old]))
+            wall = time.perf_counter() - t0
+            k6_n = dtw_batch_pallas.launches - before[0]
+            k7_n = _dtw_batch_stripe.launches - before[1]
+            totals["dtw_batch_pallas"] += k6_n
+            totals["_dtw_batch_stripe"] += k7_n
+            if k6_n + k7_n < 1 or (f is long_feats and (k6_n if band is None else k7_n) < 1):
+                fail(f"phase 23: the per-pair known= job ({name}, {mode}) launched K6 {k6_n} "
+                     f"and K7 {k7_n} times")
+            if not np.isfinite(D).all() or not np.allclose(D, full, rtol=1e-4, atol=1e-5):
+                fail(f"phase 23: the per-pair known= D ({name}, {mode}) differs from the tiled "
+                     f"full D (max abs {np.abs(D - full).max()})")
+            by = stats["kernel_s_by"]
+            log(f"phase 23: per-pair route with known= (new_from {k_old}), {name}, {mode}: "
+                f"{stats['pairs']} new pairs in {wall:.3f} s, {stats['blocks']} blocks ({k6_n} K6, "
+                f"{k7_n} K7 launches; K6 {by.get('dtw_batch_pallas', 0.0):.4f} s, K7 "
+                f"{by.get('_dtw_batch_stripe', 0.0):.4f} s of device time); D vs the tiled full D "
+                f"max abs err {np.abs(D - full).max():.3g}")
+    return totals
+
+
+def phase24(dev, tmp: Path) -> dict:
+    """Block resume: discover() on seed 7 with parallel.checkpoint_blocks
+    twice (K1), and the per-pair config-4 slice with block_dir twice (K6):
+    each second run launches no DTW kernel and gives the same D bit for
+    bit."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_batch_pallas
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+    from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
+
+    cfg = golden_config()
+    cfg.parallel.checkpoint_blocks = True
+    out = tmp / "resume_out"
+    runs = []
+    for _ in range(2):
+        for k in DTW_KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = discover(seed7_corpus(tmp), cfg, out_dir=out, device=dev)
+        runs.append((res, sum(k.launches for k in DTW_KERNELS), time.perf_counter() - t0))
+    (r1, n1, w1), (r2, n2, w2) = runs
+    blocks = int(r1.counters.counts["dtw_kernel_launches"])
+    if n1 < 1 or n2 != 0 or int(r2.counters.counts["dtw_blocks_resumed"]) != blocks:
+        fail(f"phase 24: discover() with checkpoint_blocks launched {n1} then {n2} DTW kernels "
+             f"({int(r2.counters.counts['dtw_blocks_resumed'])} blocks read back)")
+    if not np.array_equal(r1.distance_matrix, r2.distance_matrix):
+        fail("phase 24: the resumed discover()'s D differs")
+    feats, lens = config4_corpus(10_240, 128, 16, seed=4, dev=dev)
+    lens_np = lens[:2048].cpu().numpy()
+    cfg_pp = DTWConfig(band=16, band_mode="widen", normalize="path_len")
+    pp = []
+    for _ in range(2):
+        dtw_batch_pallas.launches = 0
+        stats: dict = {}
+        t0 = time.perf_counter()
+        D = all_pairs_distances(feats[:2048], lens_np, cfg_pp, device=dev, tiled=False,
+                                block_dir=tmp / "resume_pp", stats=stats)
+        pp.append((D, dtw_batch_pallas.launches, stats, time.perf_counter() - t0))
+    (D1, k1, s1, pw1), (D2, k2, s2, pw2) = pp
+    if k1 < 1 or k2 != 0 or s2["blocks_resumed"] != s2["blocks"] or not np.array_equal(D1, D2):
+        fail(f"phase 24: the per-pair job with block_dir launched K6 {k1} then {k2} times "
+             f"({s2['blocks_resumed']} of {s2['blocks']} blocks read back), D equal "
+             f"{np.array_equal(D1, D2)}")
+    log(f"phase 24: block resume: discover() on seed 7 (checkpoint_blocks) {blocks} K1 "
+        f"launches in {w1:.2f} s, then 0 launches "
+        f"({int(r2.counters.counts['dtw_blocks_resumed'])} blocks read back) in {w2:.2f} s, D "
+        f"bitwise equal; per-pair config-4 slice (block_dir) {k1} K6 launches in {pw1:.3f} s "
+        f"(persist {s1['persist_s']:.3f} s), then 0 ({s2['blocks']} blocks read back) in "
+        f"{pw2:.3f} s, D bitwise equal")
+    return {"launches": n1}
+
+
+def phase25(tmp: Path) -> dict:
+    """The resident worker: ``--serve`` as a subprocess on the card; ping,
+    discover on seed 7, the same query twice, doctor's refusal and a
+    shutdown.  The served D equals the CLI's bit for bit."""
+    from audio_pattern_discovery_tpu_torch.serve import request
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    cfg = golden_config()
+    cfg.autoencoder.checkpoint = True     # a query needs the index's embedder
+    cfg_path = tmp / "serve_cfg.json"
+    cfg.to_json(cfg_path)
+    make_corpus(tmp / "seed7_q", n_clips=13, n_motifs=3, seed=7)
+    qwav = tmp / "seed7_q" / "clip_0012.wav"
+    sock = tmp / "apd.sock"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "audio_pattern_discovery_tpu_torch",
+                             "--serve", str(sock)], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"phase 25: the worker exited {proc.returncode} at start-up:\n"
+                     f"{proc.stderr.read()[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("phase 25: the worker never answered ping")
+            try:
+                pong = request(sock, {"cmd": "ping"}, timeout=10)
+                break
+            except OSError:
+                time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        walls, results = [], []
+        discover_req = {"cmd": "discover", "wav_dir": str(seed7_corpus(tmp)),
+                        "out_dir": str(tmp / "serve_out"), "config": cfg.to_dict()}
+        query_req = {"cmd": "query", "out_dir": str(tmp / "serve_out"), "wavs": [str(qwav)],
+                     "top_k": 5, "config": cfg.to_dict()}
+        # A request that fails between two device jobs must leave the worker
+        # (and its CUDA context) serving the next.
+        bad_req = {**discover_req, "out_dir": str(tmp / "serve_bad"),
+                   "overrides": {"dtw.nonexistent_knob": 1}}
+        for req in (discover_req, bad_req, query_req, query_req):
+            t1 = time.perf_counter()
+            r = request(sock, req, timeout=300)
+            wall = time.perf_counter() - t1
+            if req is bad_req:
+                if r["ok"]:
+                    fail("phase 25: a discover request with an unknown config key succeeded")
+                continue
+            if not r["ok"]:
+                fail(f"phase 25: the {req['cmd']} request failed: {r.get('traceback', r)}")
+            walls.append(wall)
+            results.append(r["result"])
+        doctor = request(sock, {"cmd": "doctor"}, timeout=60)
+        if doctor["ok"] or "Runtime extras" not in doctor["error"]:
+            fail(f"phase 25: doctor answered {doctor}")
+        if not request(sock, {"cmd": "ping"}, timeout=30)["ok"]:
+            fail("phase 25: the worker stopped answering after doctor's refusal")
+        bye = request(sock, {"cmd": "shutdown"}, timeout=60)
+        proc.wait(timeout=120)
+        if not bye["ok"] or proc.returncode != 0:
+            fail(f"phase 25: shutdown answered {bye}, the worker exited {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    if results[1] != results[2]:
+        fail("phase 25: the same query gave two reports")
+    counts = results[0]["counts"]
+    if int(counts.get("launches.dtw_tile_lane_diag_pairs", 0)) < 1:
+        fail("phase 25: the served discover never launched K1")
+    _, w_cli, _ = cli("phase 25 (CLI)", tmp / "seed7", tmp / "serve_cli_out", "-c", str(cfg_path))
+    D_srv = np.load(tmp / "serve_out" / "distance_matrix.npy")
+    D_cli = np.load(tmp / "serve_cli_out" / "distance_matrix.npy")
+    if not np.array_equal(D_srv, D_cli):
+        fail(f"phase 25: the served D differs from the CLI's (max abs {np.abs(D_srv - D_cli).max()})")
+    q = results[1]["queries"][0]
+    log(f"phase 25: --serve on {pong['result']['device']}: start-up to the first ping "
+        f"{start_s:.2f} s; discover (seed 7, band 16, K1 launches "
+        f"{int(counts['launches.dtw_tile_lane_diag_pairs'])}) {walls[0]:.3f} s, a failing "
+        f"request, then the same query {walls[1]:.3f} s and {walls[2]:.3f} s (best cluster "
+        f"{q['best_cluster']}); the CLI's "
+        f"process for the same discover {w_cli:.2f} s; served D bitwise the CLI's; doctor: "
+        f"{doctor['error'][:80]}")
+    return {"launches": int(counts["launches.dtw_tile_lane_diag_pairs"])}
+
+
+def phase26(dev, tmp: Path) -> dict:
+    """autoencoder.context_frames=2 and spectrogram.upload_codec=mulaw8, each
+    through discover() on seed 7 (the golden config: PCA, band 16) on the
+    card and on the CPU: D at rtol 1e-4 / atol 1e-5, partition exact."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
+    from audio_pattern_discovery_tpu_torch.pipeline import discover
+
+    for over in ({"autoencoder.context_frames": 2}, {"spectrogram.upload_codec": "mulaw8"}):
+        cfg = golden_config().override(over)
+        dtw_tile_lane_diag_pairs.launches = 0
+        res = discover(seed7_corpus(tmp), cfg, device=dev)
+        launches = dtw_tile_lane_diag_pairs.launches
+        ref = discover(seed7_corpus(tmp), cfg, device="cpu")
+        D, D_cpu = res.distance_matrix, ref.distance_matrix
+        if launches < 1:
+            fail(f"phase 26 ({over}): discover() never launched K1")
+        if D.shape != D_cpu.shape or not np.allclose(D, D_cpu, rtol=1e-4, atol=1e-5):
+            fail(f"phase 26 ({over}): the card's D differs from the CPU's (max abs "
+                 f"{np.abs(D - D_cpu).max()})")
+        if partition(res.labels) != partition(ref.labels):
+            fail(f"phase 26 ({over}): the card's partition differs from the CPU's")
+        t = {k: round(v, 4) for k, v in res.counters.timings_s.items()
+             if k in ("spectrogram", "context_stack", "embedding_fit", "embedding_encode")}
+        log(f"phase 26: {over} on seed 7: K={D.shape[0]}, card vs CPU D max abs err "
+            f"{np.abs(D - D_cpu).max():.3g}, partition equal, K1 launches {launches}; card "
+            f"stages {t}")
+    return {}
+
+
 # The K4/K5 gate: class stripes (W = 2*wv+2 slots) and padded lengths at
 # which --crossover times both kernels on one job.
 CROSSOVER = ((128, 34), (128, 66), (128, 98), (128, 130), (128, 144), (256, 130), (256, 258),
@@ -2060,6 +2540,13 @@ def main() -> int:
         if not k5.get("launches"):
             k5["launches"] = res["launches"]
 
+    def known_route(res: dict) -> None:
+        # The known= route's launches, beside each kernel's main-path ones:
+        # printed, and kept in PERF.md's kernel table.
+        log(f"known= route launches: config 4 {json.dumps(res['config4'])}; out-of-order jobs "
+            f"{json.dumps(res['ooo'])}")
+
+    full_d: dict = {}   # phases 5 and 11's D, for phase 22
     with tempfile.TemporaryDirectory(prefix="apd_smoke_") as tmp_dir:
         tmp = Path(tmp_dir)
         phases = [
@@ -2067,13 +2554,13 @@ def main() -> int:
             lambda: k1.update(phase2(dev)),
             lambda: k1.update(phase3(dev, tmp)),
             lambda: phase4(tmp),
-            lambda: phase5(dev),
+            lambda: phase5(dev, full_d),
             lambda: k2.update(phase6(dev)),
             lambda: k3.update(phase7(dev)),
             lambda: k2.update(phase8(tmp)),
             lambda: phase9(dev, tmp),
             lambda: k3.update(phase10(dev, tmp)),
-            lambda: phase11(dev),
+            lambda: phase11(dev, full_d),
             lambda: k4.update(phase12(dev)),
             lambda: k5.update(phase13(dev)),
             lambda: widen_job(phase14(dev)),
@@ -2083,6 +2570,12 @@ def main() -> int:
             lambda: phase18(dev, tmp),
             lambda: k2.update(phase19(tmp)),
             lambda: phase20(dev, tmp),
+            lambda: phase21(tmp),
+            lambda: known_route(phase22(dev, full_d)),
+            lambda: log(f"per-pair known= launches: {json.dumps(phase23(dev))}"),
+            lambda: phase24(dev, tmp),
+            lambda: phase25(tmp),
+            lambda: phase26(dev, tmp),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):

@@ -184,12 +184,16 @@ def test_per_pair_stripe_buckets_match_tiled_and_jax():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_per_pair_unported_options_raise():
+def test_per_pair_unported_options_raise(tmp_path):
     feats, lens = _case(26, K=4)
     cfg = DTWConfig(band=4, band_mode="widen")
-    for kw in (dict(block_dir="blocks"), dict(known=(2, np.zeros((2, 2)))), dict(max_retries=1)):
-        with pytest.raises(NotImplementedError, match="block persistence"):
-            tps.all_pairs_distances(feats, lens, cfg, tiled=False, **kw, device="cpu")
+    # Block persistence, known= reuse and retries run on the per-pair route
+    # (tests/test_torch_update.py holds them against full recomputes).
+    want = tps.all_pairs_distances(feats, lens, cfg, tiled=False, device="cpu")
+    for kw in (dict(block_dir=tmp_path / "blocks"), dict(known=(2, want[:2, :2])),
+               dict(max_retries=0)):
+        got = tps.all_pairs_distances(feats, lens, cfg, tiled=False, **kw, device="cpu")
+        np.testing.assert_array_equal(got, want)
     long_feats = np.zeros((3, 1100, 2), np.float32)
     with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
         tps.all_pairs_distances(long_feats, [1100, 1090, 60], DTWConfig(band=None), tiled=False,
