@@ -17,6 +17,12 @@ CPU):
 - ``"full"`` (``band=None``, 256 < padded length <= 4096): K3
   ``dtw_tile_lane_full_pairs``, classes from ``make_tile_lane_full_class_fn``.
 
+No tiled route takes an unbanded or widen job past 4096 frames:
+``route_for`` sends those to the per-pair scheduler (``"per_pair"``), as the
+reference's tiled gates do.  The diag route takes every length: K1 holds a
+class's whole stripe per thread in shared memory, so the scheduler halves
+the tile size until K1 takes the job's widest class (``_tile_classes``).
+
 Kept from the reference: the length sort, the padding of the corpus to
 whole tiles and of the time axis to a multiple of 128, the per-tile-pair
 static classes with thin classes merged by ``_merge_thin_classes``,
@@ -28,9 +34,12 @@ own, per class.
 The per-pair scheduler is the reference's legacy loop: pairs bucketed by
 length (``enumerate_pair_blocks``), gathered per block, K6
 (``dtw_batch_pallas``) or K7 (``_dtw_batch_stripe``) for widen and unbanded
-blocks, the plain ``ops/dtw.dtw_batch`` for diag blocks (the reference has
-no kernel there), blocks padded to a power of two, a window of blocks in
-flight, and ``D += D.T``.
+blocks, the plain ``ops/dtw.dtw_batch`` for diag blocks up to
+``MAX_KERNEL_SEQ_LEN`` (the reference has no kernel there), and K8
+(``ops/dtw_long.dtw_long_batch``, the blocked wavefront) for every bucket
+past those, in blocks of at most 512 pairs; blocks padded to a power of two
+(K8's not: a pad pair is a whole DP there), a window of blocks in flight,
+and ``D += D.T``.
 
 Both schedulers also keep the reference's index reuse and failure
 handling: ``known=(k_old, D_old)`` takes the distances among the first
@@ -42,10 +51,6 @@ is never reused after either changes); ``max_retries`` re-dispatches a block
 whose launch or collection raised, from its inputs.  Block keys depend on
 the chunking and so on ``ti`` (``DEFAULT_TI``): blocks written on the card
 do not resume a CPU run, nor the other way round.
-
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md item:
-unbanded jobs past 4096 frames and per-pair buckets past the kernels'
-ranges (``ops/dtw_long.py``).
 """
 
 from __future__ import annotations
@@ -66,7 +71,9 @@ from audio_pattern_discovery_tpu_torch.config import DTWConfig
 from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     MAX_KERNEL_SEQ_LEN,
+    STRIP_ROWS,
     _dtw_batch_stripe,
+    _strip_lanes,
     diag_class_bounds,
     dtw_batch_pallas,
     dtw_tile_lane_diag_pairs,
@@ -77,14 +84,17 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     frame_layout,
     pallas_supported,
     scan_len_diff_classes,
+    stripe_frame,
+    strip_channels,
     strip_layout,
     tile_rep_lengths,
 )
+from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, long_block_shape
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 
-# The per-pair kernels' wrappers (K6, K7): a block's device time goes to
+# The per-pair kernels' wrappers (K6, K7, K8): a block's device time goes to
 # the one whose launch counter its call moved.
-_PER_PAIR_KERNELS = (dtw_batch_pallas, _dtw_batch_stripe)
+_PER_PAIR_KERNELS = (dtw_batch_pallas, _dtw_batch_stripe, dtw_long_batch)
 # Past this matrix size, blocks assemble per sorted row strip instead of
 # scattering straight into original-order D (reference: measured on the
 # host, per-block random-row writes degrade superlinearly past ~2 GB).
@@ -105,9 +115,6 @@ FULL_MAX_LEN = 4096
 def padded_len(L: int) -> int:
     """The time axis padded to a multiple of 128, as the reference pads it."""
     return 128 * -(-int(L) // 128)
-
-
-_LONG_ITEM = 'ROADMAP.md Queue 1: "ops/dtw_long.py"'
 
 
 def _with_retries(fn: Callable, max_retries: int, pending_exc: BaseException):
@@ -173,22 +180,104 @@ def _check_dtype(cfg: DTWConfig) -> None:
 
 
 def route_for(L: int, cfg: DTWConfig) -> str:
-    """The tile-pair route of a job with sequences padded to L frames:
-    "diag" (K1), "widen" (K4 and K5), "tile" (K2) or "full" (K3);
-    NotImplementedError for the routes not ported yet."""
+    """The route of a job with sequences padded to L frames: the tile-pair
+    routes "diag" (K1), "widen" (K4 and K5), "tile" (K2) and "full" (K3), or
+    "per_pair" for unbanded and widen jobs past FULL_MAX_LEN frames, where
+    no tiled route applies (the reference's gates).  NotImplementedError for
+    ``dtw.dtype=bfloat16``."""
     _check_dtype(cfg)
     if cfg.band is not None and cfg.band_mode == "diag":
         return "diag"
     Lp = padded_len(L)
     if Lp > FULL_MAX_LEN:
-        kind = "unbanded" if cfg.band is None else "widen-banded"
-        raise NotImplementedError(
-            f"{kind} DTW of {L} frames (past {FULL_MAX_LEN}) needs the blocked wavefront "
-            f"({_LONG_ITEM}), not ported yet"
-        )
+        return "per_pair"
     if cfg.band is not None:
         return "widen"
     return "tile" if Lp <= TILE_MAX_LEN else "full"
+
+
+def _k1_fits(band: int, wv: int, ti: int, d: int) -> bool:
+    """Whether K1 launches a class of half-width level ``wv`` at tile size
+    ``ti`` and frame width ``d``: its stripe of 2*max(band, wv)+2 floats a
+    thread within one block's shared memory (``_strip_lanes``)."""
+    try:
+        _strip_lanes(ti, stripe_frame(band, wv)[2], strip_channels(d), STRIP_ROWS)
+    except ValueError:
+        return False
+    return True
+
+
+def _tile_plan(lengths: np.ndarray, ti: int, known) -> tuple[np.ndarray, np.ndarray, list]:
+    """The tiled scheduler's sequence order ``perm`` (by length; under
+    ``known`` the old sequences first, each group by length), the lengths
+    in that order padded to whole tiles of ``ti`` (pad entries 1), and the
+    upper tile-pairs to compute: under ``known`` those with a new sequence
+    on either side (the others are all in D_old; pad positions are never
+    new)."""
+    K = len(lengths)
+    if known is None:
+        perm = np.argsort(lengths, kind="stable").astype(np.int64)
+    else:
+        k_old = known[0]
+        perm = np.concatenate([
+            np.argsort(lengths[:k_old], kind="stable"),
+            k_old + np.argsort(lengths[k_old:], kind="stable"),
+        ]).astype(np.int64)
+    nT = -(-K // ti)
+    lens_p = np.ones((nT * ti,), np.int32)
+    lens_p[:K] = lengths[perm]
+    pairs = [(i, j) for i in range(nT) for j in range(i, nT)]
+    if known is not None:
+        pos_new = np.zeros(nT * ti, bool)
+        pos_new[:K] = perm >= known[0]
+        tile_new = pos_new.reshape(nT, ti).any(axis=1)
+        pairs = [(i, j) for i, j in pairs if tile_new[i] or tile_new[j]]
+    return perm, lens_p, pairs
+
+
+def _tile_classes(route: str, lengths: np.ndarray, Lp: int, cfg: DTWConfig, ti: int, d: int,
+                  known) -> tuple[int, np.ndarray, np.ndarray, list, dict]:
+    """The tiled plan of a job on ``route``: (ti, perm, lens_p, tile-pairs,
+    tile-pairs by class, thin classes merged).  The diag route puts each
+    tile-pair's longer tile on the DP rows: the corridor's per-row
+    half-width is then exactly ``band``, and the class stripes stay narrow
+    (with the short side on rows they grow with the length ratio).  Sorted
+    tiles make J >= I the longer tile; under ``known`` a new tile can be
+    shorter than an old one, so the tiles' longest real lengths decide (the
+    scatter writes both triangles of every block, so (J, I) blocks land like
+    (I, J) ones; K2-K5 keep the A tile on rows: their class keys bound both
+    orientations).  K1 holds a class's whole stripe per thread in shared memory: where the
+    widest class does not fit at ``ti``, the diag route halves ti (tiles of
+    more even lengths give narrower classes, and fewer lanes a block more
+    room each) until it does; ValueError where it fits at no ti."""
+    K = len(lengths)
+    while True:
+        perm, lens_p, pairs = _tile_plan(lengths, ti, known)
+        nT = len(lens_p) // ti
+        if route == "diag":
+            pair_class = make_tile_lane_diag_class_fn(lens_p, nT, ti, Lp, int(cfg.band), K)
+            tmax = [int(lens_p[t * ti : min((t + 1) * ti, K)].max()) for t in range(nT)]
+            pairs = [(j, i) if tmax[j] >= tmax[i] else (i, j) for i, j in pairs]
+        elif route == "widen":
+            pair_class = make_tile_stripe_class_fn(
+                lens_p, nT, ti, Lp, int(cfg.band), cfg.auto_widen_band, K,
+            )
+        elif route == "tile":
+            pair_class = make_tile_pair_class_fn(lens_p, nT, ti, Lp, cfg.band, cfg.auto_widen_band)
+        else:
+            pair_class = make_tile_lane_full_class_fn(lens_p, nT, ti, Lp, K)
+        by_class: dict[tuple[int, ...], list[tuple[int, int]]] = {}
+        for pij in pairs:
+            by_class.setdefault(pair_class(*pij), []).append(pij)
+        _merge_thin_classes(by_class)
+        if route != "diag" or all(_k1_fits(int(cfg.band), c[1], ti, d) for c in by_class):
+            return ti, perm, lens_p, pairs, by_class
+        if ti == 1:
+            raise ValueError(
+                f"a diag class of half-width {max(c[1] for c in by_class)} does not fit "
+                "one K1 block's shared memory at any tile size"
+            )
+        ti //= 2
 
 
 # The widest class stripe (2*wv+2 slots) that K4 takes; wider classes go to
@@ -427,7 +516,9 @@ def all_pairs_distances_tiled(
     """Symmetric [K, K] DTW matrix through the tile-pair kernels of the
     job's route (``route_for``).  On the widen route ``widen_kernel`` picks
     K4 or K5 per class; ``lane=True`` or ``stripe=True`` forces K4 or K5 for
-    every class, as the reference's overrides force its kernels.
+    every class, as the reference's overrides force its kernels.  On the
+    diag route ``ti`` is halved until K1 takes the widest class
+    (``_tile_classes``); ``stats["ti"]`` is the tile size used.
 
     Sequences are length-sorted and padded to whole tiles, uploaded once,
     and every upper-triangle tile-pair runs as one kernel tile-pair (ti*ti
@@ -459,6 +550,12 @@ def all_pairs_distances_tiled(
     device = resolve_device(device)
     K, L, d = features.shape
     route = route_for(L, cfg)
+    if route == "per_pair":
+        raise ValueError(
+            f"no tiled route takes {'unbanded' if cfg.band is None else 'widen-banded'} DTW "
+            f"of {L} frames (the tile-pair kernels end at {FULL_MAX_LEN}): use the per-pair "
+            "scheduler (all_pairs_distances(tiled=None or False))"
+        )
     lengths = np.asarray(lengths, dtype=np.int32)
     if known is not None:
         _check_known(known, K)
@@ -473,9 +570,11 @@ def all_pairs_distances_tiled(
         forced = dtw_tile_lane_pairs if use_lane else dtw_tile_stripe_pairs
     if K < 2:
         return np.zeros((K, K), dtype=np.float32)
-    ti = int(ti or DEFAULT_TI[device.type])
     Lp = padded_len(L)
-    Kp = -(-K // ti) * ti
+    ti, perm, lens_p, pairs_list, by_class = _tile_classes(
+        route, lengths, Lp, cfg, int(ti or DEFAULT_TI[device.type]), d, known,
+    )
+    Kp = len(lens_p)
     # Updates scatter straight into D (the reference's rule): skipped
     # tile-pairs would leave row strips incomplete.
     direct = known is not None or K * K * 4 <= _DIRECT_SCATTER_BYTES
@@ -483,14 +582,6 @@ def all_pairs_distances_tiled(
     if known is not None:
         k_old, D_old = known
         D[:k_old, :k_old] = D_old
-        perm = np.concatenate([
-            np.argsort(lengths[:k_old], kind="stable"),
-            k_old + np.argsort(lengths[k_old:], kind="stable"),
-        ]).astype(np.int64)
-    else:
-        perm = np.argsort(lengths, kind="stable").astype(np.int64)
-    lens_p = np.ones((Kp,), np.int32)
-    lens_p[:K] = lengths[perm]
     nT = Kp // ti
 
     t_up = time.perf_counter()
@@ -519,36 +610,9 @@ def all_pairs_distances_tiled(
         torch.cuda.synchronize(device)
     upload_s = time.perf_counter() - t_up
 
-    pairs_list = [(i, j) for i in range(nT) for j in range(i, nT)]
     n_pairs = K * (K - 1) // 2
     if known is not None:
-        # Tile-pairs with no new sequence on either side are all in D_old
-        # (pad positions >= K are never new).
-        pos_new = np.zeros(nT * ti, bool)
-        pos_new[:K] = perm >= k_old
-        tile_new = pos_new.reshape(nT, ti).any(axis=1)
-        pairs_list = [(i, j) for i, j in pairs_list if tile_new[i] or tile_new[j]]
         n_pairs -= k_old * (k_old - 1) // 2
-    if route == "diag":
-        pair_class = make_tile_lane_diag_class_fn(lens_p, nT, ti, Lp, int(cfg.band), K)
-        # Long side on DP rows: the corridor's per-row half-width is then
-        # exactly `band`, and the class stripes stay narrow (with the short
-        # side on rows it grows with the length ratio).  Sorted tiles make
-        # J >= I the longer tile; under `known` a new tile can be shorter
-        # than an old one, so the tiles' longest real lengths decide.  The
-        # scatter writes both triangles of every block, so (J, I) blocks
-        # land like (I, J) ones.  K2-K5 keep the A tile on rows: their class
-        # keys bound both orientations.
-        tmax = [int(lens_p[t * ti : min((t + 1) * ti, K)].max()) for t in range(nT)]
-        pairs_list = [(j, i) if tmax[j] >= tmax[i] else (i, j) for i, j in pairs_list]
-    elif route == "widen":
-        pair_class = make_tile_stripe_class_fn(
-            lens_p, nT, ti, Lp, int(cfg.band), cfg.auto_widen_band, K,
-        )
-    elif route == "tile":
-        pair_class = make_tile_pair_class_fn(lens_p, nT, ti, Lp, cfg.band, cfg.auto_widen_band)
-    else:
-        pair_class = make_tile_lane_full_class_fn(lens_p, nT, ti, Lp, K)
 
     def kernel_of(cls: tuple[int, ...]) -> Callable:
         if route == "diag":
@@ -581,10 +645,6 @@ def all_pairs_distances_tiled(
             frames=frames,
         )
 
-    by_class: dict[tuple[int, ...], list[tuple[int, int]]] = {}
-    for pij in pairs_list:
-        by_class.setdefault(pair_class(*pij), []).append(pij)
-    _merge_thin_classes(by_class)
     # Each class's tail chunk is padded to the next power of two by
     # repeating its last tile-pair (duplicate scatters are skipped).
     chunks: list[tuple[np.ndarray, np.ndarray, tuple[int, ...]]] = []
@@ -800,8 +860,12 @@ def all_pairs_distances(
 ) -> np.ndarray:
     """Symmetric [K, K] DTW distance matrix over all segment pairs.
 
-    ``tiled`` None or True: the tiled scheduler (``route_for`` picks the
-    kernel).  ``tiled=False``: the per-pair scheduler
+    ``tiled=None``: the tiled scheduler where a tile-pair route takes the
+    job, else the per-pair scheduler (``route_for`` decides, as the
+    reference's gates do: unbanded and widen jobs past 4096 frames go per
+    pair).
+    ``tiled=True``: the tiled scheduler, which raises ``ValueError`` where
+    no tiled route applies.  ``tiled=False``: the per-pair scheduler
     (``all_pairs_distances_per_pair``), the reference's legacy path.
     ``block_dir``: persist each block for crash resume.  ``max_retries``: a
     block whose dispatch or collection raises is dispatched again up to this
@@ -812,6 +876,8 @@ def all_pairs_distances(
     ``device="cpu"``."""
     kw = dict(device=device, stats=stats, block_dir=block_dir, known=known,
               max_retries=max_retries)
+    if tiled is None:
+        tiled = route_for(features.shape[1], cfg) != "per_pair"
     if tiled is False:
         return all_pairs_distances_per_pair(features, lengths, cfg, bucket_step=bucket_step, **kw)
     return all_pairs_distances_tiled(features, lengths, cfg, **kw)
@@ -911,11 +977,15 @@ def all_pairs_distances_per_pair(
     Blocks from ``enumerate_pair_blocks`` gather their pairs on the device
     and run ``_dtw_block``'s routing: widen and unbanded blocks go to
     ``dtw_batch_pallas`` (K6, or K7 where the stripe applies; their twins on
-    the CPU), diag blocks to the plain ``ops/dtw.dtw_batch``; a bucket past
-    the kernels' ranges raises.  Each block is padded to a power of two with
-    self-pairs of sequence 0 (discarded), up to ten blocks are in flight,
-    each pair lands in one triangle, and ``D += D.T`` closes the matrix.
-    The kernels normalize inside, so the scatter does not.
+    the CPU), diag blocks up to MAX_KERNEL_SEQ_LEN to the plain
+    ``ops/dtw.dtw_batch``, and every other bucket to ``dtw_long_batch``
+    (K8), both sides padded to ``long_block_shape(bucket)``, in blocks of at
+    most 512 pairs (the reference's cap).  Other blocks are padded to a
+    power of two with self-pairs of sequence 0 (discarded); K8's are not (a
+    pad pair there costs a whole DP of sequence 0, and K8 takes any count).
+    Up to ten blocks are in flight, each pair lands in one triangle, and
+    ``D += D.T`` closes the matrix.  The kernels normalize inside, so the
+    scatter does not.
 
     ``known=(k_old, D_old)``: only pairs touching a sequence >= k_old are
     enumerated (``new_from``), and D_old fills the old block after the
@@ -930,8 +1000,9 @@ def all_pairs_distances_per_pair(
     events around each block: ``gather_s``, the device time of the blocks'
     gathers, ``kernel_s``, that of the DTW calls, and ``kernel_s_by``, the
     latter per entry name: the wrapper whose launch counter the call moved
-    (``dtw_batch_pallas`` for K6, ``_dtw_batch_stripe`` for K7), else the
-    entry called (``dtw_batch`` for diag blocks).  The default device is the
+    (``dtw_batch_pallas`` for K6, ``_dtw_batch_stripe`` for K7,
+    ``dtw_long_batch`` for K8), else the entry called (``dtw_batch`` for
+    diag blocks).  The default device is the
     card; without one, pass ``device="cpu"``."""
     _check_dtype(cfg)
     device = resolve_device(device)
@@ -973,6 +1044,10 @@ def all_pairs_distances_per_pair(
     )
     on_cuda = device.type == "cuda"
 
+    def stripe_ok(bucket, mld) -> bool:
+        """Whether K6 or K7 takes the bucket (the reference's predicate)."""
+        return not diag and pallas_supported(bucket, cfg.band, cfg.auto_widen_band, mld)
+
     def run_block(row_cap, bucket, mld, ii, jj):
         """(the block's distances, the entry that computed them, and on a
         CUDA device events before the gather and before and after the DTW
@@ -984,13 +1059,15 @@ def all_pairs_distances_per_pair(
         la, lb = lens_dev[ii], lens_dev[jj]
         kw = dict(metric=cfg.metric, band=cfg.band, auto_widen=cfg.auto_widen_band,
                   normalize=cfg.normalize)
-        if not diag and pallas_supported(bucket, cfg.band, cfg.auto_widen_band, mld):
+        if stripe_ok(bucket, mld):
             fn, kw["max_len_diff"] = dtw_batch_pallas, mld
         elif bucket > MAX_KERNEL_SEQ_LEN:
-            raise NotImplementedError(
-                f"a per-pair bucket of {bucket} frames outside the kernels' ranges needs the "
-                f"blocked wavefront ({_LONG_ITEM}), not ported yet"
-            )
+            # The blocked wavefront: both sides padded to whole blocks (the
+            # +inf length masks make the padding free).
+            kw["block"], padded = long_block_shape(bucket)
+            a = torch.nn.functional.pad(a, (0, 0, 0, padded - row_cap))
+            b = torch.nn.functional.pad(b, (0, 0, 0, padded - bucket))
+            fn, kw["band_mode"] = dtw_long_batch, cfg.band_mode
         else:
             fn, kw["band_mode"] = dtw_batch, cfg.band_mode
         if events:
@@ -1033,6 +1110,12 @@ def all_pairs_distances_per_pair(
         new_from=None if known is None else k_old,
     ):
         cap = max(512, gather_budget // (bucket * d * 8))
+        # Blocks past the per-pair kernels' ceiling that K7 does not take go
+        # to K8, whose per-block work grows with the block: at most 512
+        # pairs (the reference's cap, with its predicate).
+        long = bucket > MAX_KERNEL_SEQ_LEN and not stripe_ok(bucket, mld)
+        if long:
+            cap = min(cap, 512)
         for s in range(0, len(ii_all), cap):
             ii, jj = ii_all[s : s + cap], jj_all[s : s + cap]
             stats["enumerate_s"] += time.perf_counter() - t_enum
@@ -1046,7 +1129,7 @@ def all_pairs_distances_per_pair(
                     stats["blocks_resumed"] += 1
                     t_enum = time.perf_counter()
                     continue
-            B_blk = min(B, max(8, 1 << (len(ii) - 1).bit_length()))
+            B_blk = len(ii) if long else min(B, max(8, 1 << (len(ii) - 1).bit_length()))
             ii_pad = np.zeros(B_blk, dtype=np.int64)
             jj_pad = np.zeros(B_blk, dtype=np.int64)
             ii_pad[: len(ii)], jj_pad[: len(jj)] = ii, jj

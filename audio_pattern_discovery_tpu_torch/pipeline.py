@@ -17,8 +17,10 @@ alignments out, on one torch ``device`` (default: the card; without one,
    stacked on the device (``ops/context.py``);
 4. all-pairs DTW through the tiled scheduler and its kernel: K1 for a diag
    band, K4 or K5 for a widen band, K2 (segments up to 256 frames) or K3 (up
-   to 4096) unbanded; with ``parallel.checkpoint_blocks`` each block
-   persists under ``out_dir`` and a rerun reads it back;
+   to 4096) unbanded; unbanded and widen past 4096 frames through the
+   per-pair scheduler, whose long buckets take K8, the blocked
+   wavefront; with ``parallel.checkpoint_blocks`` each block persists under
+   ``out_dir`` and a rerun reads it back;
 5. clustering (host C++ NN-chain);
 6. medoids and exemplar<->member alignments (plain-torch DTW with
    directions on the device, checkpointed for segments of 512 frames or
@@ -70,6 +72,7 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     dtw_tile_pairs,
     dtw_tile_stripe_pairs,
 )
+from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch
 from audio_pattern_discovery_tpu_torch.ops.segmentation import Segment, segment_corpus
 from audio_pattern_discovery_tpu_torch.ops.spectrogram import (
     mulaw_encode_host,
@@ -84,18 +87,16 @@ from audio_pattern_discovery_tpu_torch.utils import checkpoint as ckpt
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
 
-# The all-pairs DTW kernels whose launches discover() counts (K1-K7).
+# The all-pairs DTW kernels whose launches discover() counts (K1-K8).
 DTW_KERNELS = (
     dtw_tile_lane_diag_pairs, dtw_tile_pairs, dtw_tile_lane_full_pairs, dtw_tile_lane_pairs,
-    dtw_tile_stripe_pairs, dtw_batch_pallas, _dtw_batch_stripe,
+    dtw_tile_stripe_pairs, dtw_batch_pallas, _dtw_batch_stripe, dtw_long_batch,
 )
 
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration this port does not
-    run yet (DTW past the kernels' ranges, ``dtw.dtype=bfloat16``), before
-    any work starts.  The DTW route depends only on the padded segment
-    length, max_seq_len."""
+    run yet (``dtw.dtype=bfloat16``), before any work starts."""
     try:
         route_for(cfg.dtw.max_seq_len, cfg.dtw)
     except NotImplementedError as exc:
@@ -733,9 +734,10 @@ def discover(
     features_dev = None
     launched = [k.launches - n0 for k, n0 in zip(DTW_KERNELS, launches0)]
     counters.add("dtw_kernel_launches", sum(launched))
-    # The work the kernels were given: tile-pairs (ti x ti pairs each), and
-    # the blocks read back from block_dir instead.
-    counters.add("dtw_tile_programs", dtw_stats["tile_programs"])
+    # The work the kernels were given: tile-pairs (ti x ti pairs each; none
+    # on the per-pair route), and the blocks read back from block_dir
+    # instead.
+    counters.add("dtw_tile_programs", dtw_stats.get("tile_programs", 0))
     counters.add("dtw_blocks_resumed", dtw_stats["blocks_resumed"])
     for k, n in zip(DTW_KERNELS, launched):
         counters.add(f"launches.{k.__name__}", n)

@@ -7,7 +7,7 @@ Phases (each one passes or the script exits non-zero, and prints its
 seconds; ``--phases`` runs a subset, phase 1 always):
 
 1. device: a CUDA card is required; prints its name and power limit and
-   builds the kernels K1-K7 from ``audio_pattern_discovery_tpu_torch/csrc``
+   builds the kernels K1-K8 from ``audio_pattern_discovery_tpu_torch/csrc``
    (one nvcc each, started together), with each source's registers and
    spill bytes from ``ptxas -v`` (a spill fails the phase);
 2. K1 against its plain PyTorch twin on the card at the config-4 tile shape
@@ -137,14 +137,40 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    bit;
 26. ``autoencoder.context_frames=2`` and ``spectrogram.upload_codec=mulaw8``,
    each through ``discover()`` on seed 7 (the golden config) on the card and
-   on the CPU: D at rtol 1e-4 / atol 1e-5, partition exact.
+   on the CPU: D at rtol 1e-4 / atol 1e-5, partition exact;
+27. K8 (``dtw_long_batch``) against its plain twin on the card (``K8_RTOL``,
+   the largest relative difference per check printed): 64 pairs at S=8192
+   (lengths 4097-8192, block 256) unbanded, widen 16 with auto_widen on and
+   off (off: +inf on exactly the pairs outside the band) and diag 16; at
+   S=2048 (``K8_SWEEP_S``) the three metrics, every frame width it is built
+   for (d=4, 8, 20, 40), blocks of 64 and 128 frames, each also bit for bit
+   against K7 (widen 16 and a hard band 16 at S=2048) and K6 (unbanded at
+   S=1024), and an out-of-frame call (+inf); two stripes of block columns
+   with a halo bit for bit against the whole grid (``long_block_columns``,
+   unbanded and diag 16); a single block; 8 sequences against themselves on
+   4 x 4 blocks, exactly 0 (the corner between diagonal blocks); 4 pairs at
+   S=16,384 with the memory beyond the inputs printed (boundaries only); K8
+   timed on the 64 pairs and at the route's launch size (512 pairs at
+   bucket 8192, unbanded and widen 16) with its bound;
+28. long units past 4096 frames through ``discover()`` (24 clips of 120 s
+   with 3 motifs of 25-45 s, unbanded, PCA, alignments off): K8 alone
+   launches, 8 distances against the twin, purity, the stages; the job
+   again through the per-pair route (the same D) with the split of its
+   wall; on the same features widen band 16 (K8) and diag band 16 on the
+   tiled route (K1, at the tile size the scheduler picks) and per pair
+   (K8), D bitwise equal; and the per-pair route on 64 sequences of
+   1,100-4,096 frames unbanded (K8) against the tiled K3 D;
+29. a diag band 16 job of mixed lengths through ``discover()`` (16 clips of
+   90 s with motifs of 2-40 s): K1 alone launches, at the tile size the
+   scheduler halves to, D the scheduler's bit for bit, 8 distances against
+   K8's twin.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
 (the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs
-K1, K3, K4, K5, K6 and K7 from this checkout and from another (its parent,
-unpacked with ``git archive``) in turns, checks K1's, K3's, K4's and K7's
-outputs bitwise and reports K6's largest difference and times.
+K1, K3-K7 (and K8 where a checkout has it) from this checkout and from
+another (its parent, unpacked with ``git archive``) in turns, checks K1's,
+K3's, K4's, K6's and K7's outputs bitwise and reports their times.
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
 beside their device time.  Kernel times are device times (``cuda_ms``:
@@ -188,6 +214,8 @@ KERNELS = {   # source name -> (entry function, kernel body it replaces)
     "dtw_tile_stripe": ("dtw_tile_stripe_pairs", f"{PALLAS}:1060"),
     "dtw_rowscan": ("dtw_batch_pallas", f"{PALLAS}:148"),
     "dtw_stripe": ("_dtw_batch_stripe", f"{PALLAS}:261"),
+    # No pallas_call: the reference's block kernel inside an XLA scan.
+    "dtw_long_block": ("dtw_long_batch", "audio_pattern_discovery_tpu/ops/dtw_long.py:72"),
 }
 # Kernel vs plain twin: both compute each pair in fp32 from the same
 # squared-difference costs; the twin evaluates each DP row's left-to-right
@@ -213,6 +241,25 @@ K7_RTOL, K7_ATOL = 1.5e-4, 1e-3
 K3_RTOL, K3_ATOL = K7_RTOL, K7_ATOL
 K6_RTOL, K6_ATOL = K7_RTOL, K7_ATOL
 K5_RTOL, K5_ATOL = 2.5e-4, 1e-3
+
+
+# K8 against its twin: both add every cell's cost to the min of its three
+# predecessors, cell by cell, in the same order (the twin along each block's
+# anti-diagonals), so they differ only in each cost's rounding (the order of
+# the d-term sum; both square roots are the IEEE one).  The worst case for a
+# path of n <= 2S terms is (d + 2S) 2^-24 relative (9.8e-4 at S=8192, d=16),
+# but the rounding errors are independent and cancel: the largest reading
+# over phases 27-29 on the H100 80GB HBM3 at 700 W was 2.0e-7 relative (a
+# single block; 1.9e-7 unbanded at S=8192), and the limit is 10x that.  K8 is further held
+# bit for bit against K6 (unbanded) and K7 (widen and hard band), which walk
+# the same systolic chain on the same costs (``k8_witness``).
+K8_RTOL = 2e-6
+K8_ATOL = 1e-3     # cosine costs near 0, as K7
+# K1 and K8 (diag) and K3 and K8 (unbanded) compute their costs from the same
+# fmaf chain over channels 0..d-1 and the IEEE square root, and each cell as
+# cost + min(min(diag, up), left): the same operations on the same values,
+# so their distances are expected bitwise equal; phase 28 holds K1 and K8 to
+# that, and K3 and K8 to K3's tolerance, as its twin check.
 
 # Frame widths beside d=16 at which phases 2 and 6 hold K1 and K2 against
 # their twins: 1, 2, 8 and 10 float4s a frame (strip_channels), every
@@ -364,7 +411,7 @@ def phase1(dev) -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load_all(list(KERNELS))
-    log(f"phase 1: K1-K7 loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1: K1-K8 loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         secs, ptxas = _build.build_info.get(name, (0.0, "(already built)"))
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", ptxas)]
@@ -2309,6 +2356,435 @@ def phase26(dev, tmp: Path) -> dict:
     return {}
 
 
+# Phase 27's sweeps (metrics, frame widths, blocks 64 and 128, an
+# out-of-frame call) run at this padded length: the twin takes one
+# dependent step per cell anti-diagonal of each block, ~32,000 steps a call
+# at S=8192 and ~7,700 at 2048.
+K8_SWEEP_S = 2048
+
+
+def long_pairs(dev, B: int, S: int, d: int, lo: int, seed: int, near: int = 0):
+    """K8's arguments for B pairs padded to S frames, lengths in [lo, S];
+    the first ``near`` pairs with |la - lb| <= 12 (inside a hard band 16),
+    the rest independent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    la = torch.randint(lo, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    lb = torch.randint(lo, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    lb[:near] = (la[:near] + torch.randint(-12, 13, (near,), generator=g, device=dev,
+                                           dtype=torch.int32)).clamp(lo, S)
+    return (torch.randn((B, S, d), generator=g, device=dev),
+            torch.randn((B, S, d), generator=g, device=dev), la, lb)
+
+
+# K8's readings against its twin this run: tag -> the largest relative
+# difference over the pairs whose distance is past 1 (cosine costs near 0
+# are the atol's).
+K8_READINGS: dict[str, float] = {}
+
+
+def k8_reading(tag: str, got, want) -> None:
+    fin = torch.isfinite(want) & torch.isfinite(got) & (want.abs() > 1)
+    K8_READINGS[tag] = float(((got - want).abs() / want.abs())[fin].max()) if bool(fin.any()) \
+        else 0.0
+
+
+def k8_check(tag: str, args, **kw) -> tuple[float, float]:
+    """K8 against its twin on the card (the launches counted): the max abs
+    error and the twin's ms (CUDA events around the call)."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
+
+    n0 = dtw_long_batch.launches
+    got = dtw_long_batch(*args, **kw)
+    torch.cuda.synchronize()
+    if dtw_long_batch.launches == n0:
+        fail(f"{tag}: K8 did not launch")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = dtw_long_batch_ref(*args, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    k8_reading(tag, got, want)
+    return agree(tag, got, want, K8_RTOL, K8_ATOL), ev[0].elapsed_time(ev[1])
+
+
+def k8_witness(tag: str, args, **kw) -> str:
+    """K8 bit for bit against K6 (unbanded, S <= 1024) or K7 (a band, pairs
+    within class 63, S <= 4096): the same systolic walk over the same costs
+    (``apd_systolic::cost_of``), each cell cost + min(min(diag, up), left).
+    Returns the witness's name."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import _dtw_batch_stripe, dtw_batch_pallas
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch
+
+    got = dtw_long_batch(*args, **kw)
+    metric = kw.get("metric", "euclidean")
+    if kw.get("band") is None:
+        name, want = "K6", dtw_batch_pallas(*args, metric=metric)
+    else:
+        name, want = "K7", _dtw_batch_stripe(*args, metric=metric, band=kw["band"],
+                                             auto_widen=kw.get("auto_widen", True),
+                                             max_len_diff=63)
+    if not torch.equal(got, want):
+        fin = torch.isfinite(want)
+        fail(f"{tag}: K8 and {name} differ on {int((got != want).sum())} of {len(got)} pairs "
+             f"(max abs {float((got - want)[fin].abs().max()) if bool(fin.any()) else 'inf'})")
+    return name
+
+
+def k8_stripes(tag: str, args, **kw) -> None:
+    """K8 run as two stripes of block columns, [0, nB/2) with no halo and
+    [nB/2, nB) with the first stripe's right columns as its halo (the
+    interface the multi-GPU wavefront launches per device), bit for bit
+    against the whole grid in one stripe."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import INF, frame_layout
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import long_block_columns
+
+    a, b, la, lb = args
+    blk = kw.pop("block", 256)
+    nB = a.shape[1] // blk
+    metric = kw.get("metric", "euclidean")
+    xa, xb = frame_layout(a, metric), frame_layout(b, metric)
+    whole = torch.full((len(la),), INF, device=a.device)
+    V = long_block_columns(xa, xb, la, lb, whole, block=blk, J0=0, nJ=nB, **kw)
+    split = torch.full((len(la),), INF, device=a.device)
+    halo = long_block_columns(xa, xb, la, lb, split, block=blk, J0=0, nJ=nB // 2, **kw)
+    V2 = long_block_columns(xa, xb, la, lb, split, block=blk, J0=nB // 2, nJ=nB - nB // 2,
+                            halo=halo, **kw)
+    if not (torch.equal(whole, split) and torch.equal(V, V2)):
+        fail(f"{tag}: two stripes of block columns with a halo differ from the whole grid "
+             f"({int((whole != split).sum())} distances, {int((V != V2).sum())} right-column "
+             "entries)")
+
+
+def phase27(dev) -> dict:
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import strip_channels
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
+        _long_rows,
+        dtw_long_batch,
+        dtw_long_batch_ref,
+    )
+
+    # 64 pairs at S=8192 (lengths 4097-8192, block 256), the first 32 within
+    # a hard band 16 of each other: unbanded, widen 16 with auto_widen on and
+    # off (off: +inf on exactly the pairs whose corner leaves the band), diag.
+    S, d = 8192, 16
+    args = long_pairs(dev, 64, S, d, 4097, seed=27, near=32)
+    errs, plain = {}, {}
+    for mode, kw in (("unbanded", dict(band=None)), ("widen 16", dict(band=16)),
+                     ("hard 16", dict(band=16, auto_widen=False)),
+                     ("diag 16", dict(band=16, band_mode="diag"))):
+        errs[mode], plain[mode] = k8_check(f"phase 27 (S={S}, {mode})", args, **kw)
+    hard = dtw_long_batch(*args, band=16, auto_widen=False)
+    over = (args[2] - args[3]).abs() > 16
+    if not (bool(torch.isinf(hard[over]).all()) and bool(torch.isfinite(hard[~over]).all())):
+        fail("phase 27: a hard band 16 did not give +inf on exactly the pairs outside it")
+    # The sweeps at K8_SWEEP_S against the twin: the metrics on 8 pairs,
+    # every frame width K8 is built for on 4, blocks of 64 and 128 frames,
+    # a single block, and a call whose pairs are all out of frame (an empty
+    # side, a side past S).  Each sweep point is also held bit for bit
+    # against K7 (widen 16 at S=2048 on pairs within 12 frames of each
+    # other, so inside K7's class 63) and K6 (unbanded at S=1024).
+    Sw = K8_SWEEP_S
+    done, witnessed = [], set()
+
+    def witness(tag: str, B: int, dd: int, seed: int, **kw) -> None:
+        near = long_pairs(dev, B, Sw, dd, Sw // 2, seed=seed, near=B)
+        witnessed.add(k8_witness(f"{tag}, widen 16", near, band=16, **kw))
+        witnessed.add(k8_witness(f"{tag}, hard 16", near, band=16, auto_widen=False, **kw))
+        short = long_pairs(dev, B, 1024, dd, 512, seed=seed + 1)
+        witnessed.add(k8_witness(f"{tag}, unbanded at S=1024", short, **kw))
+
+    for metric in ("euclidean", "sqeuclidean", "cosine"):
+        k8_check(f"phase 27 ({metric})", long_pairs(dev, 8, Sw, d, Sw // 2, seed=270),
+                 metric=metric)
+        witness(f"phase 27 ({metric})", 8, d, 280, metric=metric)
+        done.append(f"{metric}")
+    for dd in SWEEP_DIMS:
+        k8_check(f"phase 27 (d={dd})", long_pairs(dev, 4, Sw, dd, Sw // 2, seed=271 + dd))
+        witness(f"phase 27 (d={dd})", 4, dd, 281 + dd)
+        done.append(f"d={dd} ({strip_channels(dd)} float4s, R={_long_rows(256, strip_channels(dd))})")
+    for blk in (64, 128):
+        k8_check(f"phase 27 (block {blk})", long_pairs(dev, 8, Sw, d, Sw // 2, seed=272 + blk),
+                 block=blk)
+        witness(f"phase 27 (block {blk})", 8, d, 282 + blk, block=blk)
+        done.append(f"block {blk} (R={_long_rows(blk, strip_channels(d))})")
+    # The block-column range and the halo: two stripes against the whole grid.
+    for mode, kw in (("unbanded", {}), ("diag 16", dict(band=16, band_mode="diag"))):
+        k8_stripes(f"phase 27 (stripes, {mode})", long_pairs(dev, 8, Sw, d, Sw // 4, seed=278),
+                   **kw)
+    k8_check("phase 27 (a single block)", long_pairs(dev, 8, 256, d, 1, seed=273), block=256)
+    a, b, _, _ = long_pairs(dev, 4, Sw, d, 1, seed=274)
+    oof = (a, b, torch.tensor([0, 1000, Sw + 1, 1000], dtype=torch.int32, device=dev),
+           torch.tensor([1000, 0, 1000, Sw + 1], dtype=torch.int32, device=dev))
+    k8_check("phase 27 (out of frame)", oof)
+    if not bool(torch.isinf(dtw_long_batch(*oof)).all()):
+        fail("phase 27: pairs with an empty side or a side past S did not come back +inf")
+    # The corner: each of 8 sequences of 769-1024 frames against itself on a
+    # grid of 4 x 4 blocks.  The optimal path is the main diagonal, which
+    # crosses from block (I-1, I-1) into (I, I) only through the corner:
+    # every distance is exactly 0, and a corner from the wrong step is not.
+    g = torch.Generator(device=dev).manual_seed(275)
+    x = torch.randn((8, 1024, d), generator=g, device=dev)
+    n = torch.randint(769, 1025, (8,), generator=g, device=dev, dtype=torch.int32)
+    self_d = dtw_long_batch(x, x, n, n, block=256)
+    if not bool((self_d == 0).all()) or not bool((dtw_long_batch_ref(x, x, n, n) == 0).all()):
+        fail(f"phase 27: a sequence against itself is not exactly 0: {self_d.tolist()}")
+    # 4 pairs at S=16,384: the kernel's memory is boundaries only.
+    big = long_pairs(dev, 4, 16_384, d, 12_000, seed=276)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k8_check("phase 27 (S=16384)", big)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dtw_long_batch(*big)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    boundaries = 4 * (2 * 64 * 256 + 2 * 65) * 4
+    if extra > 4 * boundaries + (1 << 20):
+        fail(f"phase 27: K8 at S=16384 took {extra} bytes beyond its inputs (boundaries "
+             f"{boundaries} bytes)")
+    del big
+    # Timed: the kernel line at the 64 pairs above (unbanded, the twin on the
+    # same inputs), and at the route's launch size, 512 pairs at bucket 8192
+    # (longer side 8161-8192), unbanded and widen 16.
+    res = {"max_abs_err": max(errs.values()), "plain_ms": plain["unbanded"]}
+    res["ms"] = cuda_ms(lambda: dtw_long_batch(*args), 3)
+    cells = float(pair_cells(args[2], args[3], "full").sum())
+    res["bound_ms"], res["bound_by"] = bound(cells, d, pair_bytes(args[2], args[3], d))
+    log(f"phase 27: K8 vs plain on 64 pairs at S={S} (lengths 4097-8192, block 256): max abs err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (rtol "
+        f"{K8_RTOL:.3g}, atol {K8_ATOL}); hard band +inf on exactly the pairs outside it; "
+        f"at S={Sw} {done} agree, and each is bitwise equal to {sorted(witnessed)} (widen 16 "
+        f"and hard 16 at S={Sw}, unbanded at S=1024); two stripes of block columns with a halo "
+        f"bitwise equal to the whole grid (S={Sw}, unbanded and diag 16); a single block "
+        f"agrees; out-of-frame pairs +inf; 8 sequences against themselves on 4 x 4 blocks "
+        f"exactly 0")
+    log(f"phase 27: K8 vs its twin, largest relative difference per check (distances past 1; "
+        f"limit {K8_RTOL:.3g}): {json.dumps({k: float(f'{v:.3g}') for k, v in K8_READINGS.items()})}")
+    log(f"phase 27: K8 at S=16384 (4 pairs) agrees with its twin and took {extra} bytes beyond "
+        f"its inputs (H, V and corners {boundaries} bytes; an [S, S] cost matrix would be "
+        f"{16_384 ** 2 * 4} bytes a pair)")
+    log(f"phase 27: K8 {res['ms']:.3f} ms/call on the 64 pairs ({cells:.4g} cells, "
+        f"{rate_line(res['ms'], cells, res['bound_ms'])}), plain {res['plain_ms']:.3f} ms/call, "
+        f"{2 * (S // 256) - 1} launches a call")
+    del args
+    g = torch.Generator(device=dev).manual_seed(277)
+    la = torch.randint(4097, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
+    lb = torch.randint(S - 31, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
+    big_args = (torch.randn((512, S, d), generator=g, device=dev),
+                torch.randn((512, S, d), generator=g, device=dev), la, lb)
+    for mode, kw, kind in (("unbanded", dict(band=None), "full"),
+                           ("widen 16", dict(band=16), "widen")):
+        times: list[float] = []
+        cuda_ms(lambda: dtw_long_batch(*big_args, **kw), 3, per_call=times)
+        c = float(pair_cells(la, lb, kind, 16).sum())
+        b_ms, by = bound(c, d, pair_bytes(la, lb, d))
+        med = sorted(times)[len(times) // 2]
+        log(f"phase 27: K8 at the route's launch size (512 pairs, bucket {S}, {mode}): "
+            f"{spread(times)}, {c:.4g} cells, bound {b_ms:.3f} ms ({by}), {b_ms / med:.1%} of it")
+    return res
+
+
+def long_units_corpus_28(tmp: Path) -> tuple[Path, list]:
+    """24 clips of 120 s at 44.1 kHz with 3 motifs of 25-45 s, 2 a clip
+    (segments of ~4,300-7,750 frames; made once)."""
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    corpus = tmp / "long_units_28"
+    truth = make_corpus(corpus, n_clips=24, n_motifs=3, occurrences_per_clip=2,
+                        clip_seconds=120.0, motif_seconds=(25.0, 45.0), sample_rate=44_100,
+                        seed=28)
+    return corpus, [vars(t) for t in truth]
+
+
+def phase28(dev, tmp: Path) -> dict:
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig, PipelineConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+    from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
+
+    corpus, truth = long_units_corpus_28(tmp)
+    cfg = PipelineConfig().override({
+        "segmentation.max_len_frames": 8192, "dtw.max_seq_len": 8192, "dtw.band": None,
+        "autoencoder.method": "pca", "output.write_images": False,
+        "output.write_alignments": False,
+    })
+    for k in DTW_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = discover(corpus, cfg, out_dir=tmp / "long_units_28_out", device=dev)
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in DTW_KERNELS if k.launches}
+    if set(launched) != {"dtw_long_batch"}:
+        fail(f"phase 28: discover() launched {launched}; want dtw_long_batch alone")
+    D, f, n = res.distance_matrix, res.seg_features, res.seg_lengths
+    if not np.isfinite(D).all() or len(res.clusters) < 1:
+        fail("phase 28: non-finite distances or no clusters")
+    if int(n.min()) <= 4096:
+        fail(f"phase 28: segments of {int(n.min())}-{int(n.max())} frames; want all past 4096")
+    purity = manifest_purity(res.manifest(), truth)
+    # 8 distances against the twin on the card (S=8192, block 256: the
+    # route's blocks, whatever the bucket).
+    rng = np.random.default_rng(28)
+    ia = rng.integers(0, len(n), 8)
+    ib = (ia + rng.integers(1, len(n), 8)) % len(n)
+    fd = torch.from_numpy(f).to(dev)
+    nd = torch.from_numpy(n.astype(np.int32)).to(dev)
+    want = dtw_long_batch_ref(fd[ia], fd[ib], nd[ia], nd[ib], normalize="path_len")
+    got = torch.from_numpy(D[ia, ib]).to(dev)
+    k8_reading("phase 28 (8 distances vs the twin)", got, want)
+    err8 = agree("phase 28 (8 distances vs the twin)", got, want, K8_RTOL,
+                 K8_ATOL)
+    t = {k: round(v, 3) for k, v in res.counters.timings_s.items()}
+    log(f"phase 28: long units past 4096 frames ({len(n)} segments of {int(n.min())}-"
+        f"{int(n.max())} frames, d={f.shape[2]}, {len(res.clusters)} clusters, planted-truth "
+        f"purity {purity:.4f}): K8 launches {launched['dtw_long_batch']} and no other DTW "
+        f"kernel; 8 distances match the twin (max abs err {err8:.3g}, relative "
+        f"{K8_READINGS['phase 28 (8 distances vs the twin)']:.3g}); discover() wall "
+        f"{wall:.2f} s (alignments off); stages {t}")
+    # The job's DTW again through the scheduler: the same D bit for bit, and
+    # the split of its wall (K8's device time, gathers, host).
+    per_pair_split(dev, "unbanded", f, n, cfg.dtw, want=D)
+    # Widen band 16 on the same features: per pair (no tiled route past
+    # 4096 frames), on K8.
+    cfg_w = DTWConfig(band=16, band_mode="widen", max_seq_len=8192)
+    if ps.route_for(f.shape[1], cfg_w) != "per_pair":
+        fail("phase 28: route_for does not send a widen job of 8192 frames per pair")
+    n0 = dtw_long_batch.launches
+    D_w = per_pair_split(dev, "widen band 16", f, n, cfg_w)
+    if dtw_long_batch.launches == n0 or not np.isfinite(D_w).all():
+        fail("phase 28: the widen job did not launch K8 or gave non-finite distances")
+    agree("phase 28 (widen, 4 distances vs the twin)", torch.from_numpy(D_w[ia[:4], ib[:4]]).to(dev),
+          dtw_long_batch_ref(fd[ia[:4]], fd[ib[:4]], nd[ia[:4]], nd[ib[:4]], band=16,
+                             normalize="path_len"), K8_RTOL, K8_ATOL)
+    # Diag band 16: the tiled route (K1, at the widest tile whose classes it
+    # takes) and per pair (K8).
+    cfg_d = DTWConfig(band=16, band_mode="diag", max_seq_len=8192)
+    if ps.route_for(f.shape[1], cfg_d) != "diag":
+        fail("phase 28: route_for does not keep a diag job of 8192 frames on K1")
+    st_k1: dict = {}
+    n1 = dtw_tile_lane_diag_pairs.launches
+    t0 = time.perf_counter()
+    D_k1 = ps.all_pairs_distances(f, n, cfg_d, device=dev, stats=st_k1)
+    k1_wall = time.perf_counter() - t0
+    if dtw_tile_lane_diag_pairs.launches == n1:
+        fail("phase 28: the diag job did not launch K1")
+    D_k8 = per_pair_split(dev, "diag band 16", f, n, cfg_d)
+    diff = np.abs(D_k1 - D_k8)
+    if not (np.isfinite(D_k8).all() and np.array_equal(D_k1, D_k8)):
+        fail(f"phase 28: diag D on K1 (ti={st_k1['ti']}) and on K8 differ (max abs "
+             f"{np.nanmax(diff)})")
+    log(f"phase 28: diag band 16: K1 takes the job at ti={st_k1['ti']} ({st_k1['blocks']} "
+        f"launches, {st_k1['kernel_s']:.4f} s of device time, wall {k1_wall:.3f} s); D on K1 and "
+        f"on K8 bitwise equal")
+    # The per-pair route on 64 sequences of 1,100-4,096 frames, unbanded
+    # (K8 for every bucket: K6 ends at 1024), against the tiled K3 D.
+    fj, nj = sorted_corpus(64, 4096, 16, 1100, 4096, seed=28, dev=dev)
+    nj_np = nj.cpu().numpy()
+    cfg_u = DTWConfig(band=None, normalize="path_len")
+    t0 = time.perf_counter()
+    D_k3 = ps.all_pairs_distances(fj, nj_np, cfg_u, device=dev)
+    k3_wall = time.perf_counter() - t0
+    D_pp = per_pair_split(dev, "64 sequences of 1,100-4,096 frames, unbanded", fj, nj_np, cfg_u)
+    err = agree("phase 28 (per-pair K8 vs tiled K3)", torch.from_numpy(D_pp),
+                torch.from_numpy(D_k3), K3_RTOL, K3_ATOL)
+    log(f"phase 28: the per-pair route at 1,100-4,096 frames against the tiled K3 D (wall "
+        f"{k3_wall:.3f} s): max abs difference {err:.3g} (rtol {K3_RTOL}, atol {K3_ATOL})")
+    return {"launches": launched["dtw_long_batch"]}
+
+
+def phase29(dev, tmp: Path) -> None:
+    """A diag job of mixed lengths through ``discover()``: units of 2-40 s
+    (a few hundred to ~6,900 frames), so tiles of 128 hold classes too wide
+    for K1 and the scheduler halves the tile until K1 takes them; only K1
+    launches."""
+    from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch_ref, long_block_shape
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+    from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
+    from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
+
+    corpus = tmp / "mixed_diag_29"
+    truth = [vars(t) for t in make_corpus(
+        corpus, n_clips=16, n_motifs=3, occurrences_per_clip=2, clip_seconds=90.0,
+        motif_seconds=(2.0, 40.0), sample_rate=44_100, seed=29)]
+    cfg = PipelineConfig().override({
+        "segmentation.max_len_frames": 8192, "dtw.max_seq_len": 8192, "dtw.band": 16,
+        "dtw.band_mode": "diag", "autoencoder.method": "pca", "output.write_images": False,
+        "output.write_alignments": False,
+    })
+    for k in DTW_KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = discover(corpus, cfg, out_dir=tmp / "mixed_diag_29_out", device=dev)
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in DTW_KERNELS if k.launches}
+    if set(launched) != {"dtw_tile_lane_diag_pairs"}:
+        fail(f"phase 29: discover() launched {launched}; want dtw_tile_lane_diag_pairs alone")
+    D, f, n = res.distance_matrix, res.seg_features, res.seg_lengths
+    if not np.isfinite(D).all() or len(res.clusters) < 1:
+        fail("phase 29: non-finite distances or no clusters")
+    if not (int(n.min()) <= 1024 and int(n.max()) > 4096):
+        fail(f"phase 29: segments of {int(n.min())}-{int(n.max())} frames; want a mix of units "
+             "up to 1024 and past 4096 frames")
+    # The job's DTW again through the scheduler: the same D bit for bit,
+    # and the tile size it took.
+    st: dict = {}
+    if not np.array_equal(ps.all_pairs_distances(f, n, cfg.dtw, device=dev, stats=st), D):
+        fail("phase 29: the diag job's D through the scheduler differs from discover()'s")
+    # 8 distances against K8's twin (K1 and K8 agree bit for bit in phase 28).
+    rng = np.random.default_rng(29)
+    ia = rng.integers(0, len(n), 8)
+    ib = (ia + rng.integers(1, len(n), 8)) % len(n)
+    S8 = long_block_shape(int(max(n[ia].max(), n[ib].max())))[1]
+    fd = torch.zeros((len(n), S8, f.shape[2]), device=dev)
+    fd[:, : min(S8, f.shape[1])] = torch.from_numpy(f[:, :S8]).to(dev)
+    nd = torch.from_numpy(n.astype(np.int32)).to(dev)
+    want = dtw_long_batch_ref(fd[ia], fd[ib], nd[ia], nd[ib], band=16, band_mode="diag",
+                              normalize="path_len")
+    got = torch.from_numpy(D[ia, ib]).to(dev)
+    tag = "phase 29 (8 distances vs K8's twin)"
+    k8_reading(tag, got, want)
+    err = agree(tag, got, want, K8_RTOL, K8_ATOL)
+    log(f"phase 29: mixed-length diag band 16 through discover() ({len(n)} segments of "
+        f"{int(n.min())}-{int(n.max())} frames, {int((n <= 1024).sum())} up to 1024 and "
+        f"{int((n > 4096).sum())} past 4096, {len(res.clusters)} clusters, planted-truth purity "
+        f"{manifest_purity(res.manifest(), truth):.4f}): K1 alone launches "
+        f"({launched['dtw_tile_lane_diag_pairs']} launches) at ti={st['ti']} (the card's default "
+        f"{ps.DEFAULT_TI['cuda']}), {st['kernel_s']:.4f} s of device time; 8 distances match "
+        f"K8's twin (max abs err {err:.3g}, relative "
+        f"{K8_READINGS[tag]:.3g}); discover() wall "
+        f"{wall:.2f} s")
+
+
+def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> np.ndarray:
+    """The per-pair route (``all_pairs_distances(tiled=False)``) on a job of
+    K8's buckets: its D (bit for bit ``want`` where given), and its wall
+    beside the split: blocks, K8's launches and device time, the gathers,
+    the host's dispatch, collect and scatter."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    n0 = dtw_long_batch.launches
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = all_pairs_distances(f, n, cfg, device=dev, stats=stats, tiled=False)
+    wall = time.perf_counter() - t0
+    if want is not None and not np.array_equal(D, want):
+        fail(f"phase 28: the {tag} job's D through the scheduler differs from discover()'s")
+    by = stats["kernel_s_by"]
+    log(f"phase 28: per-pair route, {tag}: {stats['pairs']} pairs, wall {wall:.3f} s; "
+        f"{stats['blocks']} blocks, K8 {dtw_long_batch.launches - n0} launches and "
+        f"{by.get('dtw_long_batch', 0.0):.4f} s of device time, other kernels "
+        f"{json.dumps({k: round(v, 4) for k, v in by.items() if k != 'dtw_long_batch'})}, "
+        f"gathers {stats['gather_s']:.4f} s; host: dispatch {stats['dispatch_s']:.4f} s, "
+        f"collect {stats['collect_s']:.4f} s, scatter {stats['scatter_s']:.4f} s, enumerate "
+        f"{stats['enumerate_s']:.4f} s")
+    return D
+
+
 # The K4/K5 gate: class stripes (W = 2*wv+2 slots) and padded lengths at
 # which --crossover times both kernels on one job.
 CROSSOVER = ((128, 34), (128, 66), (128, 98), (128, 130), (128, 144), (256, 130), (256, 258),
@@ -2354,6 +2830,7 @@ def crossover(dev) -> None:
 # (a config-4 wide class), of K6, of K3 and of K7.
 _AGAINST = r"""
 import inspect, json, sys
+from pathlib import Path
 import numpy as np, torch
 tree, out = sys.argv[1], sys.argv[2]
 sys.path.insert(0, tree)
@@ -2434,21 +2911,31 @@ a7 = torch.randn((512, 1024, 16), generator=g, device=dev)
 b7 = torch.randn((512, 1024, 16), generator=g, device=dev)
 k7 = tk._dtw_batch_stripe(a7, b7, la7, lb7, band=16, max_len_diff=63).cpu().numpy()
 res["k7_ms"] = ms(lambda: tk._dtw_batch_stripe(a7, b7, la7, lb7, band=16, max_len_diff=63), 5)
-np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7, **k6)
+# K8 where the tree has it: 64 pairs at S=2048 (lengths 1025-2048), unbanded.
+k8 = {}
+if (Path(tree) / "audio_pattern_discovery_tpu_torch" / "ops" / "dtw_long.py").exists():
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch
+    la8 = torch.randint(1025, 2049, (64,), generator=g, device=dev, dtype=torch.int32)
+    lb8 = torch.randint(1025, 2049, (64,), generator=g, device=dev, dtype=torch.int32)
+    a8 = torch.randn((64, 2048, 16), generator=g, device=dev)
+    b8 = torch.randn((64, 2048, 16), generator=g, device=dev)
+    k8["k8"] = dtw_long_batch(a8, b8, la8, lb8).cpu().numpy()
+    res["k8_ms"] = ms(lambda: dtw_long_batch(a8, b8, la8, lb8), 3)
+np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7, **k6, **k8)
 print(json.dumps(res))
 """
 
 
 def against(other: Path) -> None:
-    """K1, K3, K4, K5, K6 and K7 of this checkout against another's (its
-    parent), each run in its own process in turns other, this, this, other:
-    K5's and K4's times at a config-4 wide class, K6's at phase 16's 4,096
-    pairs and at 131,072 in the per-pair route's order (widen band 16), K3's
-    at phase 7's shape and K7's at phase 16's; K1's outputs bitwise on phase
-    12's tiles (diag band 16), K4's on phase 12's tile-pairs and as the
-    config-4 widen D with K4 forced, K3's on phase 7's tile-pairs, K7's on
-    phase 16's pairs, and K6's largest difference (+inf in the same
-    places)."""
+    """K1, K3-K8 of this checkout against another's (its parent), each run
+    in its own process in turns other, this, this, other: K5's and K4's
+    times at a config-4 wide class, K6's at phase 16's 4,096 pairs and at
+    131,072 in the per-pair route's order (widen band 16), K3's at phase 7's
+    shape, K7's at phase 16's and K8's at 64 pairs of S=2048 where the
+    checkout has it; outputs bitwise: K1's on phase 12's tiles (diag band
+    16), K4's on phase 12's tile-pairs and as the config-4 widen D with K4
+    forced, K3's on phase 7's tile-pairs, K6's, K7's on phase 16's pairs,
+    and K8's across the runs that have it."""
     if not (other / "audio_pattern_discovery_tpu_torch").is_dir():
         fail(f"--against {other}: no audio_pattern_discovery_tpu_torch there")
     dev = torch.device("cuda", 0)
@@ -2468,30 +2955,29 @@ def against(other: Path) -> None:
                 fail(f"--against: the run in {tree} exited {proc.returncode}:\n"
                      f"{proc.stderr[-3000:]}")
             runs.append((json.loads(proc.stdout.strip().splitlines()[-1]), np.load(out)))
-        for key, name in (("k1", "K1"), ("k4", "K4"), ("D", "K4"), ("k3", "K3"), ("k7", "K7")):
+        for key, name in (("k1", "K1"), ("k4", "K4"), ("D", "K4"), ("k3", "K3"), ("k7", "K7"),
+                          ("k6_4096", "K6"), ("k6_131072", "K6")):
             if not all(np.array_equal(runs[0][1][key], r[1][key]) for r in runs[1:]):
                 fail(f"--against: {name}'s {key} differs from the other checkout's")
-        diffs = []
-        for n in (4096, 131072):
-            old, new = runs[0][1][f"k6_{n}"], runs[1][1][f"k6_{n}"]
-            if not np.array_equal(np.isinf(old), np.isinf(new)):
-                fail(f"--against: K6's +inf differ from the other checkout's at {n} pairs")
-            fin = np.isfinite(old)
-            diffs.append(f"{n} pairs {np.abs(new - old)[fin].max():.3g} (relative "
-                         f"{(np.abs(new - old) / np.maximum(np.abs(old), 1e-30))[fin].max():.3g})")
+        # K8 in the checkouts that have it: bitwise across their runs.
+        k8_runs = [r for r in runs if "k8" in r[1]]
+        if not all(np.array_equal(k8_runs[0][1]["k8"], r[1]["k8"]) for r in k8_runs[1:]):
+            fail("--against: K8's distances differ between runs")
         log("against: K1 on phase 12's tiles (diag band 16), K4 on phase 12's tile-pairs, the "
-            "config-4 widen D with K4 forced, K3 on phase 7's tile-pairs and K7 on phase 16's "
-            "pairs are bitwise equal to the other checkout's; K6 (widen band 16) differs by at "
-            f"most {', '.join(diffs)}")
+            "config-4 widen D with K4 forced, K3 on phase 7's tile-pairs, K6 (widen band 16) at "
+            "4,096 and 131,072 pairs and K7 on phase 16's pairs are bitwise equal to the other "
+            f"checkout's; K8 is in {len(k8_runs)} of the 4 runs, bitwise equal across them")
         shapes = {"k4_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k5_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k6_4096_ms": "at phase 16's 4,096 pairs (S=128, widen band 16)",
                   "k6_131072_ms": "at 131,072 pairs in the route's order",
                   "k3_ms": "at phase 7's shape (3 tile-pairs, S=1024)",
                   "k7_ms": "at phase 16's shape (512 pairs, S=1024, band 16, max_len_diff 63)"}
+        shapes["k8_ms"] = "at 64 pairs of 1,025-2,048 frames (S=2048, unbanded)"
         for key, shape in shapes.items():
-            log(f"against: {key[:2].upper()} {shape}: other {runs[0][0][key]:.3f} / "
-                f"{runs[3][0][key]:.3f} ms, this {runs[1][0][key]:.3f} / {runs[2][0][key]:.3f} ms")
+            got = [f"{r[0][key]:.3f}" if key in r[0] else "absent" for r in runs]
+            log(f"against: {key[:2].upper()} {shape}: other {got[0]} / {got[3]} ms, this "
+                f"{got[1]} / {got[2]} ms")
 
 
 def main() -> int:
@@ -2501,9 +2987,8 @@ def main() -> int:
     parser.add_argument("--crossover", action="store_true",
                         help="after phase 1, time K4 against K5 per class stripe and stop")
     parser.add_argument("--against", metavar="TREE",
-                        help="after phase 1, compare K1, K3, K4, K5, K6 and K7 with those of "
-                             "another checkout of the repo (in turns, bitwise for K1, K3, K4 and "
-                             "K7) and stop")
+                        help="after phase 1, compare K1, K3-K8 with those of another checkout "
+                             "of the repo (in turns, bitwise for K1, K3, K4, K6 and K7) and stop")
     args = parser.parse_args()
     only = {int(p) for p in args.phases.split(",") if p}
     if not torch.cuda.is_available():
@@ -2523,7 +3008,7 @@ def main() -> int:
     kernels = {name: {"name": fn, "route": "cuda", "source": f"{CSRC}/{name}.cu",
                       "replaces": replaces, "library_ms": None}
                for name, (fn, replaces) in KERNELS.items()}
-    k1, k2, k3, k4, k5, k6, k7 = (kernels[name] for name in KERNELS)
+    k1, k2, k3, k4, k5, k6, k7, k8 = (kernels[name] for name in KERNELS)
 
     def per_pair(res: dict) -> None:
         k6.update(res["k6"])
@@ -2576,6 +3061,9 @@ def main() -> int:
             lambda: phase24(dev, tmp),
             lambda: phase25(tmp),
             lambda: phase26(dev, tmp),
+            lambda: k8.update(phase27(dev)),
+            lambda: k8.update(phase28(dev, tmp)),
+            lambda: phase29(dev, tmp),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):

@@ -116,31 +116,44 @@ def test_tiny_corpus():
 @pytest.mark.parametrize(
     "cfg,match",
     [
-        (DTWConfig(band=None, max_seq_len=8192), "ops/dtw_long.py"),
-        (DTWConfig(band=4, band_mode="widen", max_seq_len=8192), "ops/dtw_long.py"),
+        (DTWConfig(band=None, max_seq_len=8192), None),
+        (DTWConfig(band=4, band_mode="widen", max_seq_len=8192), None),
         (DTWConfig(band=4, dtype="bfloat16"), "float32"),
     ],
 )
 def test_unported_routes_raise(cfg, match):
+    # bfloat16 still raises.  Unbanded and widen jobs padded past 4096 frames
+    # raised until the blocked wavefront (K8) was ported; no tiled route
+    # takes them, so they run per pair, as in the reference, and give the
+    # JAX package's D (here with short real lengths, so K6 takes every
+    # bucket; tests/test_torch_dtw_long.py holds K8's buckets).
     feats, lens = _case(17, K=4, L=cfg.max_seq_len if cfg.max_seq_len > 4096 else 32)
-    with pytest.raises(NotImplementedError, match=match):
-        tps.all_pairs_distances(feats, lens, cfg, device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tps.all_pairs_distances(feats, lens, cfg, device="cpu")
+        return
+    lens = (8 + lens % 300).astype(np.int32)
+    stats = {}
+    got = tps.all_pairs_distances(feats, lens, cfg, device="cpu", stats=stats)
+    assert stats["route"] == "per_pair"
+    want = jps.all_pairs_distances(
+        feats, lens, JCfg(band=cfg.band, band_mode=cfg.band_mode, max_seq_len=8192))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="no tiled route"):
+        tps.all_pairs_distances(feats, lens, cfg, device="cpu", tiled=True)
 
 
 @pytest.mark.parametrize(
     "L,route",
     [(8, "tile"), (200, "tile"), (256, "tile"), (257, "full"), (1024, "full"),
-     (4096, "full"), (4097, None)],
+     (4096, "full"), (4097, "per_pair")],
 )
 def test_unbanded_route_by_length(L, route):
     # The reference's routing: the time axis padded to a multiple of 128,
-    # the square tile kernel up to 256, the full-width kernel up to 4096.
+    # the square tile kernel up to 256, the full-width kernel up to 4096,
+    # and past that no tiled route: the per-pair scheduler (K8).
     cfg = DTWConfig(band=None)
-    if route is None:
-        with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
-            tps.route_for(L, cfg)
-    else:
-        assert tps.route_for(L, cfg) == route
+    assert tps.route_for(L, cfg) == route
     assert tps.route_for(L, DTWConfig(band=4, band_mode="diag")) == "diag"
 
 

@@ -148,6 +148,7 @@ from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
 from audio_pattern_discovery_tpu_torch.config import PipelineConfig
 from audio_pattern_discovery_tpu_torch.pipeline import discover
 import audio_pattern_discovery_tpu_torch.cli, audio_pattern_discovery_tpu_torch.ops.dtw_cuda
+import audio_pattern_discovery_tpu_torch.ops.dtw_long
 make_corpus({str(tmp_path / 'c')!r}, n_clips=4, n_motifs=2, clip_seconds=1.5, seed=3)
 cfg = PipelineConfig().override({{"dtw.band": 8, "autoencoder.method": "pca",
                                   "autoencoder.latent_dim": 4, "dtw.max_seq_len": 48}})
@@ -185,14 +186,26 @@ print("OK")
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        ({"dtw.band": None, "dtw.max_seq_len": 8192}, "ops/dtw_long.py"),
+        ({"dtw.band": None, "dtw.max_seq_len": 8192}, None),
         ({"dtw.dtype": "bfloat16"}, "float32 only"),
     ],
 )
-def test_unported_configs_raise(tmp_path, overrides, match):
+def test_unported_configs_raise(seed7, overrides, match):
+    # bfloat16 still raises before any work.  Unbanded DTW at max_seq_len
+    # 8192 raised until the blocked wavefront was ported: it runs per pair
+    # (no tiled route past 4096 frames) and gives the tiled route's D on the
+    # same segments (max_seq_len only pads them).
     cfg = PipelineConfig().override({"dtw.band": 16, "autoencoder.method": "pca", **overrides})
-    with pytest.raises(NotImplementedError, match=match):
-        discover(tmp_path, cfg, device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            discover(seed7, cfg, device="cpu")
+        return
+    got = discover(seed7, cfg, device="cpu")
+    assert got.counters.counts["dtw_tile_programs"] == 0      # the per-pair route
+    cfg.dtw.max_seq_len = 256
+    want = discover(seed7, cfg, device="cpu")
+    np.testing.assert_allclose(got.distance_matrix, want.distance_matrix, rtol=1e-5, atol=1e-6)
+    assert _partition(got.labels) == _partition(want.labels)
 
 
 def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path, capsys):
@@ -306,29 +319,60 @@ def test_discover_unbanded_matches_jax_pipeline(seed7):
         assert c_t.alignments == c_j.alignments
 
 
+@pytest.mark.parametrize("case", ["unbanded discover", "widen discover", "all_pairs"])
+def test_jobs_past_4096_frames_run(seed7, case):
+    # The three long jobs that raised, citing "ops/dtw_long.py", until the
+    # blocked wavefront was ported: each now runs on the per-pair route.
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+
+    if case == "all_pairs":
+        # One pair of 4200 and 4100 frames: a K8 bucket (blocks of 256).
+        stats = {}
+        D = all_pairs_distances(np.zeros((2, 4200, 2), np.float32), [4200, 4100],
+                                DTWConfig(band=None), device="cpu", stats=stats)
+        assert stats["route"] == "per_pair" and stats["blocks"] == 1
+        np.testing.assert_array_equal(D, 0.0)
+        return
+    mode = {"dtw.band": None} if case.startswith("unbanded") else {"dtw.band_mode": "widen"}
+    res = discover(seed7, PipelineConfig().override(
+        {"dtw.band": 16, "autoencoder.method": "pca", "dtw.max_seq_len": 5000, **mode}),
+        device="cpu")
+    assert np.isfinite(res.distance_matrix).all() and len(res.clusters) >= 1
+    assert res.counters.counts["dtw_tile_programs"] == 0
+
+
+def test_discover_past_4096_matches_jax_pipeline(seed7):
+    # dtw.max_seq_len past 4096, unbanded, PCA: the port's per-pair route
+    # against the JAX package's discover() with the same config, as
+    # test_discover_unbanded_matches_jax_pipeline does at 256.
+    from audio_pattern_discovery_tpu.config import PipelineConfig as JCfg
+    from audio_pattern_discovery_tpu.pipeline import discover as jdiscover
+
+    cfg, jcfg = _golden_config(), _golden_config(JCfg)
+    cfg.dtw.band = jcfg.dtw.band = None
+    cfg.dtw.max_seq_len = jcfg.dtw.max_seq_len = 5000
+    got = discover(seed7, cfg, device="cpu")
+    want = jdiscover(seed7, jcfg)
+    assert got.seg_features.shape[1] == 5000
+    np.testing.assert_allclose(got.distance_matrix, want.distance_matrix,
+                               rtol=1e-4, atol=1e-5)
+    assert _partition(got.labels) == _partition(want.labels)
+    assert got.counters.counts["dtw_tile_programs"] == 0
+
+
 def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
     # Every NotImplementedError of the port names its ROADMAP.md item by a
     # quoted title, and every quoted title is in ROADMAP.md.
     import re
 
-    from audio_pattern_discovery_tpu_torch.config import DTWConfig
-    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
-
     roadmap = (REPO / "ROADMAP.md").read_text().replace("`", "")
     base = {"dtw.band": 16, "autoencoder.method": "pca"}
     calls = [
-        lambda o=o: discover(tmp_path, PipelineConfig().override({**base, **o}), device="cpu")
-        for o in (
-            {"dtw.dtype": "bfloat16"},
-            {"dtw.band": None, "dtw.max_seq_len": 5000},
-            {"dtw.band_mode": "widen", "dtw.max_seq_len": 5000},
-        )
-    ]
-    calls += [
+        lambda: discover(tmp_path, PipelineConfig().override({**base, "dtw.dtype": "bfloat16"}),
+                         device="cpu"),
         lambda: cli_main(["--doctor"]),
         lambda: cli_main(["--trace", "trace_dir"]),
-        lambda: all_pairs_distances(np.zeros((2, 4200, 2), np.float32), [4200, 4100],
-                                    DTWConfig(band=None), device="cpu"),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError) as info:

@@ -41,8 +41,7 @@ def test_widen_gate(monkeypatch):
     assert tps.widen_kernel(160) is tk.dtw_tile_stripe_pairs
     widen = DTWConfig(band=16, band_mode="widen")
     assert tps.route_for(128, widen) == tps.route_for(4096, widen) == "widen"
-    with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
-        tps.route_for(4097, widen)
+    assert tps.route_for(4097, widen) == "per_pair"
     # A job with narrow and wide classes (the gate lowered to 64 slots, so a
     # small job has both) launches each class on its kernel (thin classes
     # kept apart here); forcing K5 gives the same D (on the CPU both run the
@@ -194,10 +193,14 @@ def test_per_pair_unported_options_raise(tmp_path):
                dict(max_retries=0)):
         got = tps.all_pairs_distances(feats, lens, cfg, tiled=False, **kw, device="cpu")
         np.testing.assert_array_equal(got, want)
-    long_feats = np.zeros((3, 1100, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="ops/dtw_long.py"):
-        tps.all_pairs_distances(long_feats, [1100, 1090, 60], DTWConfig(band=None), tiled=False,
-                                device="cpu")
+    # An unbanded bucket past K6's 1024 frames raised before K8: it runs,
+    # with the JAX package's D.
+    long_feats = np.random.default_rng(26).normal(0, 1, (3, 1100, 2)).astype(np.float32)
+    long_lens = np.array([1100, 1090, 60], np.int32)
+    got = tps.all_pairs_distances(long_feats, long_lens, DTWConfig(band=None), tiled=False,
+                                  device="cpu")
+    want = jps.all_pairs_distances(long_feats, long_lens, JCfg(band=None), tiled=False)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     with pytest.raises(NotImplementedError, match="float32"):
         tps.all_pairs_distances(feats, lens, DTWConfig(band=4, dtype="bfloat16"), tiled=False,
                                 device="cpu")
