@@ -12,13 +12,20 @@ thousands of frames fit.  The per-pair scheduler sends every bucket that
 K6 and K7 do not take here, and so does a diag bucket past
 ``MAX_KERNEL_SEQ_LEN``.
 
-``dtw_long_batch`` launches K8 (``csrc/dtw_long_block.cu``) on CUDA
-tensors: one launch per block anti-diagonal, a warp per active block and
-pair (``launches`` counts the launches), and runs the plain twin
-``dtw_long_batch_ref`` on CPU tensors; it never falls back from one to the
-other.  The twin is the reference's loop over the 2*nB-1 block diagonals,
-vectorized over pairs and the diagonal's blocks, with each block walked
-cell by cell along its own anti-diagonals (``dtw_block_kernel``), so twin
+``dtw_long_pairs`` is the merged call: any list of pairs by index into a
+corpus (on the card its ``frame_layout``, built once a job), each pair on
+its own grid of ceil(la/BLK) x ceil(lb/BLK) blocks, and every launch one
+block anti-diagonal of every pair that has one, so a call takes
+max_p(nBa + nBb - 1) launches however many pairs it holds.  The per-pair
+scheduler sends all of a job's K8 pairs through it.  ``dtw_long_batch``
+is its case ia = ib = arange(B) on two padded batches.  On CUDA tensors
+both launch K8 (``csrc/dtw_long_block.cu``: a CUDA block per DP block
+and pair, its frames staged in shared memory; ``dtw_long_batch.launches``
+counts the launches of both), and on CPU tensors they run the plain twins
+``dtw_long_pairs_ref`` and ``dtw_long_batch_ref``; they never fall back
+from one to the other.  The batch twin is the reference's loop over the
+2*nB-1 block diagonals, vectorized over pairs and the diagonal's blocks,
+with each block walked cell by cell along its own anti-diagonals (``dtw_block_kernel``), so twin
 and kernel add every cell's terms in the same order and differ only in
 each cost's rounding.  The reference resolves each block row with a
 min-plus Hillis-Steele scan, which reassociates the additions along the
@@ -33,19 +40,20 @@ side, and exact past them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
+    _BLOCK_RESERVED,
     _REF_MAX_ELEMS,
-    _SMEM_BUDGET,
+    _SM_SMEM,
     INF,
     METRICS,
+    _check_frame_layout,
     _check_pairs,
     _launch,
     _normalized,
     _unit_frames,
-    frame_layout,
-    strip_channels,
 )
 
 BAND_MODES = {"widen": 1, "diag": 2}   # csrc/dtw_long_block.cu; 0 is unbanded
@@ -277,16 +285,264 @@ def _long_rows(BLK: int, nc4: int) -> int:
     raise ValueError(f"K8 takes blocks of a multiple of 32 frames, got {BLK}")
 
 
-def _long_warps(R: int, nc4: int, BLK: int) -> int:
-    """Warps (one block of one pair each) per CUDA block of K8: each stages
-    a pass's A frames (32R x nc4 float4s) and the block's boundary row (BLK
-    floats); at most 4 warps (the kernel's launch bound)."""
-    per_warp = 4 * (4 * 32 * R * nc4 + 4 * -(-BLK // 4))
-    warps = min(4, _SMEM_BUDGET // per_warp)
-    if warps < 1:
-        raise ValueError(f"a pass of {32 * R} rows of {4 * nc4} channels does not fit one "
-                         f"block's shared memory ({_SMEM_BUDGET} bytes)")
-    return warps
+# K8's own shared-memory budget per CUDA block: the H100's opt-in maximum.
+_LONG_SMEM_BUDGET = 227 * 1024
+# B frames a warp holds staged (csrc/dtw_long_block.cu: kRing chunks of 32).
+_LONG_RING = 3 * 32
+# The fewest warps an SM must keep resident for K8 to stage B in rings.
+_LONG_MIN_RESIDENT = 8
+
+
+def _long_d4(R: int, nc4: int, stage_b: bool) -> int:
+    """The instantiation's compile-time frame width (``apd_dtw_long_block``):
+    the float4s a lane's A frames hold in registers, 0 where they are read
+    from the warp's staged pass."""
+    if stage_b and ((R == 4 and nc4 in (1, 2, 4)) or (R == 2 and nc4 == 8)):
+        return nc4
+    return 0
+
+
+def _long_smem(BLK: int, nc4: int, R: int, warps: int, stage_b: bool) -> int:
+    """Shared memory of one K8 CUDA block, in bytes (``smem_bytes`` of
+    ``csrc/dtw_long_block.cu``): per warp its pass's A frames (where they
+    are not in registers) and its ring of B frames (``stage_b``), then
+    warps + 1 row buffers and the left column, and per pass its counters."""
+    n_pass = BLK // (32 * R)
+    own = (0 if _long_d4(R, nc4, stage_b) else 32 * R * nc4) + (_LONG_RING * nc4 if stage_b
+                                                                 else 0)
+    words = (warps + 2) * BLK + 3 * (n_pass + 1) + n_pass
+    return 16 * warps * own + -(-words * 4 // 16) * 16
+
+
+def _long_config(R: int, nc4: int, BLK: int) -> tuple[int, bool]:
+    """(warps, stage_b) of a K8 CUDA block (one DP block): a warp per pass
+    of 32R rows, at most 8 (the kernel's launch bound), with B's frames
+    staged in rings where that keeps at least ``_LONG_MIN_RESIDENT`` warps
+    resident on an SM.  Otherwise B goes through the read-only cache, and
+    the warps drop until their staged A passes fit.  Raises where one warp's
+    does not."""
+    n_pass = BLK // (32 * R)
+    warps = min(n_pass, 8)
+    smem = _long_smem(BLK, nc4, R, warps, True)
+    resident = warps * min(32, _SM_SMEM // (smem + _BLOCK_RESERVED))
+    if smem <= _LONG_SMEM_BUDGET and resident >= _LONG_MIN_RESIDENT:
+        return warps, True
+    while warps > 1 and _long_smem(BLK, nc4, R, warps, False) > _LONG_SMEM_BUDGET:
+        warps -= 1
+    smem = _long_smem(BLK, nc4, R, warps, False)
+    if smem > _LONG_SMEM_BUDGET:
+        raise ValueError(f"a K8 pass of {32 * R} rows of {4 * nc4} channels needs {smem} bytes "
+                         f"of shared memory (budget {_LONG_SMEM_BUDGET})")
+    return warps, False
+
+
+def _long_plan(ia, ib, la, lb, Sa: int, Sb: int, BLK: int, *, nB: int | None = None,
+               J0: int = 0, nJ: int | None = None) -> dict:
+    """K8's launch plan for P pairs (host arrays): each pair's grid, its
+    boundaries' offsets and the blocks of every block anti-diagonal.
+
+    ``nB`` None: each pair its own grid of ceil(la/BLK) x ceil(lb/BLK)
+    blocks, none where a side is empty or past its layout (Sa, Sb frames:
+    the distance stays +inf).  ``nB`` given: every pair the nB x nB grid,
+    block columns [J0, J0 + nJ) of it (a stripe; V in ``[P, nB, BLK]``,
+    the halo's layout).  Returns ``meta`` [P, 8] int64 (ia, ib, la, lb,
+    nBa, then the pair's offsets into H, V and the corners), ``items``
+    [nK, P+1] int32 (per diagonal k, the prefix sum over pairs of their
+    blocks on it), ``totals`` [nK] int32 (blocks a launch), the sizes of H,
+    V and one parity of the corners, and ``launches`` (diagonals with a
+    block)."""
+    ia, ib = np.asarray(ia, np.int64), np.asarray(ib, np.int64)
+    la, lb = np.asarray(la, np.int64), np.asarray(lb, np.int64)
+    P = len(la)
+    if nB is None:
+        ok = (la > 0) & (lb > 0) & (la <= Sa) & (lb <= Sb)
+        nBa = np.where(ok, -(-la // BLK), 0)
+        Je = np.where(ok, -(-lb // BLK), 0)
+        J0 = 0
+    else:
+        nBa = np.full(P, nB, np.int64)
+        Je = np.full(P, min(J0 + nJ, nB), np.int64)
+    nJp = np.maximum(Je - J0, 0)
+    nBa = np.where(nJp > 0, nBa, 0)
+    nK = int(max(int((nBa + Je - 1).max(initial=0)), 0))
+    k = np.arange(nK, dtype=np.int64)[:, None]
+    lo = np.maximum(J0, k - nBa[None, :] + 1)
+    hi = np.minimum(k, Je[None, :] - 1)
+    cnt = np.clip(hi - lo + 1, 0, None)
+    items = np.zeros((nK, P + 1), np.int64)
+    np.cumsum(cnt, axis=1, out=items[:, 1:])
+    if items.size and items[:, -1].max() >= 2**31:
+        raise ValueError("too many DP blocks on one block diagonal for one K8 launch")
+
+    def starts(n):
+        return np.concatenate([[0], np.cumsum(n)[:-1]]).astype(np.int64) if P else n
+
+    meta = np.stack([ia, ib, la, lb, nBa, BLK * starts(nJp),
+                     BLK * (starts(nBa) if nB is None else nB * np.arange(P)),
+                     starts(nJp + 1)], axis=1).astype(np.int64)
+    totals = np.ascontiguousarray(items[:, -1], dtype=np.int32)
+    return dict(meta=np.ascontiguousarray(meta), items=np.ascontiguousarray(items, np.int32),
+                totals=totals, nK=nK, n_h=int(BLK * nJp.sum()),
+                n_v=int(BLK * (nBa.sum() if nB is None else P * nB)),
+                n_c=int((nJp + 1).sum()), launches=int((totals > 0).sum()))
+
+
+def long_boundary_bytes(la, lb, BLK: int) -> np.ndarray:
+    """Device bytes of each pair's boundaries in a merged K8 call: H and V
+    (ceil(lb/BLK) + ceil(la/BLK) rows of BLK floats) and its corners."""
+    la, lb = np.asarray(la, np.int64), np.asarray(lb, np.int64)
+    nBa, nBb = -(-la // BLK), -(-lb // BLK)
+    return 4 * (BLK * (nBa + nBb) + 2 * (nBb + 1))
+
+
+def _launch_plan(fa, fb, plan: dict, out, *, BLK: int, J0: int, halo, metric, band, auto_widen,
+                 band_mode, events=None, config: tuple[int, bool] | None = None) -> torch.Tensor:
+    """Run a plan of K8 on the card on the current stream: one launch per
+    block anti-diagonal with blocks (``plan["launches"]``).  ``events``
+    (two CUDA events, or None) are recorded around the launches alone;
+    ``config`` overrides ``_long_config``'s (warps, stage_b) (a timing
+    comparison's).  Returns V, the right columns of every pair's last block
+    column."""
+    dev = fa.device
+    nc4 = fa.shape[2] // 4
+    R = _long_rows(BLK, nc4)
+    warps, stage_b = config or _long_config(R, nc4, BLK)
+    # Boundaries: every entry is written before it is read.
+    H = torch.empty(max(plan["n_h"], 1), dtype=torch.float32, device=dev)
+    V = torch.empty(max(plan["n_v"], 1), dtype=torch.float32, device=dev)
+    C = torch.empty(2 * max(plan["n_c"], 1), dtype=torch.float32, device=dev)
+    meta = torch.from_numpy(plan["meta"]).to(dev)
+    items = torch.from_numpy(plan["items"]).to(dev)
+    if events:
+        events[0].record()
+    if plan["launches"]:
+        _launch(
+            "dtw_long_block", 10, 15,
+            fa.data_ptr(), fb.data_ptr(), meta.data_ptr(), items.data_ptr(),
+            plan["totals"].ctypes.data, H.data_ptr(), V.data_ptr(), C.data_ptr(),
+            0 if halo is None else halo.data_ptr(), out.data_ptr(), len(plan["meta"]),
+            fa.shape[1], fb.shape[1], nc4, BLK, plan["nK"], J0, plan["n_c"],
+            0 if band is None else BAND_MODES[band_mode], 0 if band is None else int(band),
+            int(bool(auto_widen)), METRICS[metric], warps, R, int(stage_b),
+            stream=torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if events:
+        events[1].record()
+    return V
+
+
+def _check_corpus(feats, lengths, name: str) -> tuple[int, int, int]:
+    """(K, L, d) of a corpus [K, L, d] f32 with lengths [K] i32 beside it."""
+    if feats.dim() != 3 or feats.dtype != torch.float32:
+        raise ValueError(f"{name} must be [K, L, d] float32, got {tuple(feats.shape)} "
+                         f"{feats.dtype}")
+    K = feats.shape[0]
+    if lengths.shape != (K,) or lengths.dtype != torch.int32 or lengths.device != feats.device:
+        raise ValueError(f"the lengths of {name} must be [{K}] int32 on {feats.device}, got "
+                         f"{tuple(lengths.shape)} {lengths.dtype} on {lengths.device}")
+    return feats.shape
+
+
+def dtw_long_pairs(
+    feats: torch.Tensor,       # [Ka, La, d] f32: the A sides' corpus
+    lengths: torch.Tensor,     # [Ka] i32
+    ia,                        # [P] indices into feats (numpy or a tensor)
+    ib,                        # [P] indices into feats_b
+    *,
+    feats_b: torch.Tensor | None = None,     # [Kb, Lb, d]; None: feats
+    lengths_b: torch.Tensor | None = None,   # [Kb] i32; None: lengths
+    frames: torch.Tensor | None = None,      # frame_layout(feats), prebuilt
+    metric: str = "euclidean",
+    band: int | None = None,
+    auto_widen: bool = True,
+    normalize: str = "none",
+    block: int = 256,
+    band_mode: str = "widen",
+    events: list | None = None,              # two CUDA events around the launches
+) -> torch.Tensor:
+    """Blocked DTW of the P pairs (feats[ia[p]], feats_b[ib[p]]) -> [P] f32,
+    normalized as ``normalize`` says: the merged K8 call.  Each pair runs on
+    its own grid of ceil(la/block) x ceil(lb/block) blocks, so a short pair
+    costs its own blocks only, and a call takes max_p(nBa + nBb - 1)
+    launches whatever the number of pairs.  A pair with an empty side or a
+    side past its corpus's L is +inf.
+
+    CUDA tensors launch K8 on the frame layouts (``frames``, the layout of
+    ``feats`` built once a job by the caller, or built here), count the
+    launches in ``dtw_long_batch.launches`` and record ``events``, where
+    given, before the first launch and after the last, so that they time
+    the kernel alone; the block must be a multiple of 32 frames there.  CPU tensors take the
+    plain twin ``dtw_long_pairs_ref``.  Any other device raises."""
+    if feats_b is None:
+        feats_b, lengths_b = feats, lengths
+    Ka, La, d = _check_corpus(feats, lengths, "feats")
+    Kb, Lb, db = _check_corpus(feats_b, lengths_b, "feats_b")
+    if db != d or feats_b.device != feats.device:
+        raise ValueError(f"feats {tuple(feats.shape)} and feats_b {tuple(feats_b.shape)} differ "
+                         "in frame width or device")
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    if normalize not in ("none", "path_len"):
+        raise ValueError(f"unknown normalize {normalize!r}")
+    if band_mode not in BAND_MODES:
+        raise ValueError(f"unknown band_mode {band_mode!r}")
+    if band is not None and int(band) < 0:
+        raise ValueError(f"band={band} must be >= 0 or None")
+    BLK = int(block)
+    if BLK < 1:
+        raise ValueError(f"block={block} must be >= 1")
+    ia_np = (ia.cpu().numpy() if isinstance(ia, torch.Tensor) else np.asarray(ia)).astype(np.int64)
+    ib_np = (ib.cpu().numpy() if isinstance(ib, torch.Tensor) else np.asarray(ib)).astype(np.int64)
+    if ia_np.shape != ib_np.shape or ia_np.ndim != 1:
+        raise ValueError(f"ia {ia_np.shape} and ib {ib_np.shape} must be one [P] each")
+    if len(ia_np) and not (0 <= ia_np.min() and ia_np.max() < Ka and 0 <= ib_np.min()
+                           and ib_np.max() < Kb):
+        raise ValueError(f"pair indices outside the corpora ({Ka}, {Kb} sequences)")
+    kw = dict(metric=metric, band=band, auto_widen=auto_widen, band_mode=band_mode)
+    dev = feats.device
+    if dev.type == "cpu":
+        return dtw_long_pairs_ref(feats, lengths, ia_np, ib_np, feats_b=feats_b,
+                                  lengths_b=lengths_b, normalize=normalize, block=BLK, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    ia_t, ib_t = torch.from_numpy(ia_np).to(dev), torch.from_numpy(ib_np).to(dev)
+    la, lb = lengths[ia_t], lengths_b[ib_t]
+    out = torch.full((len(ia_np),), INF, dtype=torch.float32, device=dev)
+    if len(ia_np) == 0:
+        return out
+    fa = _check_frame_layout(frames, feats, metric)
+    fb = fa if feats_b is feats else _check_frame_layout(None, feats_b, metric)
+    plan = _long_plan(ia_np, ib_np, la.cpu().numpy(), lb.cpu().numpy(), La, Lb, BLK)
+    _launch_plan(fa, fb, plan, out, BLK=BLK, J0=0, halo=None, events=events, **kw)
+    dtw_long_batch.launches += plan["launches"]
+    return _normalized(out, la, lb, normalize)
+
+
+def dtw_long_pairs_ref(feats, lengths, ia, ib, *, feats_b, lengths_b, metric, band, auto_widen,
+                       normalize, block, band_mode) -> torch.Tensor:
+    """Plain twin of ``dtw_long_pairs`` on the device of ``feats``: the pairs
+    grouped by their padded grid (the longer side rounded up to whole
+    blocks), each group gathered, zero-padded to it and run through
+    ``dtw_long_batch_ref``.  The twin is elementwise over pairs, so a pair's
+    distance does not depend on the group it lands in."""
+    La, Lb = feats.shape[1], feats_b.shape[1]
+    ia_t, ib_t = torch.from_numpy(ia).to(feats.device), torch.from_numpy(ib).to(feats.device)
+    la, lb = lengths[ia_t], lengths_b[ib_t]
+    out = torch.full((len(ia),), INF, dtype=torch.float32, device=feats.device)
+    la_np, lb_np = la.cpu().numpy().astype(np.int64), lb.cpu().numpy().astype(np.int64)
+    ok = (la_np > 0) & (lb_np > 0) & (la_np <= La) & (lb_np <= Lb)
+    grid = -(-np.maximum(la_np, lb_np) // block) * block
+    for S in np.unique(grid[ok]):
+        sel = torch.from_numpy(np.nonzero(ok & (grid == S))[0]).to(feats.device)
+
+        def side(f, idx, L):
+            x = f[idx, : min(int(S), L)]
+            return torch.nn.functional.pad(x, (0, 0, 0, int(S) - x.shape[1]))
+
+        out[sel] = dtw_long_batch_ref(
+            side(feats, ia_t[sel], La), side(feats_b, ib_t[sel], Lb), la[sel], lb[sel],
+            metric=metric, band=band, auto_widen=auto_widen, block=block, band_mode=band_mode)
+    return _normalized(out, la, lb, normalize)
 
 
 def dtw_long_batch(
@@ -307,27 +563,16 @@ def dtw_long_batch(
     ``dtw_batch`` at equal padded lengths).  A pair with an empty side or a
     side past S is +inf.
 
-    CUDA tensors launch K8 once per block anti-diagonal (``launches``
-    counts the launches; the block must be a multiple of 32 frames there);
-    CPU tensors take the plain twin.  Any other device raises."""
-    B, S, d, BLK, nB = _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode)
-    if band is not None and int(band) < 0:
-        raise ValueError(f"band={band} must be >= 0 or None")
-    kw = dict(metric=metric, band=band, auto_widen=auto_widen, normalize=normalize, block=block,
-              band_mode=band_mode)
-    if a.device.type == "cpu":
-        return dtw_long_batch_ref(a, b, len_a, len_b, **kw)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
-    out = torch.full((B,), INF, dtype=torch.float32, device=a.device)
-    if B == 0:
-        return out
-    xa, xb = frame_layout(a, metric), frame_layout(b, metric)
-    long_block_columns(xa, xb, len_a.contiguous(), len_b.contiguous(), out, block=BLK, J0=0,
-                       nJ=nB, metric=metric, band=band, auto_widen=auto_widen,
-                       band_mode=band_mode)
-    dtw_long_batch.launches += 2 * nB - 1
-    return _normalized(out, len_a, len_b, normalize)
+    The case ia = ib = arange(B) of ``dtw_long_pairs``, with ``a`` and ``b``
+    as the two corpora: CUDA tensors launch K8 once per block anti-diagonal
+    of the largest pair grid (``launches`` counts the launches of both
+    entries; the block must be a multiple of 32 frames there), CPU tensors
+    take the plain twin.  Any other device raises."""
+    B, _, _, BLK, _ = _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode)
+    idx = np.arange(B, dtype=np.int64)
+    return dtw_long_pairs(a, len_a, idx, idx, feats_b=b, lengths_b=len_b, metric=metric,
+                          band=band, auto_widen=auto_widen, normalize=normalize, block=BLK,
+                          band_mode=band_mode)
 
 
 def long_block_columns(
@@ -346,39 +591,30 @@ def long_block_columns(
     auto_widen: bool = True,
     band_mode: str = "widen",
 ) -> torch.Tensor:
-    """K8 on block columns [J0, J0 + nJ) of every pair's grid, on the card:
-    the 2*nB-1 block anti-diagonals in order on the current stream, one
-    launch each (the wrapper that calls this counts them).  ``halo``
-    [B, nB, BLK] holds the right columns of block column J0 - 1 (None: +inf,
-    the grid's left edge); the stripe's blocks that hold a pair's terminal
-    cell write it (unnormalized) into ``out``.  Returns the right columns of
-    block column J0 + nJ - 1, [B, nB, BLK]: the next stripe's halo.  The
-    whole grid is J0 = 0, nJ = nB; a stripe of block columns on each device
-    with its left neighbour's returned columns as ``halo`` gives the same
-    distances."""
+    """K8 on block columns [J0, J0 + nJ) of every pair's nB x nB grid, on
+    the card: the block anti-diagonals in order on the current stream, one
+    launch each (not counted: the stripe interface of the multi-device
+    wavefront).  ``halo`` [B, nB, BLK] holds the right columns of block
+    column J0 - 1 (None: +inf, the grid's left edge); the stripe's blocks
+    that hold a pair's terminal cell write it (unnormalized) into ``out``.
+    Returns the right columns of block column J0 + nJ - 1, [B, nB, BLK]:
+    the next stripe's halo.  The whole grid is J0 = 0, nJ = nB; a stripe of
+    block columns on each device with its left neighbour's returned columns
+    as ``halo`` gives the same distances."""
     B, S, c4 = xa.shape
-    nc4, BLK = c4 // 4, int(block)
+    BLK = int(block)
     nB = S // BLK
     if not (0 <= J0 and 1 <= nJ and J0 + nJ <= nB):
         raise ValueError(f"block columns [{J0}, {J0 + nJ}) outside the grid's {nB}")
-    if halo is not None and (halo.shape != (B, nB, BLK) or not halo.is_contiguous()):
-        raise ValueError(f"halo must be a contiguous [{B}, {nB}, {BLK}] tensor")
-    R = _long_rows(BLK, nc4)
-    warps = _long_warps(R, nc4, BLK)
-    # Boundaries: every entry is written before it is read.
-    H = torch.empty((B, nJ, BLK), dtype=torch.float32, device=xa.device)
-    V = torch.empty((B, nB, BLK), dtype=torch.float32, device=xa.device)
-    corners = torch.empty((2, B, nJ + 1), dtype=torch.float32, device=xa.device)
-    mode = 0 if band is None else BAND_MODES[band_mode]
-    _launch(
-        "dtw_long_block", 9, 15,
-        xa.data_ptr(), xb.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), H.data_ptr(),
-        V.data_ptr(), corners.data_ptr(), 0 if halo is None else halo.data_ptr(), out.data_ptr(),
-        B, S, nc4, BLK, nB, 0, 2 * nB - 1, J0, nJ, mode, 0 if band is None else int(band),
-        int(bool(auto_widen)), METRICS[metric], warps, R,
-        stream=torch.cuda.current_stream(xa.device).cuda_stream,
-    )
-    return V
+    if halo is not None and (halo.shape != (B, nB, BLK) or not halo.is_contiguous()
+                             or halo.data_ptr() % 16):
+        raise ValueError(f"halo must be a contiguous, 16-byte aligned [{B}, {nB}, {BLK}] tensor")
+    idx = np.arange(B, dtype=np.int64)
+    plan = _long_plan(idx, idx, len_a.cpu().numpy(), len_b.cpu().numpy(), S, S, BLK, nB=nB,
+                      J0=J0, nJ=nJ)
+    V = _launch_plan(xa, xb, plan, out, BLK=BLK, J0=J0, halo=halo, metric=metric, band=band,
+                     auto_widen=auto_widen, band_mode=band_mode)
+    return V[: B * nB * BLK].view(B, nB, BLK)
 
 
 dtw_long_batch.launches = 0

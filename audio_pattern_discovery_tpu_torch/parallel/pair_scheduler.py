@@ -36,10 +36,11 @@ length (``enumerate_pair_blocks``), gathered per block, K6
 (``dtw_batch_pallas``) or K7 (``_dtw_batch_stripe``) for widen and unbanded
 blocks, the plain ``ops/dtw.dtw_batch`` for diag blocks up to
 ``MAX_KERNEL_SEQ_LEN`` (the reference has no kernel there), and K8
-(``ops/dtw_long.dtw_long_batch``, the blocked wavefront) for every bucket
-past those, in blocks of at most 512 pairs; blocks padded to a power of two
-(K8's not: a pad pair is a whole DP there), a window of blocks in flight,
-and ``D += D.T``.
+(``ops/dtw_long.dtw_long_pairs``, the blocked wavefront) for every bucket
+past those, enumerated in the reference's blocks of at most 512 pairs but
+run as one merged call over all of a job's K8 pairs (each pair on its own
+grid, at most 63 launches at 8,192 frames); other blocks padded to a power
+of two, a window of blocks in flight, and ``D += D.T``.
 
 Both schedulers also keep the reference's index reuse and failure
 handling: ``known=(k_old, D_old)`` takes the distances among the first
@@ -89,12 +90,21 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     strip_layout,
     tile_rep_lengths,
 )
-from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, long_block_shape
+from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
+    dtw_long_pairs,
+    long_block_shape,
+    long_boundary_bytes,
+)
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 
-# The per-pair kernels' wrappers (K6, K7, K8): a block's device time goes to
-# the one whose launch counter its call moved.
-_PER_PAIR_KERNELS = (dtw_batch_pallas, _dtw_batch_stripe, dtw_long_batch)
+# The per-pair kernels' wrappers of a block's call (K6, K7): a block's device
+# time goes to the one whose launch counter its call moved.  K8's merged
+# calls are timed as ``dtw_long_batch``.
+_PER_PAIR_KERNELS = (dtw_batch_pallas, _dtw_batch_stripe)
+# The device bytes of K8's boundaries (H, V and corners) one merged call of
+# the per-pair scheduler may hold: 16,384 pairs of 8,192 frames (64 KiB a
+# pair at blocks of 256); a job past it runs as several merged calls.
+LONG_BOUNDARY_BUDGET = 1 << 30
 # Past this matrix size, blocks assemble per sorted row strip instead of
 # scattering straight into original-order D (reference: measured on the
 # host, per-block random-row writes degrade superlinearly past ~2 GB).
@@ -978,32 +988,39 @@ def all_pairs_distances_per_pair(
     and run ``_dtw_block``'s routing: widen and unbanded blocks go to
     ``dtw_batch_pallas`` (K6, or K7 where the stripe applies; their twins on
     the CPU), diag blocks up to MAX_KERNEL_SEQ_LEN to the plain
-    ``ops/dtw.dtw_batch``, and every other bucket to ``dtw_long_batch``
-    (K8), both sides padded to ``long_block_shape(bucket)``, in blocks of at
-    most 512 pairs (the reference's cap).  Other blocks are padded to a
-    power of two with self-pairs of sequence 0 (discarded); K8's are not (a
-    pad pair there costs a whole DP of sequence 0, and K8 takes any count).
-    Up to ten blocks are in flight, each pair lands in one triangle, and
-    ``D += D.T`` closes the matrix.  The kernels normalize inside, so the
-    scatter does not.
+    ``ops/dtw.dtw_batch``, and every other bucket to K8.  K8's buckets are
+    enumerated in blocks of at most 512 pairs (the reference's cap), which
+    stay the units of ``block_dir``, ``known=`` and ``stats["blocks"]``,
+    but are not dispatched one by one: the blocks not resumed run after the
+    others are dispatched, as merged ``dtw_long_pairs`` calls on the
+    corpus's ``frame_layout`` (built once), each pair unpadded on its own
+    grid of blocks of ``long_block_shape(bucket)``, as few calls as keep
+    each call's boundaries under ``LONG_BOUNDARY_BUDGET`` bytes, and each
+    call's distances split back per block.  Other blocks are padded to a
+    power of two with self-pairs of sequence 0 (discarded).  Up to ten
+    blocks are in flight, each pair lands in one triangle, and ``D += D.T``
+    closes the matrix.  The kernels normalize inside, so the scatter does
+    not.
 
     ``known=(k_old, D_old)``: only pairs touching a sequence >= k_old are
     enumerated (``new_from``), and D_old fills the old block after the
     symmetrization.  ``block_dir``: each block's distances persist as an
     ``.npz``; a block whose file exists is read back, never dispatched.
-    ``max_retries``: a block whose dispatch or collection raises is
-    dispatched again from its indices up to this many times.
+    ``max_retries``: a block (or a merged K8 call) whose dispatch or
+    collection raises is dispatched again from its indices up to this many
+    times.
 
-    ``stats`` receives the block, resumed-block and pad-pair counts, host
-    seconds per activity (enumerate, dispatch, collect: waiting for a
-    block's values, scatter, persist) and, on a CUDA device, from CUDA
-    events around each block: ``gather_s``, the device time of the blocks'
-    gathers, ``kernel_s``, that of the DTW calls, and ``kernel_s_by``, the
-    latter per entry name: the wrapper whose launch counter the call moved
-    (``dtw_batch_pallas`` for K6, ``_dtw_batch_stripe`` for K7,
-    ``dtw_long_batch`` for K8), else the entry called (``dtw_batch`` for
-    diag blocks).  The default device is the
-    card; without one, pass ``device="cpu"``."""
+    ``stats`` receives the block, resumed-block, pad-pair and merged K8 call
+    (``long_calls``) counts, host seconds per activity (enumerate, dispatch,
+    collect: waiting for a block's values, scatter, persist) and, on a CUDA
+    device, from CUDA events around each block and around each merged
+    call's launches: ``gather_s``, the device time of the blocks' gathers
+    (K8 gathers nothing), ``kernel_s``, that of the DTW calls, and
+    ``kernel_s_by``, the latter per entry name: the wrapper whose launch
+    counter the call moved (``dtw_batch_pallas`` for K6,
+    ``_dtw_batch_stripe`` for K7), ``dtw_long_batch`` for K8's merged
+    calls, else the entry called (``dtw_batch`` for diag blocks).  The
+    default device is the card; without one, pass ``device="cpu"``."""
     _check_dtype(cfg)
     device = resolve_device(device)
     K, L, d = features.shape
@@ -1040,7 +1057,7 @@ def all_pairs_distances_per_pair(
     stats.update(
         route="per_pair", dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, persist_s=0.0,
         enumerate_s=0.0, gather_s=0.0, kernel_s=0.0, kernel_s_by={}, blocks=0,
-        blocks_resumed=0, pad_pairs=0, pairs=n_all_pairs, tiled=False,
+        blocks_resumed=0, pad_pairs=0, pairs=n_all_pairs, tiled=False, long_calls=0,
     )
     on_cuda = device.type == "cuda"
 
@@ -1061,13 +1078,6 @@ def all_pairs_distances_per_pair(
                   normalize=cfg.normalize)
         if stripe_ok(bucket, mld):
             fn, kw["max_len_diff"] = dtw_batch_pallas, mld
-        elif bucket > MAX_KERNEL_SEQ_LEN:
-            # The blocked wavefront: both sides padded to whole blocks (the
-            # +inf length masks make the padding free).
-            kw["block"], padded = long_block_shape(bucket)
-            a = torch.nn.functional.pad(a, (0, 0, 0, padded - row_cap))
-            b = torch.nn.functional.pad(b, (0, 0, 0, padded - bucket))
-            fn, kw["band_mode"] = dtw_long_batch, cfg.band_mode
         else:
             fn, kw["band_mode"] = dtw_batch, cfg.band_mode
         if events:
@@ -1080,6 +1090,67 @@ def all_pairs_distances_per_pair(
         return vals, (moved[0] if moved else fn).__name__, events
 
     pending: list[tuple] = []
+    # K8's blocks, not dispatched one by one: (ii, jj, persist path, block).
+    long_blocks: list[tuple] = []
+
+    def run_long(group, frames):
+        """One merged K8 call over the pairs of ``group``'s blocks: (the
+        distances, and on a CUDA device events around its launches alone)."""
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_cuda else []
+        ia = np.concatenate([g[0] for g in group])
+        ib = np.concatenate([g[1] for g in group])
+        vals = dtw_long_pairs(feats_dev, lens_dev, ia, ib, frames=frames, metric=cfg.metric,
+                              band=cfg.band, auto_widen=cfg.auto_widen_band,
+                              normalize=cfg.normalize, block=group[0][3], band_mode=cfg.band_mode,
+                              events=events or None)
+        return vals, events
+
+    def run_long_blocks():
+        """All K8 blocks as merged calls, each under ``LONG_BOUNDARY_BUDGET``
+        bytes of boundaries (a block is never split), the distances split
+        back per block for the scatter and ``block_dir``."""
+        groups: list[list] = []
+        used = 0
+        for blk_args in long_blocks:
+            ii, jj, _, blk = blk_args
+            need = int(long_boundary_bytes(lengths[ii], lengths[jj], blk).sum())
+            if not groups or blk != groups[-1][0][3] or used + need > LONG_BOUNDARY_BUDGET:
+                groups.append([])
+                used = 0
+            groups[-1].append(blk_args)
+            used += need
+        # The corpus as K8 reads it, built once a job (the twin takes feats).
+        frames = frame_layout(feats_dev, cfg.metric) if on_cuda else None
+        for group in groups:
+            t0 = time.perf_counter()
+            try:
+                vals, events = run_long(group, frames)
+            except Exception as exc:
+                vals, events = _with_retries(lambda: run_long(group, frames), max_retries, exc)
+            stats["dispatch_s"] += time.perf_counter() - t0
+            stats["long_calls"] += 1
+            t0 = time.perf_counter()
+            try:
+                host = vals.cpu().numpy()
+                if events:
+                    secs = events[0].elapsed_time(events[1]) / 1e3
+                    stats["kernel_s"] += secs
+                    by = stats["kernel_s_by"]
+                    by["dtw_long_batch"] = by.get("dtw_long_batch", 0.0) + secs
+            except Exception as exc:
+                host = _with_retries(lambda: run_long(group, frames)[0].cpu().numpy(),
+                                     max_retries, exc)
+            stats["collect_s"] += time.perf_counter() - t0
+            s0 = 0
+            for ii, jj, path, _ in group:
+                t0 = time.perf_counter()
+                D[ii, jj] = host[s0 : s0 + len(ii)]
+                stats["scatter_s"] += time.perf_counter() - t0
+                if path is not None:
+                    t0 = time.perf_counter()
+                    np.savez(path, ii=ii, jj=jj, d=host[s0 : s0 + len(ii)])
+                    stats["persist_s"] += time.perf_counter() - t0
+                s0 += len(ii)
 
     def collect_one():
         ii, jj, vals, name, events, dispatch, path = pending.pop(0)
@@ -1129,7 +1200,11 @@ def all_pairs_distances_per_pair(
                     stats["blocks_resumed"] += 1
                     t_enum = time.perf_counter()
                     continue
-            B_blk = len(ii) if long else min(B, max(8, 1 << (len(ii) - 1).bit_length()))
+            if long:
+                long_blocks.append((ii, jj, path, long_block_shape(bucket)[0]))
+                t_enum = time.perf_counter()
+                continue
+            B_blk = min(B, max(8, 1 << (len(ii) - 1).bit_length()))
             ii_pad = np.zeros(B_blk, dtype=np.int64)
             jj_pad = np.zeros(B_blk, dtype=np.int64)
             ii_pad[: len(ii)], jj_pad[: len(jj)] = ii, jj
@@ -1149,6 +1224,8 @@ def all_pairs_distances_per_pair(
             if len(pending) >= 10:
                 collect_one()
             t_enum = time.perf_counter()
+    if long_blocks:
+        run_long_blocks()
     while pending:
         collect_one()
     D += D.T

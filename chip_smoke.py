@@ -149,14 +149,23 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    with a halo bit for bit against the whole grid (``long_block_columns``,
    unbanded and diag 16); a single block; 8 sequences against themselves on
    4 x 4 blocks, exactly 0 (the corner between diagonal blocks); 4 pairs at
-   S=16,384 with the memory beyond the inputs printed (boundaries only); K8
-   timed on the 64 pairs and at the route's launch size (512 pairs at
-   bucket 8192, unbanded and widen 16) with its bound;
+   S=16,384 with the memory beyond the inputs printed (boundaries only);
+   the merged call (``dtw_long_pairs``: 40 pairs of 300-2,048 frames by
+   index into one corpus) launching max(nBa + nBb - 1) times and bit for bit
+   K8 pair by pair, unbanded, widen 16 and diag 16; the frame widths past
+   K8's staged rings (d=64, 128, and 396, the widest one warp's A pass fits,
+   and d=64 at blocks of 64) against the twin; K8's configuration and shared
+   memory per CUDA block; K8 timed on the 64 pairs at d=16 and d=64, each
+   beside the other choice of B's staging, and at d=16 beside one warp for
+   both passes (in turns, distances bitwise equal), and at the route's
+   launch size (512 pairs at bucket 8192,
+   unbanded and widen 16) with its bound;
 28. long units past 4096 frames through ``discover()`` (24 clips of 120 s
    with 3 motifs of 25-45 s, unbanded, PCA, alignments off): K8 alone
    launches, 8 distances against the twin, purity, the stages; the job
-   again through the per-pair route (the same D) with the split of its
-   wall; on the same features widen band 16 (K8) and diag band 16 on the
+   again through the per-pair route (the same D and K8 launches, at most
+   max(nBa + nBb - 1) a merged call) with the split of its wall; on the same
+   features widen band 16 (K8) and diag band 16 on the
    tiled route (K1, at the tile size the scheduler picks) and per pair
    (K8), D bitwise equal; and the per-pair route on 64 sequences of
    1,100-4,096 frames unbanded (K8) against the tiled K3 D;
@@ -170,7 +179,9 @@ Two measurements outside the phases, each after phase 1 and then exit:
 (the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs
 K1, K3-K7 (and K8 where a checkout has it) from this checkout and from
 another (its parent, unpacked with ``git archive``) in turns, checks K1's,
-K3's, K4's, K6's and K7's outputs bitwise and reports their times.
+K3's, K4's, K6's and K7's outputs bitwise, K8's and phase 28's unbanded D
+(its features from this checkout's front end) bitwise across the runs, and
+reports their times and phase 28's per-pair wall and K8 time.
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
 beside their device time.  Kernel times are device times (``cuda_ms``:
@@ -2458,6 +2469,7 @@ def k8_stripes(tag: str, args, **kw) -> None:
 def phase27(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import strip_channels
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
+        _long_config,
         _long_rows,
         dtw_long_batch,
         dtw_long_batch_ref,
@@ -2502,6 +2514,13 @@ def phase27(dev) -> dict:
         k8_check(f"phase 27 (d={dd})", long_pairs(dev, 4, Sw, dd, Sw // 2, seed=271 + dd))
         witness(f"phase 27 (d={dd})", 4, dd, 281 + dd)
         done.append(f"d={dd} ({strip_channels(dd)} float4s, R={_long_rows(256, strip_channels(dd))})")
+    # Past the staged rings: B through the cache, fewer warps at the widest.
+    for dd, blk in ((64, 256), (128, 256), (396, 256), (64, 64)):
+        nc4 = strip_channels(dd)
+        cfg = _long_config(_long_rows(blk, nc4), nc4, blk)
+        k8_check(f"phase 27 (d={dd}, block {blk})",
+                 long_pairs(dev, 4, Sw, dd, Sw // 2, seed=271 + dd + blk), block=blk)
+        done.append(f"d={dd} block {blk} ({cfg[0]} warps, B {'staged' if cfg[1] else 'cached'})")
     for blk in (64, 128):
         k8_check(f"phase 27 (block {blk})", long_pairs(dev, 8, Sw, d, Sw // 2, seed=272 + blk),
                  block=blk)
@@ -2512,11 +2531,14 @@ def phase27(dev) -> dict:
         k8_stripes(f"phase 27 (stripes, {mode})", long_pairs(dev, 8, Sw, d, Sw // 4, seed=278),
                    **kw)
     k8_check("phase 27 (a single block)", long_pairs(dev, 8, 256, d, 1, seed=273), block=256)
-    a, b, _, _ = long_pairs(dev, 4, Sw, d, 1, seed=274)
-    oof = (a, b, torch.tensor([0, 1000, Sw + 1, 1000], dtype=torch.int32, device=dev),
-           torch.tensor([1000, 0, 1000, Sw + 1], dtype=torch.int32, device=dev))
+    # Out of frame: an empty side or a side past S (no block of K8's: +inf),
+    # beside one pair in frame (so the call launches).
+    a, b, _, _ = long_pairs(dev, 5, Sw, d, 1, seed=274)
+    oof = (a, b, torch.tensor([0, 1000, Sw + 1, 1000, 1500], dtype=torch.int32, device=dev),
+           torch.tensor([1000, 0, 1000, Sw + 1, 1200], dtype=torch.int32, device=dev))
     k8_check("phase 27 (out of frame)", oof)
-    if not bool(torch.isinf(dtw_long_batch(*oof)).all()):
+    got_oof = dtw_long_batch(*oof)
+    if not (bool(torch.isinf(got_oof[:4]).all()) and bool(torch.isfinite(got_oof[4]))):
         fail("phase 27: pairs with an empty side or a side past S did not come back +inf")
     # The corner: each of 8 sequences of 769-1024 frames against itself on a
     # grid of 4 x 4 blocks.  The optimal path is the main diagonal, which
@@ -2544,6 +2566,7 @@ def phase27(dev) -> dict:
         fail(f"phase 27: K8 at S=16384 took {extra} bytes beyond its inputs (boundaries "
              f"{boundaries} bytes)")
     del big
+    merged = k8_merged(dev)
     # Timed: the kernel line at the 64 pairs above (unbanded, the twin on the
     # same inputs), and at the route's launch size, 512 pairs at bucket 8192
     # (longer side 8161-8192), unbanded and widen 16.
@@ -2564,10 +2587,27 @@ def phase27(dev) -> dict:
     log(f"phase 27: K8 at S=16384 (4 pairs) agrees with its twin and took {extra} bytes beyond "
         f"its inputs (H, V and corners {boundaries} bytes; an [S, S] cost matrix would be "
         f"{16_384 ** 2 * 4} bytes a pair)")
+    log(f"phase 27: {merged}")
+    log(f"phase 27: K8 shared memory per CUDA block: {k8_smem()}")
     log(f"phase 27: K8 {res['ms']:.3f} ms/call on the 64 pairs ({cells:.4g} cells, "
         f"{rate_line(res['ms'], cells, res['bound_ms'])}), plain {res['plain_ms']:.3f} ms/call, "
         f"{2 * (S // 256) - 1} launches a call")
-    del args
+    # B staged in rings against B through the cache, on the same 64 pairs
+    # at d=16 and at d=64 (the same lengths), and at d=16 a warp per pass
+    # against one warp walking both passes, in turns.
+    wide = (torch.randn((64, S, 64), generator=torch.Generator(device=dev).manual_seed(2764),
+                        device=dev),) * 2 + args[2:]
+    for dd, pairs in ((d, args), (64, wide)):
+        nc4 = strip_channels(dd)
+        chosen = _long_config(_long_rows(256, nc4), nc4, 256)
+        others = ((chosen[0], not chosen[1]),) + (((1, chosen[1]),) if dd == d else ())
+        ms = k8_configs(f"phase 27 (d={dd})", pairs, (chosen, *others))
+        b_ms, _ = bound(cells, dd, pair_bytes(args[2], args[3], dd))
+        log(f"phase 27: K8 on the 64 pairs at d={dd}: " + "; ".join(
+            f"{w} warps, B {'staged' if st else 'cached'}{' (chosen)' if (w, st) == chosen else ''}"
+            f" {spread(t)}, {b_ms / sorted(t)[len(t) // 2]:.1%} of the bound {b_ms:.3f} ms"
+            for (w, st), t in ms.items()))
+    del args, wide
     g = torch.Generator(device=dev).manual_seed(277)
     la = torch.randint(4097, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
     lb = torch.randint(S - 31, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
@@ -2585,6 +2625,114 @@ def phase27(dev) -> dict:
     return res
 
 
+def k8_configs(tag: str, args, configs) -> dict:
+    """K8 unbanded on the same pairs (blocks of 256) under each (warps,
+    stage_b) of ``configs``, in turns (in order, then back, 3 calls each
+    time): each one's ms per call, the distances bitwise equal."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import INF, frame_layout
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import _launch_plan, _long_plan
+
+    a, b, la, lb = args
+    xa, xb = frame_layout(a, "euclidean"), frame_layout(b, "euclidean")
+    idx = np.arange(len(la))
+    plan = _long_plan(idx, idx, la.cpu().numpy(), lb.cpu().numpy(), a.shape[1], b.shape[1], 256)
+    outs, times = {}, {}
+
+    def run(cfg):
+        out = torch.full((len(la),), INF, device=a.device)
+        _launch_plan(xa, xb, plan, out, BLK=256, J0=0, halo=None, metric="euclidean", band=None,
+                     auto_widen=True, band_mode="widen", config=cfg)
+        return out
+
+    for cfg in (*configs, *configs[::-1]):
+        outs[cfg] = run(cfg)
+        cuda_ms(lambda: run(cfg), 3, per_call=times.setdefault(cfg, []))
+    if not all(torch.equal(outs[configs[0]], o) for o in outs.values()):
+        fail(f"{tag}: K8's configurations {list(outs)} give different distances")
+    return times
+
+
+def k8_merged(dev) -> str:
+    """The merged call (``dtw_long_pairs``) on 40 pairs by index into one
+    corpus of 16 sequences of 300-2,048 frames: launches max(nBa + nBb - 1)
+    over its pairs, each distance bit for bit K8 on that pair alone on its
+    own padded grid (``dtw_long_batch``), unbanded, widen 16 and diag 16;
+    unbanded within ``K8_RTOL`` of the merged twin."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
+        dtw_long_batch,
+        dtw_long_pairs,
+        dtw_long_pairs_ref,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(279)
+    K, S, d, blk = 16, 2048, 16, 256
+    n = torch.randint(300, S + 1, (K,), generator=g, device=dev, dtype=torch.int32)
+    x = torch.randn((K, S, d), generator=g, device=dev)
+    ia = torch.randint(0, K, (40,), generator=g, device=dev)
+    ib = (ia + torch.randint(1, K, (40,), generator=g, device=dev)) % K
+    nb = (n.long() + blk - 1) // blk
+    want_launches = int((nb[ia] + nb[ib] - 1).max())
+    for mode, kw in (("unbanded", dict(band=None)), ("widen 16", dict(band=16)),
+                     ("diag 16", dict(band=16, band_mode="diag"))):
+        n0 = dtw_long_batch.launches
+        got = dtw_long_pairs(x, n, ia, ib, block=blk, **kw)
+        torch.cuda.synchronize()
+        if dtw_long_batch.launches - n0 != want_launches:
+            fail(f"phase 27: the merged K8 call ({mode}) launched "
+                 f"{dtw_long_batch.launches - n0} times; want {want_launches}")
+        alone = []
+        for p in range(len(ia)):
+            Sp = int(torch.maximum(nb[ia[p]], nb[ib[p]])) * blk
+            alone.append(dtw_long_batch(x[ia[p : p + 1], :Sp], x[ib[p : p + 1], :Sp],
+                                        n[ia[p : p + 1]], n[ib[p : p + 1]], block=blk, **kw))
+        alone = torch.cat(alone)
+        if not torch.equal(got, alone):
+            fail(f"phase 27: the merged K8 call ({mode}) differs from K8 pair by pair on "
+                 f"{int((got != alone).sum())} of {len(got)} pairs")
+        if mode == "unbanded":
+            want = dtw_long_pairs_ref(x, n, ia.cpu().numpy(), ib.cpu().numpy(), feats_b=x,
+                                      lengths_b=n, normalize="none", block=blk,
+                                      metric="euclidean", band=None, auto_widen=True,
+                                      band_mode="widen")
+            k8_reading("phase 27 (merged, unbanded)", got, want)
+            agree("phase 27 (merged vs its twin)", got, want, K8_RTOL, K8_ATOL)
+    return (f"the merged call on 40 pairs of 300-2,048 frames by index into one corpus launched "
+            f"{want_launches} times (max nBa + nBb - 1) a mode and is bitwise K8 pair by pair "
+            f"on each pair's own grid (unbanded, widen 16, diag 16), unbanded within the twin's "
+            f"limit ({K8_READINGS['phase 27 (merged, unbanded)']:.3g} relative)")
+
+
+def k8_smem() -> str:
+    """K8's shared memory per CUDA block: the static bytes ptxas reports and
+    the dynamic bytes the wrapper asks for at blocks of 256 frames."""
+    from audio_pattern_discovery_tpu_torch.ops import _build
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import strip_channels
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import _long_config, _long_rows, _long_smem
+
+    ptxas = _build.build_info.get("dtw_long_block", (0.0, ""))[1]
+    static = max((int(m) for m in re.findall(r"(\d+) bytes smem", ptxas)), default=0)
+    dyn = {}
+    for dd in (4, 8, 16, 20, 40, 64, 128, 396):
+        nc4 = strip_channels(dd)
+        R = _long_rows(256, nc4)
+        warps, stage_b = _long_config(R, nc4, 256)
+        dyn[f"d={dd}"] = (f"{_long_smem(256, nc4, R, warps, stage_b)} bytes, {warps} warps, B "
+                          f"{'staged' if stage_b else 'cached'}")
+    return f"ptxas static {static} bytes; dynamic at blocks of 256 frames {json.dumps(dyn)}"
+
+
+def phase28_config():
+    """Phase 28's discovery config: units up to 8192 frames, unbanded, PCA,
+    alignments and images off."""
+    from audio_pattern_discovery_tpu_torch.config import PipelineConfig
+
+    return PipelineConfig().override({
+        "segmentation.max_len_frames": 8192, "dtw.max_seq_len": 8192, "dtw.band": None,
+        "autoencoder.method": "pca", "output.write_images": False,
+        "output.write_alignments": False,
+    })
+
+
 def long_units_corpus_28(tmp: Path) -> tuple[Path, list]:
     """24 clips of 120 s at 44.1 kHz with 3 motifs of 25-45 s, 2 a clip
     (segments of ~4,300-7,750 frames; made once)."""
@@ -2598,18 +2746,14 @@ def long_units_corpus_28(tmp: Path) -> tuple[Path, list]:
 
 
 def phase28(dev, tmp: Path) -> dict:
-    from audio_pattern_discovery_tpu_torch.config import DTWConfig, PipelineConfig
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
     from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
     from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
 
     corpus, truth = long_units_corpus_28(tmp)
-    cfg = PipelineConfig().override({
-        "segmentation.max_len_frames": 8192, "dtw.max_seq_len": 8192, "dtw.band": None,
-        "autoencoder.method": "pca", "output.write_images": False,
-        "output.write_alignments": False,
-    })
+    cfg = phase28_config()
     for k in DTW_KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2643,16 +2787,19 @@ def phase28(dev, tmp: Path) -> dict:
         f"kernel; 8 distances match the twin (max abs err {err8:.3g}, relative "
         f"{K8_READINGS['phase 28 (8 distances vs the twin)']:.3g}); discover() wall "
         f"{wall:.2f} s (alignments off); stages {t}")
-    # The job's DTW again through the scheduler: the same D bit for bit, and
-    # the split of its wall (K8's device time, gathers, host).
-    per_pair_split(dev, "unbanded", f, n, cfg.dtw, want=D)
+    # The job's DTW again through the scheduler: the same D bit for bit, the
+    # same launches, and the split of its wall (K8's device time, host).
+    _, split_launches = per_pair_split(dev, "unbanded", f, n, cfg.dtw, want=D)
+    if split_launches != launched["dtw_long_batch"]:
+        fail(f"phase 28: discover() launched K8 {launched['dtw_long_batch']} times, the same job "
+             f"through the scheduler {split_launches}")
     # Widen band 16 on the same features: per pair (no tiled route past
     # 4096 frames), on K8.
     cfg_w = DTWConfig(band=16, band_mode="widen", max_seq_len=8192)
     if ps.route_for(f.shape[1], cfg_w) != "per_pair":
         fail("phase 28: route_for does not send a widen job of 8192 frames per pair")
     n0 = dtw_long_batch.launches
-    D_w = per_pair_split(dev, "widen band 16", f, n, cfg_w)
+    D_w, _ = per_pair_split(dev, "widen band 16", f, n, cfg_w)
     if dtw_long_batch.launches == n0 or not np.isfinite(D_w).all():
         fail("phase 28: the widen job did not launch K8 or gave non-finite distances")
     agree("phase 28 (widen, 4 distances vs the twin)", torch.from_numpy(D_w[ia[:4], ib[:4]]).to(dev),
@@ -2670,7 +2817,7 @@ def phase28(dev, tmp: Path) -> dict:
     k1_wall = time.perf_counter() - t0
     if dtw_tile_lane_diag_pairs.launches == n1:
         fail("phase 28: the diag job did not launch K1")
-    D_k8 = per_pair_split(dev, "diag band 16", f, n, cfg_d)
+    D_k8, _ = per_pair_split(dev, "diag band 16", f, n, cfg_d)
     diff = np.abs(D_k1 - D_k8)
     if not (np.isfinite(D_k8).all() and np.array_equal(D_k1, D_k8)):
         fail(f"phase 28: diag D on K1 (ti={st_k1['ti']}) and on K8 differ (max abs "
@@ -2686,7 +2833,8 @@ def phase28(dev, tmp: Path) -> dict:
     t0 = time.perf_counter()
     D_k3 = ps.all_pairs_distances(fj, nj_np, cfg_u, device=dev)
     k3_wall = time.perf_counter() - t0
-    D_pp = per_pair_split(dev, "64 sequences of 1,100-4,096 frames, unbanded", fj, nj_np, cfg_u)
+    D_pp, _ = per_pair_split(dev, "64 sequences of 1,100-4,096 frames, unbanded", fj, nj_np,
+                             cfg_u)
     err = agree("phase 28 (per-pair K8 vs tiled K3)", torch.from_numpy(D_pp),
                 torch.from_numpy(D_k3), K3_RTOL, K3_ATOL)
     log(f"phase 28: the per-pair route at 1,100-4,096 frames against the tiled K3 D (wall "
@@ -2758,11 +2906,13 @@ def phase29(dev, tmp: Path) -> None:
         f"{wall:.2f} s")
 
 
-def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> np.ndarray:
+def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> tuple[np.ndarray, int]:
     """The per-pair route (``all_pairs_distances(tiled=False)``) on a job of
-    K8's buckets: its D (bit for bit ``want`` where given), and its wall
-    beside the split: blocks, K8's launches and device time, the gathers,
-    the host's dispatch, collect and scatter."""
+    K8's buckets: its D (bit for bit ``want`` where given) and K8's
+    launches, and its wall beside the split: blocks, merged K8 calls, K8's
+    launches (at most max(nBa + nBb - 1) over the job's pairs a merged call,
+    else it fails) and device time, the gathers, the host's dispatch,
+    collect and scatter."""
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch
     from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 
@@ -2774,15 +2924,22 @@ def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> np.ndarray:
     wall = time.perf_counter() - t0
     if want is not None and not np.array_equal(D, want):
         fail(f"phase 28: the {tag} job's D through the scheduler differs from discover()'s")
+    launches = dtw_long_batch.launches - n0
+    nb = -(-np.sort(np.asarray(n).astype(np.int64))[::-1] // 256)
+    per_call = int(nb[0] + nb[1] - 1)
+    if launches > per_call * stats["long_calls"]:
+        fail(f"phase 28: the {tag} job launched K8 {launches} times in {stats['long_calls']} "
+             f"merged calls; at most {per_call} a call")
     by = stats["kernel_s_by"]
     log(f"phase 28: per-pair route, {tag}: {stats['pairs']} pairs, wall {wall:.3f} s; "
-        f"{stats['blocks']} blocks, K8 {dtw_long_batch.launches - n0} launches and "
+        f"{stats['blocks']} blocks in {stats['long_calls']} merged K8 calls, K8 {launches} "
+        f"launches (at most {per_call} a call) and "
         f"{by.get('dtw_long_batch', 0.0):.4f} s of device time, other kernels "
         f"{json.dumps({k: round(v, 4) for k, v in by.items() if k != 'dtw_long_batch'})}, "
         f"gathers {stats['gather_s']:.4f} s; host: dispatch {stats['dispatch_s']:.4f} s, "
         f"collect {stats['collect_s']:.4f} s, scatter {stats['scatter_s']:.4f} s, enumerate "
         f"{stats['enumerate_s']:.4f} s")
-    return D
+    return D, launches
 
 
 # The K4/K5 gate: class stripes (W = 2*wv+2 slots) and padded lengths at
@@ -2829,7 +2986,7 @@ def crossover(dev) -> None:
 # 7's shape and K7 at phase 16's; the times of K4 and K5 at phase 12's shape
 # (a config-4 wide class), of K6, of K3 and of K7.
 _AGAINST = r"""
-import inspect, json, sys
+import inspect, json, sys, time
 from pathlib import Path
 import numpy as np, torch
 tree, out = sys.argv[1], sys.argv[2]
@@ -2921,6 +3078,23 @@ if (Path(tree) / "audio_pattern_discovery_tpu_torch" / "ops" / "dtw_long.py").ex
     b8 = torch.randn((64, 2048, 16), generator=g, device=dev)
     k8["k8"] = dtw_long_batch(a8, b8, la8, lb8).cpu().numpy()
     res["k8_ms"] = ms(lambda: dtw_long_batch(a8, b8, la8, lb8), 3)
+    # Wider frames on the same lengths: d=64 and d=128.
+    for dd in (64, 128):
+        aw = torch.randn((64, 2048, dd), generator=g, device=dev)
+        bw = torch.randn((64, 2048, dd), generator=g, device=dev)
+        k8[f"k8_d{dd}"] = dtw_long_batch(aw, bw, la8, lb8).cpu().numpy()
+        res[f"k8_d{dd}_ms"] = ms(lambda: dtw_long_batch(aw, bw, la8, lb8), 3)
+    # Phase 28's unbanded job through the per-pair route (the caller's
+    # features): its D, wall and K8 device time.
+    from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
+    job = np.load(sys.argv[4])
+    cfg28 = DTWConfig(**json.loads(sys.argv[5]))
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k8["d28"] = all_pairs_distances(job["f"], job["n"], cfg28, device=dev, stats=st, tiled=False)
+    res["d28_wall_s"] = time.perf_counter() - t0
+    res["d28_k8_s"] = st["kernel_s_by"].get("dtw_long_batch", 0.0)
 np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7, **k6, **k8)
 print(json.dumps(res))
 """
@@ -2935,7 +3109,10 @@ def against(other: Path) -> None:
     checkout has it; outputs bitwise: K1's on phase 12's tiles (diag band
     16), K4's on phase 12's tile-pairs and as the config-4 widen D with K4
     forced, K3's on phase 7's tile-pairs, K6's, K7's on phase 16's pairs,
-    and K8's across the runs that have it."""
+    and K8's across the runs that have it, at 64 pairs of S=2048 (d=16, 64
+    and 128, each timed) and as phase 28's unbanded D through the per-pair
+    route (phase 28's features from this checkout's front end), with that
+    job's wall and K8 time."""
     if not (other / "audio_pattern_discovery_tpu_torch").is_dir():
         fail(f"--against {other}: no audio_pattern_discovery_tpu_torch there")
     dev = torch.device("cuda", 0)
@@ -2946,10 +3123,20 @@ def against(other: Path) -> None:
         idx = Path(tmp_dir) / "k6_pairs.npz"
         np.savez(idx, **{k: v.cpu().numpy() for k, v in (
             ("ia4096", ia), ("ib4096", ib), ("ia131072", ia_r), ("ib131072", ib_r))})
+        from dataclasses import asdict
+
+        from audio_pattern_discovery_tpu_torch.pipeline import discover
+
+        corpus, _ = long_units_corpus_28(Path(tmp_dir))
+        cfg28 = phase28_config()
+        res28 = discover(corpus, cfg28, out_dir=Path(tmp_dir) / "out28", device=dev)
+        job28 = Path(tmp_dir) / "job28.npz"
+        np.savez(job28, f=res28.seg_features, n=res28.seg_lengths)
         runs = []
         for n, tree in enumerate((other, REPO, REPO, other)):
             out = Path(tmp_dir) / f"run{n}.npz"
-            proc = subprocess.run([sys.executable, "-c", _AGAINST, str(tree), str(out), str(idx)],
+            proc = subprocess.run([sys.executable, "-c", _AGAINST, str(tree), str(out), str(idx),
+                                   str(job28), json.dumps(asdict(cfg28.dtw))],
                                   cwd=tmp_dir, capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:
                 fail(f"--against: the run in {tree} exited {proc.returncode}:\n"
@@ -2961,12 +3148,15 @@ def against(other: Path) -> None:
                 fail(f"--against: {name}'s {key} differs from the other checkout's")
         # K8 in the checkouts that have it: bitwise across their runs.
         k8_runs = [r for r in runs if "k8" in r[1]]
-        if not all(np.array_equal(k8_runs[0][1]["k8"], r[1]["k8"]) for r in k8_runs[1:]):
-            fail("--against: K8's distances differ between runs")
+        for key in ("k8", "k8_d64", "k8_d128", "d28"):
+            if not all(np.array_equal(k8_runs[0][1][key], r[1][key]) for r in k8_runs[1:]):
+                fail(f"--against: K8's {key} differs between runs")
         log("against: K1 on phase 12's tiles (diag band 16), K4 on phase 12's tile-pairs, the "
             "config-4 widen D with K4 forced, K3 on phase 7's tile-pairs, K6 (widen band 16) at "
             "4,096 and 131,072 pairs and K7 on phase 16's pairs are bitwise equal to the other "
-            f"checkout's; K8 is in {len(k8_runs)} of the 4 runs, bitwise equal across them")
+            f"checkout's; K8 is in {len(k8_runs)} of the 4 runs, bitwise equal across them (64 "
+            f"pairs at S=2048 at d=16, 64 and 128, and phase 28's unbanded D of "
+            f"{len(res28.seg_lengths)} segments)")
         shapes = {"k4_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k5_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k6_4096_ms": "at phase 16's 4,096 pairs (S=128, widen band 16)",
@@ -2974,10 +3164,16 @@ def against(other: Path) -> None:
                   "k3_ms": "at phase 7's shape (3 tile-pairs, S=1024)",
                   "k7_ms": "at phase 16's shape (512 pairs, S=1024, band 16, max_len_diff 63)"}
         shapes["k8_ms"] = "at 64 pairs of 1,025-2,048 frames (S=2048, unbanded)"
+        for dd in (64, 128):
+            shapes[f"k8_d{dd}_ms"] = f"at the same 64 pairs at d={dd}"
         for key, shape in shapes.items():
             got = [f"{r[0][key]:.3f}" if key in r[0] else "absent" for r in runs]
             log(f"against: {key[:2].upper()} {shape}: other {got[0]} / {got[3]} ms, this "
                 f"{got[1]} / {got[2]} ms")
+        for key, what in (("d28_wall_s", "wall"), ("d28_k8_s", "K8 device time")):
+            got = [f"{r[0][key]:.4f}" if key in r[0] else "absent" for r in runs]
+            log(f"against: phase 28's unbanded job per pair, {what}: other {got[0]} / {got[3]} s, "
+                f"this {got[1]} / {got[2]} s")
 
 
 def main() -> int:

@@ -24,6 +24,7 @@ from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle
 from audio_pattern_discovery_tpu.parallel import pair_scheduler as jps
 from audio_pattern_discovery_tpu.config import DTWConfig as JCfg
 from audio_pattern_discovery_tpu_torch.config import DTWConfig
+from audio_pattern_discovery_tpu_torch.ops import dtw_cuda as tdc
 from audio_pattern_discovery_tpu_torch.ops import dtw_long as tdl
 from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as tps
 
@@ -187,8 +188,19 @@ def test_k8_launch_geometry_and_devices():
     assert tdl._long_rows(256, 8) == 2 and tdl._long_rows(96, 4) == 1
     with pytest.raises(ValueError, match="multiple of 32"):
         tdl._long_rows(16, 4)
-    assert tdl._long_warps(4, 4, 256) == 4
-    assert 1 <= tdl._long_warps(4, 10, 256) <= 4
+    # A warp per pass of 32R rows (a CUDA block per DP block), B's frames
+    # staged in a ring of 96 a warp where that leaves 8 warps resident on an
+    # SM (A in registers at 1, 2 and 4 float4s, or 8 at R = 2); wider frames
+    # read B through the cache, with fewer warps where their staged A passes
+    # need it, and a pass whose A frames do not fit raises.
+    assert [tdl._long_config(4, 4, 256), tdl._long_config(2, 8, 256),
+            tdl._long_config(4, 4, 128), tdl._long_config(1, 10, 96),
+            tdl._long_config(4, 16, 256), tdl._long_config(4, 99, 256)] == [
+        (2, True), (4, True), (1, True), (3, True), (2, False), (1, False)]
+    assert tdl._long_smem(256, 4, 4, 2, True) == 2 * 96 * 4 * 16 + 4144
+    assert tdl._long_smem(256, 16, 4, 2, False) == 2 * 128 * 16 * 16 + 4144
+    with pytest.raises(ValueError, match="shared memory"):
+        tdl._long_config(4, 120, 256)
     a = torch.zeros((2, 64, 4))
     n = torch.full((2,), 64, dtype=torch.int32)
     with pytest.raises(ValueError, match="equal padded lengths"):
@@ -198,6 +210,21 @@ def test_k8_launch_geometry_and_devices():
     meta = a.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tdl.dtw_long_batch(meta, meta, n.to("meta"), n.to("meta"), block=32)
+
+
+@pytest.mark.parametrize("BLK", [32, 64, 96, 128, 256, 512, 1024, 2048])
+def test_k8_takes_every_width_one_staged_pass_fits(BLK):
+    # K8 runs every frame width at which one warp's staged A pass (32R frames)
+    # and one boundary row fit the port's shared-memory budget, as the walk
+    # that reads B from the cache needs; its block then fits K8's budget.
+    for nc4 in range(1, 200):
+        R = tdl._long_rows(BLK, nc4)
+        if 16 * 32 * R * nc4 + 4 * BLK > tdc._SMEM_BUDGET:
+            break
+        warps, stage_b = tdl._long_config(R, nc4, BLK)
+        assert 1 <= warps <= min(BLK // (32 * R), 8), (nc4, warps)
+        assert tdl._long_smem(BLK, nc4, R, warps, stage_b) <= tdl._LONG_SMEM_BUDGET, nc4
+    assert nc4 > 90
 
 
 def _long_case(seed, K, L, lo, d=3):
@@ -280,15 +307,19 @@ def test_long_block_cap_gives_the_reference_blocks(monkeypatch, tmp_path):
                             block_dir=tmp_path / "jax")
     monkeypatch.setattr(tps, "_block_key", recorder(tps, "torch"))
     calls = []
-    monkeypatch.setattr(tps, "dtw_long_batch",
-                        lambda a, b, la, lb, **k: calls.append((len(la), a.shape[1])) or
-                        torch.zeros(len(la)))
+    monkeypatch.setattr(tps, "dtw_long_pairs",
+                        lambda f, n, ia, ib, **k: calls.append((ia, ib, k["block"])) or
+                        torch.zeros(len(ia)))
     tps.all_pairs_distances(feats, lengths, DTWConfig(**kw), tiled=False, device="cpu",
                             block_dir=tmp_path / "torch")
     assert keyed["torch"] == keyed["jax"]
     assert sorted(len(ii) for ii, _ in keyed["torch"]) == [10, 200, 268, 512]
-    # K8 takes the three long blocks unpadded, both sides at 1280 frames.
-    assert sorted(calls) == [(200, 1280), (268, 1280), (512, 1280)]
+    # K8 takes the three long blocks' 980 pairs unpadded in one merged call,
+    # by index into the corpus, in the blocks' order, with blocks of 256.
+    long = [(ii, jj) for ii, jj in keyed["torch"] if len(ii) != 10]
+    assert len(calls) == 1 and calls[0][2] == 256
+    assert calls[0][0].tolist() == sum((ii for ii, _ in long), [])
+    assert calls[0][1].tolist() == sum((jj for _, jj in long), [])
 
 
 def test_diag_route_halves_the_tile_until_k1_takes_it():
@@ -330,3 +361,167 @@ def test_long_block_columns_checks_its_range():
     with pytest.raises(ValueError, match="halo"):
         tdl.long_block_columns(x, x, n, n, out, block=256, J0=1, nJ=1,
                                halo=torch.zeros((2, 2, 128)))
+
+
+def _ref_pairs(feats, lengths, ia, ib, S, **kw):
+    """dtw_long_batch_ref on the pairs gathered, cut or zero-padded to S
+    frames."""
+    x = torch.from_numpy(feats[:, :S])
+    x = torch.nn.functional.pad(x, (0, 0, 0, S - x.shape[1]))
+    n = torch.from_numpy(lengths)
+    return tdl.dtw_long_batch_ref(x[ia], x[ib], n[ia], n[ib], **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(band=None), dict(band=16, band_mode="widen"),
+                                dict(band=16, band_mode="diag", normalize="path_len")],
+                         ids=["unbanded", "widen", "diag"])
+def test_merged_pairs_twin_equals_batch_ref_pair_by_pair(kw):
+    # Pairs of mixed buckets (1,100-1,400 frames, blocks of 256: grids of 5 x 5
+    # to 6 x 6 blocks) in one merged call: each distance bitwise the batch
+    # twin's on that pair alone, at the corpus's padded length.
+    feats, lengths = _long_case(12, K=5, L=1400, lo=1100)
+    ia = np.array([0, 1, 2, 3, 4, 0], np.int64)
+    ib = np.array([1, 2, 3, 4, 0, 3], np.int64)
+    got = tdl.dtw_long_pairs(torch.from_numpy(feats), torch.from_numpy(lengths), ia, ib,
+                             block=256, **kw)
+    for p in range(len(ia)):
+        want = _ref_pairs(feats, lengths, ia[p : p + 1], ib[p : p + 1], 1536, block=256, **kw)
+        assert torch.equal(got[p : p + 1], want), p
+
+
+def test_merged_pairs_give_each_pair_its_own_grid():
+    # A pair far below the call's largest (300 and 280 frames beside 1,300)
+    # runs on its own 2 x 2 blocks, with the distance it has alone; empty
+    # sides and sides past the corpus's L are +inf.
+    rng = np.random.default_rng(13)
+    feats = rng.normal(0, 1, (4, 1300, 3)).astype(np.float32)
+    lengths = np.array([1300, 1250, 300, 280], np.int32)
+    ia, ib = np.array([0, 2, 3, 1]), np.array([1, 3, 2, 0])
+    x, n = torch.from_numpy(feats), torch.from_numpy(lengths)
+    got = tdl.dtw_long_pairs(x, n, ia, ib, block=256)
+    short = _ref_pairs(feats, lengths, ia[1:3], ib[1:3], 512, block=256)
+    assert torch.equal(got[1:3], short)
+    assert torch.equal(got[[0, 3]], _ref_pairs(feats, lengths, ia[[0, 3]], ib[[0, 3]], 1536,
+                                               block=256))
+    np.testing.assert_allclose(got[1].item(), dtw_oracle(feats[2, :300], feats[3, :280]),
+                               rtol=1e-4)
+    n_odd = torch.tensor([1300, 0, 300, 280], dtype=torch.int32)
+    odd = tdl.dtw_long_pairs(x, n_odd, np.array([0, 1, 2]), np.array([1, 2, 3]), block=256)
+    assert torch.isinf(odd[:2]).all() and torch.equal(odd[2:], got[1:2])
+    assert torch.isinf(tdl.dtw_long_pairs(x, torch.tensor([1301, 9, 9, 9], dtype=torch.int32),
+                                          np.array([0]), np.array([1]))).all()
+    with pytest.raises(ValueError, match="outside the corpora"):
+        tdl.dtw_long_pairs(x, n, np.array([4]), np.array([0]))
+
+
+def _per_block_ref(feats, lengths, cfg):
+    """The per-pair route's D as the blocks ran before the merged call: each
+    enumerated K8 block padded to long_block_shape(bucket) and run through
+    dtw_long_batch_ref."""
+    K, L, _ = feats.shape
+    D = np.zeros((K, K), np.float32)
+    for _, bucket, _, ii, jj in tps.enumerate_pair_blocks(
+            lengths, 512, min(32, L), L, band=cfg.band, auto_widen=cfg.auto_widen_band):
+        blk, S = tdl.long_block_shape(bucket)
+        D[ii, jj] = _ref_pairs(feats, lengths, ii, jj, S, block=blk, metric=cfg.metric,
+                               band=cfg.band, auto_widen=cfg.auto_widen_band,
+                               normalize=cfg.normalize, band_mode=cfg.band_mode).numpy()
+    return D + D.T
+
+
+@pytest.mark.parametrize("band,band_mode", [(None, "widen"), (24, "diag")])
+def test_merged_route_matches_jax_and_per_block_twin(band, band_mode):
+    # Six sequences of 1,100-1,400 frames, bucketed by 32 frames: K8's blocks
+    # of several buckets run as one merged call, within 1e-4 of the JAX
+    # package's per-pair route and bitwise the per-block twin calls.
+    feats, lengths = _long_case(14, K=6, L=1400, lo=1100)
+    kw = dict(max_seq_len=1400, band=band, band_mode=band_mode)
+    stats = {}
+    got = tps.all_pairs_distances(feats, lengths, DTWConfig(**kw), tiled=False, device="cpu",
+                                  stats=stats)
+    assert stats["blocks"] > 1 and stats["long_calls"] == 1 and stats["pad_pairs"] == 0
+    want = jps.all_pairs_distances(feats, lengths, JCfg(use_pallas=False, **kw))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got, _per_block_ref(feats, lengths, DTWConfig(**kw)))
+
+
+def test_merged_route_under_budget_retries_and_resume(monkeypatch, tmp_path):
+    # A boundary budget below one call's pairs splits the job into several
+    # merged calls; a merged call that fails once is run again from its
+    # indices; a rerun with block_dir resumes every block: all give the full
+    # D bitwise.
+    feats, lengths = _long_case(15, K=5, L=1300, lo=1100)
+    cfg = DTWConfig(band=None, max_seq_len=1300)
+    stats = {}
+    full = tps.all_pairs_distances(feats, lengths, cfg, tiled=False, device="cpu", stats=stats)
+    assert stats["long_calls"] == 1
+    monkeypatch.setattr(tps, "LONG_BOUNDARY_BUDGET", 1)
+    stats = {}
+    got = tps.all_pairs_distances(feats, lengths, cfg, tiled=False, device="cpu", stats=stats)
+    assert stats["long_calls"] == stats["blocks"] > 1
+    np.testing.assert_array_equal(got, full)
+    monkeypatch.setattr(tps, "LONG_BOUNDARY_BUDGET", 1 << 30)
+    real, failed = tps.dtw_long_pairs, []
+
+    def flaky(*args, **kw):
+        if not failed:
+            failed.append(1)
+            raise RuntimeError("transient launch failure")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tps, "dtw_long_pairs", flaky)
+    np.testing.assert_array_equal(
+        tps.all_pairs_distances(feats, lengths, cfg, tiled=False, device="cpu"), full)
+    assert failed
+    failed.clear()
+    with pytest.raises(RuntimeError, match="transient"):
+        tps.all_pairs_distances(feats, lengths, cfg, tiled=False, device="cpu", max_retries=0)
+    monkeypatch.setattr(tps, "dtw_long_pairs", real)
+    for n in range(2):
+        stats = {}
+        got = tps.all_pairs_distances(feats, lengths, cfg, tiled=False, device="cpu",
+                                      block_dir=tmp_path, stats=stats)
+        np.testing.assert_array_equal(got, full)
+        assert stats["long_calls"] == 1 - n and stats["blocks_resumed"] == n * stats["blocks"]
+    np.testing.assert_array_equal(tps.all_pairs_distances(
+        feats, lengths, cfg, tiled=False, device="cpu", known=(2, full[:2, :2])), full)
+
+
+@pytest.mark.parametrize("stripe", [None, (0, 4), (1, 2)], ids=["merged", "whole", "stripe"])
+def test_k8_plan_lists_every_block_once(stripe):
+    # K8's launch plan, decoded as the kernel decodes it (a CUDA block's
+    # pair by binary search over launch k's prefix sums, its block column
+    # the pair's first on the diagonal plus its rank): every block of every
+    # pair's grid (its own in a merged call; the nB x nB grid's columns
+    # [J0, J0 + nJ) in a stripe) once, on diagonal I + J; the boundaries'
+    # offsets disjoint; empty and overlong sides no block.
+    la = np.array([1300, 300, 0, 1024, 1025, 7], np.int64)
+    lb = np.array([280, 1300, 50, 1024, 1100, 9], np.int64)
+    ia, ib = np.arange(6), np.arange(6)[::-1].copy()
+    BLK, S = 256, 1100 if stripe is None else 1024
+    kw = {} if stripe is None else dict(nB=4, J0=stripe[0], nJ=stripe[1])
+    plan = tdl._long_plan(ia, ib, la, lb, S + 200, S, BLK, **kw)
+    meta, items = plan["meta"], plan["items"]
+    if stripe is None:
+        ok = (la > 0) & (lb > 0) & (la <= S + 200) & (lb <= S)
+        nBa, nBb = np.where(ok, -(-la // BLK), 0), np.where(ok, -(-lb // BLK), 0)
+        J0 = 0
+    else:
+        nBa, nBb, J0 = np.full(6, 4), np.full(6, stripe[0] + stripe[1]), stripe[0]
+    want = {(p, i, j) for p in range(6) for i in range(nBa[p]) for j in range(J0, nBb[p])}
+    got = []
+    for k in range(plan["nK"]):
+        assert items[k, -1] == plan["totals"][k]
+        for item in range(items[k, -1]):
+            p = int(np.searchsorted(items[k], item, side="right")) - 1
+            J = max(J0, k - int(meta[p, 4]) + 1) + item - items[k, p]
+            got.append((p, k - J, J))
+    assert sorted(got) == sorted(want) and len(got) == len(want)
+    assert plan["launches"] == int((plan["totals"] > 0).sum())
+    assert plan["nK"] == max(int(nBa[p] + nBb[p] - 1) for p in range(6) if nBa[p])
+    assert (meta[:, :4] == np.stack([ia, ib, la, lb], 1)).all()
+    for col, size, per in ((5, plan["n_h"], BLK * (nBb - J0).clip(0)),
+                           (6, plan["n_v"], BLK * (nBa if stripe is None else np.full(6, 4))),
+                           (7, plan["n_c"], (nBb - J0).clip(0) + 1)):
+        ends = meta[:, col] + per
+        assert (meta[1:, col] == ends[:-1]).all() and ends[-1] == size
