@@ -7,13 +7,15 @@ and ``-s section.key=value`` overrides), written in PyTorch for an NVIDIA
 Hopper card.  The JAX package stays the reference this port is tested
 against; nothing here imports JAX.
 
-Ported so far: ``discover()`` and the CLI at the default config: the
-trained autoencoder (or the PCA embedder) with its checkpoint, and the
-all-pairs DTW unbanded, diag-banded or widen-banded, which runs through
-seven CUDA C++ kernels (``csrc/*.cu``, K1-K7) on a CUDA device and through
+Ported: ``discover()`` (fresh and as an index update), ``query.py``,
+``serve.py`` and the CLI with every flag of the reference's (``--doctor``
+and ``--trace`` too): the trained autoencoder (or the PCA embedder) with
+its checkpoint, and the all-pairs DTW unbanded, diag-banded or
+widen-banded, in fp32 or with ``dtw.dtype=bfloat16``, which runs through
+eight CUDA C++ kernels (``csrc/*.cu``, K1-K8) on a CUDA device and through
 their plain PyTorch twins on CPU tensors.  The entry points run on the card
-unless the caller asks for the CPU.  Paths not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+unless the caller asks for the CPU.  Still absent (ROADMAP.md Queue 1): the
+benchmark scripts and the multi-GPU paths.
 """
 
 __version__ = "0.1.0"

@@ -3,16 +3,17 @@
 Port of ``audio_pattern_discovery_tpu/cli.py``: the same ``-c`` config
 file, ``-s section.key=value`` overrides, ``--dump-config``, ``--update``
 (grow the index in ``--out-dir``), ``--query`` with ``--top-k`` (rank the
-indexed segments against new WAVs) and ``--serve`` (a resident worker on a
-Unix socket), with the reference's conflict checks; ``--device`` picks the
-card (the default) or the CPU.  ``--doctor`` and ``--trace`` are accepted
-so that a command line written for the reference fails loudly here: they
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+indexed segments against new WAVs), ``--serve`` (a resident worker on a
+Unix socket), ``--doctor`` (the environment report of ``utils/doctor.py``)
+and ``--trace DIR`` (a ``torch.profiler`` trace of a discovery or update
+run), with the reference's conflict checks; ``--device`` picks the card
+(the default) or the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -87,8 +88,19 @@ def build_parser() -> argparse.ArgumentParser:
         "of per invocation.  -c/-s set the server's default config; "
         "requests may override per call",
     )
-    p.add_argument("--doctor", action="store_true", help="not ported yet")
-    p.add_argument("--trace", type=Path, metavar="DIR", help="not ported yet")
+    p.add_argument(
+        "--doctor",
+        action="store_true",
+        help="print environment diagnostics (versions, native lib, kernel build, the card's "
+        "launch round trip, memory bandwidth and upload rate) and exit",
+    )
+    p.add_argument(
+        "--trace",
+        type=Path,
+        metavar="DIR",
+        help="write a torch.profiler trace (Chrome-trace JSON) of the discovery or update run "
+        "to DIR",
+    )
     p.add_argument(
         "--device",
         choices=("cuda", "cpu"),
@@ -108,11 +120,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.dump_config:
         print(json.dumps(cfg.to_dict(), indent=2))
         return 0
-    if args.doctor or args.trace:
-        raise NotImplementedError(
-            "--doctor and --trace are not ported to audio_pattern_discovery_tpu_torch yet "
-            '(ROADMAP.md Queue 1: "Runtime extras")'
-        )
+    if args.doctor:
+        from audio_pattern_discovery_tpu_torch.utils.doctor import run_doctor
+
+        print(json.dumps(run_doctor(), indent=2))
+        return 0
     log = get_logger(json_lines=args.json_logs)
     if args.serve:
         if args.wav_dir is not None or args.update or args.query:
@@ -155,11 +167,17 @@ def main(argv: list[str] | None = None) -> int:
         build_parser().error(str(e))
     from audio_pattern_discovery_tpu_torch.pipeline import discover
 
-    result = discover(
-        args.wav_dir, cfg, out_dir=args.out_dir, logger=log,
-        update_from=args.out_dir if args.update else None,
-        device=args.device,
-    )
+    trace = contextlib.nullcontext()
+    if args.trace:
+        from audio_pattern_discovery_tpu_torch.utils.profiling import trace_to
+
+        trace = trace_to(args.trace)
+    with trace:
+        result = discover(
+            args.wav_dir, cfg, out_dir=args.out_dir, logger=log,
+            update_from=args.out_dir if args.update else None,
+            device=args.device,
+        )
     print(
         json.dumps(
             {

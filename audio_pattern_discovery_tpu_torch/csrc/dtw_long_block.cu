@@ -86,6 +86,21 @@
 // left column's row above; otherwise everything left of the walk is +inf.
 // Each cell adds cost + min(min(diag, up), left) from the costs of
 // apd_systolic::cost_of, as the plain twin does cell by cell.
+//
+// The Gram instantiation (kGram, dtw.dtype=bfloat16; the reference's
+// ops/dtw.py:pairwise_cost under matmul_dtype=bfloat16 in dtw_block_kernel).
+// The layouts then hold the frames rounded to bf16 (cosine's unit frames
+// after their fp32 normalization), kept as fp32, and `na`/`nb` ([Ka, Sa],
+// [Kb, Sb]) the squared norms of the unrounded frames (ops/dtw_long.py:
+// gram_layout, built once a job).  A cell's channel sum is the cosine
+// chunk's dot product of the rounded frames: each product of two bf16 values
+// is exact in fp32, and the fmaf chain sums them in channel order.  Its cost
+// is 1 - dot (cosine), or max((na_i + nb_j) - 2 dot, 0) and the IEEE sqrt of
+// that (Euclidean): 2d + 6 operations a cell.  A lane holds its R rows'
+// norms in registers, loaded once per pass, and reads nb_j beside B's frame,
+// a coalesced span of the warp's 32 columns.  This first instantiation keeps
+// the fp32 frame layouts and their shared memory; these instantiations take
+// a register budget of their own, so their extra registers never spill.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -163,6 +178,14 @@ __device__ __forceinline__ int wait_at_least(const volatile int* flag, int need)
   return seen;
 }
 
+// A Gram cell's cost from the dot product of its rounded frames and the
+// squared norms of the unrounded ones, in the reference's order.
+__device__ __forceinline__ float gram_cost(float dot, float na, float nb, int metric) {
+  if (metric == kCosine) return 1.f - dot;
+  const float sq = fmaxf(__fsub_rn(__fadd_rn(na, nb), __fmul_rn(2.f, dot)), 0.f);
+  return metric == kEuclidean ? apd_systolic::sqrt_rn(sq) : sq;
+}
+
 // apd_strip::strip_sums against a B frame in shared memory (plain loads in
 // place of __ldg): the same chunks in the same order.
 template <int R, int D4>
@@ -201,9 +224,11 @@ __device__ __forceinline__ void stage_chunk(float4* ring, const float4* __restri
 // through the read-only cache.  The row above comes from `in_row` (columns
 // [rlo, rhi] valid, published `avail` at a time through `in_done`), and the
 // bottom row goes to `out_row`, published through `out_done`.  Rows are
-// offset by col0 in both.
-template <int R, int D4, bool kStageB>
+// offset by col0 in both.  kGram: `na` holds the lane's rows' squared norms
+// and `nbp` B's (sequence frame 0 at nbp).
+template <int R, int D4, bool kStageB, bool kGram>
 __device__ __forceinline__ void walk(const StripA<R, D4>& a, const float4* __restrict__ xbp,
+                                     const float (&na)[R], const float* __restrict__ nbp,
                                      int stride, int b_end, float4* ring, int metric, int col0,
                                      int c_lo, int c_hi, const int (&lo)[R], const int (&hi)[R],
                                      float diag0, const float* in_row, int rlo, int rhi,
@@ -246,22 +271,27 @@ __device__ __forceinline__ void walk(const StripA<R, D4>& a, const float4* __res
       bool any = false;
 #pragma unroll
       for (int k = 0; k < R; ++k) any |= (j >= lo[k]) & (j <= hi[k]);
+      // The Gram cells' channel sum is the dot product of the rounded frames.
+      const int sum_metric = kGram ? kCosine : metric;
       float acc[R];
+      float nbj = 0.f;
       if (any) {
         if constexpr (kStageB) {
           const int r = j - c_lo;
           strip_sums_shared<R, D4>(acc, a, ring + (size_t)((r >> 5) % kRing * 32 + (r & 31)) * stride,
-                                   metric);
+                                   sum_metric);
         } else {
-          strip_sums<R, D4>(acc, a, xbp + (size_t)j * stride, metric);
+          strip_sums<R, D4>(acc, a, xbp + (size_t)j * stride, sum_metric);
         }
+        if constexpr (kGram) nbj = __ldg(nbp + j);
       } else {
 #pragma unroll
         for (int k = 0; k < R; ++k) acc[k] = 0.f;
       }
 #pragma unroll
       for (int k = 0; k < R; ++k) {
-        float cost = apd_systolic::cost_of(acc[k], metric);
+        float cost = kGram ? gram_cost(acc[k], na[k], nbj, metric)
+                           : apd_systolic::cost_of(acc[k], metric);
         cost = (j >= lo[k] && j <= hi[k]) ? cost : CUDART_INF_F;
         const float v = cost + fminf(fminf(diag, up), left[k]);
         diag = left[k];
@@ -297,11 +327,14 @@ __host__ __device__ inline size_t smem_bytes(int R, int D4, bool stage_b, int BL
 }
 
 // The cached-B instantiations run where shared memory, not registers, limits
-// the warps an SM holds, so they take a register budget of their own.
-template <int R, int D4, bool kStageB>
-__global__ void __launch_bounds__(256, (D4 == 8 || !kStageB) ? 1 : 2) long_block_kernel(
+// the warps an SM holds, so they take a register budget of their own, as do
+// the Gram ones.
+template <int R, int D4, bool kStageB, bool kGram>
+__global__ void __launch_bounds__(256, (kGram || D4 == 8 || !kStageB) ? 1 : 2) long_block_kernel(
     const float4* __restrict__ xa,       // [Ka, Sa, nc4]
     const float4* __restrict__ xb,       // [Kb, Sb, nc4]
+    const float* __restrict__ na_all,    // kGram: [Ka, Sa] squared norms, else unused
+    const float* __restrict__ nb_all,    // kGram: [Kb, Sb]
     const long long* __restrict__ meta,  // [P, kMetaFields]
     const int* __restrict__ items,       // [P + 1]: launch k's row of the prefix sums
     float* __restrict__ H, float* __restrict__ V, float* __restrict__ C,
@@ -353,6 +386,8 @@ __global__ void __launch_bounds__(256, (D4 == 8 || !kStageB) ? 1 : 2) long_block
   const float* c_prev = C + (size_t)((k + 1) & 1) * totC + m[7];
   const float4* pa = xa + (size_t)m[0] * Sa * nc4;
   const float4* pbx = xb + (size_t)m[1] * Sb * nc4;
+  const float* nap = kGram ? na_all + (size_t)m[0] * Sa : nullptr;
+  const float* nbp = kGram ? nb_all + (size_t)m[1] * Sb : nullptr;
   const int la_end = pb.la < Sa ? pb.la : Sa;
   const int lb_end = pb.lb < Sb ? pb.lb : Sb;
 
@@ -394,6 +429,7 @@ __global__ void __launch_bounds__(256, (D4 == 8 || !kStageB) ? 1 : 2) long_block
   const int stride = D4 > 0 ? D4 : nc4;
   StripA<R, D4> a;
   float left[R];
+  float na[R];
   for (int q = warp; q < n_pass; q += n_warps) {
     const int i0 = q * 32 * R;
     int lo[R], hi[R];
@@ -455,6 +491,11 @@ __global__ void __launch_bounds__(256, (D4 == 8 || !kStageB) ? 1 : 2) long_block
         __syncwarp();
         a.load(aw + (size_t)lane * R * nc4, nc4);
       }
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const int r = r0 + lane * R + s;
+        na[s] = kGram && r < la_end ? __ldg(nap + r) : 0.f;
+      }
       // Started at the block's first column, the walk continues the left
       // column; started further right, every value left of it is +inf.
       const bool seeded = c_lo == col0;
@@ -468,7 +509,8 @@ __global__ void __launch_bounds__(256, (D4 == 8 || !kStageB) ? 1 : 2) long_block
         if (jd >= rlo && jd <= rhi && jd - rlo >= avail) avail = wait_at_least(in_done, jd - rlo + 1);
         diag0 = jd >= rlo && jd <= rhi ? in_row[jd - col0] : CUDART_INF_F;
       }
-      walk<R, D4, kStageB>(a, pbx, stride, lb_end, ring, metric, col0, c_lo, c_hi, lo, hi, diag0,
+      walk<R, D4, kStageB, kGram>(a, pbx, na, nbp, stride, lb_end, ring, metric, col0, c_lo, c_hi,
+                                  lo, hi, diag0,
                            in_row, rlo, rhi, in_done, avail,
                            rows + (size_t)((q + 1) % n_slot) * BLK, done + q + 1, left);
       // The terminal cell, where this pass holds it: each lane's `left` is
@@ -497,20 +539,21 @@ __global__ void __launch_bounds__(256, (D4 == 8 || !kStageB) ? 1 : 2) long_block
     h[c] = col0 + c >= blo && col0 + c <= bhi ? last[c] : CUDART_INF_F;
 }
 
-template <int R, int D4, bool kStageB>
-int launch(const float* xa, const float* xb, const long long* meta, const int* items,
-           const int* totals, float* H, float* V, float* C, const float* halo, float* out,
-           int n_pairs, int Sa, int Sb, int nc4, int BLK, int nK, int J0, int totC, int mode,
-           int band, int auto_widen, int metric, int warps, void* stream) {
+template <int R, int D4, bool kStageB, bool kGram>
+int launch(const float* xa, const float* xb, const float* na, const float* nb,
+           const long long* meta, const int* items, const int* totals, float* H, float* V,
+           float* C, const float* halo, float* out, int n_pairs, int Sa, int Sb, int nc4, int BLK,
+           int nK, int J0, int totC, int mode, int band, int auto_widen, int metric, int warps,
+           void* stream) {
   const size_t smem = smem_bytes(R, D4, kStageB, BLK, nc4, BLK / (32 * R), warps);
-  cudaError_t err = cudaFuncSetAttribute(long_block_kernel<R, D4, kStageB>,
+  cudaError_t err = cudaFuncSetAttribute(long_block_kernel<R, D4, kStageB, kGram>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   for (int k = 0; k < nK; ++k) {
     if (totals[k] == 0) continue;
-    long_block_kernel<R, D4, kStageB>
+    long_block_kernel<R, D4, kStageB, kGram>
         <<<(unsigned)totals[k], 32 * warps, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const float4*>(xa), reinterpret_cast<const float4*>(xb), meta,
+            reinterpret_cast<const float4*>(xa), reinterpret_cast<const float4*>(xb), na, nb, meta,
             items + (size_t)k * (n_pairs + 1), H, V, C, halo, out, n_pairs, Sa, Sb, nc4, BLK, k,
             J0, totC, mode, band, auto_widen, metric);
     err = cudaGetLastError();
@@ -530,16 +573,22 @@ int launch(const float* xa, const float* xb, const long long* meta, const int* i
 // in shared memory, where at R = 4 the listed widths (and 8 at R = 2) keep a
 // lane's A frames in registers and any other width reads them from the
 // warp's staged pass; without it (wide frames), B through the read-only
-// cache and A from the staged pass at any width.
+// cache and A from the staged pass at any width.  gram: the Gram
+// instantiation of each, on the rounded layouts and the norms na, nb (null
+// otherwise).
 extern "C" int apd_dtw_long_block(
-    const float* xa, const float* xb, const long long* meta, const int* items,
-    const int* totals, float* H, float* V, float* C, const float* halo, float* out,
-    int n_pairs, int Sa, int Sb, int nc4, int BLK, int nK, int J0, int totC, int mode, int band,
-    int auto_widen, int metric, int warps, int R, int stage_b, void* stream) {
-#define APD_K8(RR, D4, ST)                                                                    \
-  return launch<RR, D4, ST>(xa, xb, meta, items, totals, H, V, C, halo, out, n_pairs, Sa, Sb, \
-                            nc4, BLK, nK, J0, totC, mode, band, auto_widen, metric, warps,    \
-                            stream)
+    const float* xa, const float* xb, const float* na, const float* nb, const long long* meta,
+    const int* items, const int* totals, float* H, float* V, float* C, const float* halo,
+    float* out, int n_pairs, int Sa, int Sb, int nc4, int BLK, int nK, int J0, int totC,
+    int mode, int band, int auto_widen, int metric, int warps, int R, int stage_b, int gram,
+    void* stream) {
+#define APD_K8(RR, D4, ST)                                                                     \
+  return gram ? launch<RR, D4, ST, true>(xa, xb, na, nb, meta, items, totals, H, V, C, halo, \
+                                         out, n_pairs, Sa, Sb, nc4, BLK, nK, J0, totC, mode,  \
+                                         band, auto_widen, metric, warps, stream)             \
+              : launch<RR, D4, ST, false>(xa, xb, na, nb, meta, items, totals, H, V, C, halo, \
+                                          out, n_pairs, Sa, Sb, nc4, BLK, nK, J0, totC, mode, \
+                                          band, auto_widen, metric, warps, stream)
   if (!stage_b) {
     if (R == 4) APD_K8(4, 0, false);
     if (R == 2) APD_K8(2, 0, false);

@@ -47,6 +47,18 @@ def _nvcc() -> str:
     )
 
 
+def library_state(name: str) -> str:
+    """``lib<name>.so`` against ``csrc/<name>.cu``: "absent", "stale" (older
+    than its source or a header, so the next load rebuilds it) or
+    "current"."""
+    so = BUILD_DIR / f"lib{name}.so"
+    if not so.exists():
+        return "absent"
+    headers = max((h.stat().st_mtime for h in CSRC_DIR.glob("*.cuh")), default=0.0)
+    newest = max((CSRC_DIR / f"{name}.cu").stat().st_mtime, headers)
+    return "stale" if so.stat().st_mtime < newest else "current"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if stale."""
     return load_all([name])[name]
@@ -57,11 +69,9 @@ def load_all(names: list[str]) -> dict[str, ctypes.CDLL]:
     started together."""
     with _lock:
         stale = []
-        headers = max((h.stat().st_mtime for h in CSRC_DIR.glob("*.cuh")), default=0.0)
         for name in names:
             src, so = CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-            newest = max(src.stat().st_mtime, headers)
-            if name not in _libs and (not so.exists() or so.stat().st_mtime < newest):
+            if name not in _libs and library_state(name) != "current":
                 stale.append((name, src, so))
         if stale:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,9 @@ the same masks: the O(N*M) DP is serialized only across anti-diagonals
 updates a [B, M] wavefront for B pairs at once, ragged lengths and the band
 are +inf masks over a padded grid, and each distance is read at its pair's
 true terminal cell.  Frame costs come from one batched fp32 Gram matmul
-(TF32 is off, see the package ``__init__``).
+(TF32 is off, see the package ``__init__``); under
+``matmul_dtype="bfloat16"`` its operands are rounded to bf16 first, the
+reference's reduced-precision recipe (``pairwise_cost``).
 
 This module is the plain twin every DTW kernel of the port is held against,
 and it is the alignment path (``dtw_batch_with_dirs``) of ``discover()``.
@@ -20,18 +22,35 @@ INF = float("inf")
 
 
 # --------------------------------------------------------------------- costs
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to bf16 (to nearest, ties to even, as JAX's
+    ``astype``) and held as fp32: a product of two such values is exact in
+    fp32."""
+    return x.to(torch.bfloat16).float()
+
+
 def pairwise_cost(
     a: torch.Tensor,           # [B, N, d]
     b: torch.Tensor,           # [B, M, d]
     metric: str = "euclidean",
+    matmul_dtype: str | None = None,
 ) -> torch.Tensor:
-    """Batched frame-to-frame cost matrices [B, N, M] (fp32 Gram matmul)."""
+    """Batched frame-to-frame cost matrices [B, N, M] (fp32 Gram matmul).
+
+    ``matmul_dtype="bfloat16"``: the reference's bf16 recipe.  The Gram
+    products take the operands rounded to bf16 (for cosine after their
+    normalization in fp32) and sum in fp32; the squared norms come from the
+    unrounded frames.  The rounded operands stay fp32 tensors and multiply
+    with TF32 off, so the products are exact and only the fp32 sums' order
+    differs from the reference's (a bf16 ``bmm`` would round its output to
+    bf16)."""
     a = a.float()
     b = b.float()
     if metric == "cosine":
         a = a / torch.clamp(torch.linalg.vector_norm(a, dim=-1, keepdim=True), min=1e-12)
         b = b / torch.clamp(torch.linalg.vector_norm(b, dim=-1, keepdim=True), min=1e-12)
-    gram = torch.bmm(a, b.transpose(1, 2))                       # [B, N, M]
+    am, bm = (round_bf16(a), round_bf16(b)) if matmul_dtype == "bfloat16" else (a, b)
+    gram = torch.bmm(am, bm.transpose(1, 2))                     # [B, N, M]
     if metric == "cosine":
         return 1.0 - gram
     sq_a = torch.sum(a * a, dim=-1)                              # [B, N]
@@ -97,7 +116,7 @@ def _validity_grid(
 
 def _wavefront(
     a, b, len_a, len_b, *, metric, band, auto_widen, normalize, band_mode,
-    with_dirs: bool,
+    with_dirs: bool, matmul_dtype=None,
 ):
     if a.dim() != 3 or b.dim() != 3 or a.shape[2] != b.shape[2]:
         raise ValueError(f"want a [B,N,d], b [B,M,d]; got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -111,7 +130,7 @@ def _wavefront(
     len_a = len_a.to(dev)
     len_b = len_b.to(dev)
     valid = _validity_grid(N, M, len_a, len_b, band, auto_widen, band_mode)
-    Cs = torch.where(valid, _skew_to_diagonals(pairwise_cost(a, b, metric)), INF)
+    Cs = torch.where(valid, _skew_to_diagonals(pairwise_cost(a, b, metric, matmul_dtype)), INF)
 
     j_idx = torch.arange(M, device=dev)[None, :]                     # [1, M]
     k_star = (len_a + len_b - 2).long()                              # [B]
@@ -162,11 +181,14 @@ def dtw_batch(
     auto_widen: bool = True,
     normalize: str = "none",
     band_mode: str = "widen",
+    matmul_dtype: str | None = None,
 ) -> torch.Tensor:
-    """All B DTW distances, [B] float32, on the device of ``a``."""
+    """All B DTW distances, [B] float32, on the device of ``a``;
+    ``matmul_dtype="bfloat16"`` takes the frame costs from the bf16 Gram
+    (``pairwise_cost``)."""
     return _wavefront(
         a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen,
-        normalize=normalize, band_mode=band_mode, with_dirs=False,
+        normalize=normalize, band_mode=band_mode, with_dirs=False, matmul_dtype=matmul_dtype,
     )
 
 
@@ -181,6 +203,7 @@ def dtw_batch_with_dirs(
     auto_widen: bool = True,
     normalize: str = "none",
     band_mode: str = "widen",
+    matmul_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Distances + per-cell step directions for backtrace.
 
@@ -191,7 +214,7 @@ def dtw_batch_with_dirs(
     only for the few within-cluster pairs that need paths."""
     return _wavefront(
         a, b, len_a, len_b, metric=metric, band=band, auto_widen=auto_widen,
-        normalize=normalize, band_mode=band_mode, with_dirs=True,
+        normalize=normalize, band_mode=band_mode, with_dirs=True, matmul_dtype=matmul_dtype,
     )
 
 

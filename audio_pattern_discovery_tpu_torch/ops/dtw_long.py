@@ -32,7 +32,12 @@ min-plus Hillis-Steele scan, which reassociates the additions along the
 row.
 
 Costs are the port's kernels' (unit frames for cosine, squared differences
-and their sqrt), not the reference's Gram expansion.  The diag corridor is
+and their sqrt), not the reference's Gram expansion.  Under
+``matmul_dtype="bfloat16"`` they are the reference's bf16 Gram recipe
+instead (``ops/dtw.pairwise_cost``): the dot product of the frames rounded
+to bf16, summed in fp32, and for the Euclidean metrics
+max(|a|^2 + |b|^2 - 2 a.b, 0) with the squared norms of the unrounded
+frames (``gram_layout``; K8's Gram instantiation on the card).  The diag corridor is
 the reference's |j(la-1) - i(lb-1)| <= max(band, 1) max(la-1, lb-1), in
 64-bit products: equal to the reference's int32 ones below 2^15 frames a
 side, and exact past them.
@@ -54,7 +59,9 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
     _launch,
     _normalized,
     _unit_frames,
+    frame_layout,
 )
+from audio_pattern_discovery_tpu_torch.ops.dtw import round_bf16
 
 BAND_MODES = {"widen": 1, "diag": 2}   # csrc/dtw_long_block.cu; 0 is unbanded
 
@@ -95,6 +102,7 @@ def dtw_block_kernel(
     band: int | None = None,
     band_width=None,           # [...] or int: widen half-width (>= |la-lb| if widened)
     band_mode: str = "widen",
+    matmul_dtype: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One DP block -> (bottom row [..., BLK], right column [..., BLK], hit
     value [...], hit mask [...]): the reference's contract, batched over the
@@ -102,8 +110,8 @@ def dtw_block_kernel(
     cell (value 0 elsewhere).  Cells outside i < la, j < lb and the band are
     +inf; the virtual origin D[-1, -1] = 0 is the caller's corner of block
     (0, 0).  The block is walked along its own anti-diagonals, each cell
-    cost + min(diag, up, left) from squared-difference costs, as K8 walks
-    it."""
+    cost + min(diag, up, left) from squared-difference costs (the bf16 Gram
+    recipe under ``matmul_dtype="bfloat16"``), as K8 walks it."""
     *lead, BLK, d = a_blk.shape
     dev = a_blk.device
     n = 1
@@ -114,12 +122,18 @@ def dtw_block_kernel(
         return torch.as_tensor(x, device=dev).to(dtype).expand(*lead).reshape(n)
 
     bw = None if band_width is None else flat(band_width, torch.int64)
+    xa, xb = _unit_frames(a_blk.float(), metric), _unit_frames(b_blk.float(), metric)
+    norms = None
+    if matmul_dtype == "bfloat16":
+        norms = (torch.sum(xa * xa, dim=-1).reshape(n, BLK),
+                 torch.sum(xb * xb, dim=-1).reshape(n, BLK))
+        xa, xb = round_bf16(xa), round_bf16(xb)
     bottom, right, hit_val, has_hit = _block_walk(
-        _unit_frames(a_blk.float(), metric).reshape(n, BLK, d),
-        _unit_frames(b_blk.float(), metric).reshape(n, BLK, d),
+        xa.reshape(n, BLK, d), xb.reshape(n, BLK, d),
         top.float().reshape(n, BLK), left.float().reshape(n, BLK), flat(corner, torch.float32),
         flat(row0, torch.int64), flat(col0, torch.int64), flat(len_a, torch.int64),
         flat(len_b, torch.int64), metric=metric, band=band, band_width=bw, band_mode=band_mode,
+        norms=norms,
     )
     return (bottom.reshape(*lead, BLK), right.reshape(*lead, BLK), hit_val.reshape(lead),
             has_hit.reshape(lead))
@@ -149,9 +163,12 @@ def _row_ranges(gi, la, lb, *, band, band_width, band_mode):
 
 
 def _block_walk(a, b, top, left, corner, row0, col0, la, lb, *, metric, band, band_width,
-                band_mode):
+                band_mode, norms=None):
     """``dtw_block_kernel`` on N flat blocks (a, b [N, BLK, d] already unit
-    frames for cosine; the rest [N]).  The DP runs on the block extended by
+    frames for cosine; the rest [N]).  ``norms`` (the A and B frames'
+    squared norms, [N, BLK] each) selects the bf16 Gram costs: a and b are
+    then the rounded frames, and each cell costs 1 - a.b (cosine) or
+    max((|a|^2 + |b|^2) - 2 a.b, 0) and its sqrt.  The DP runs on the block extended by
     its boundary row and column: ext[R, C] = D[row0 + R - 1, col0 + C - 1]
     with ext[0, 0] the corner, ext[0, 1:] the top and ext[1:, 0] the left
     column, one extended anti-diagonal T = R + C a step, each held as a
@@ -165,6 +182,8 @@ def _block_walk(a, b, top, left, corner, row0, col0, la, lb, *, metric, band, ba
                              band_width=band_width, band_mode=band_mode)
     lo_r, hi_r = lo_r - col0[:, None], hi_r - col0[:, None]
     b_rev = b.flip(1)                                       # B frame C-1 at BLK - C
+    if norms is not None:
+        na, nb_rev = norms[0], norms[1].flip(1)
     e2, e1, cur = (torch.empty((N, BLK + 1), device=dev) for _ in range(3))
     e2[:, 0] = corner
     e1[:, 0], e1[:, 1] = top[:, 0], left[:, 0]
@@ -183,7 +202,12 @@ def _block_walk(a, b, top, left, corner, row0, col0, la, lb, *, metric, band, ba
         if metric == "cosine":
             cost = 1.0 - torch.sum(a_t * b_t, dim=-1)
         else:
-            cost = torch.sum((a_t - b_t) ** 2, dim=-1)
+            if norms is None:
+                cost = torch.sum((a_t - b_t) ** 2, dim=-1)
+            else:
+                cost = torch.clamp(
+                    (na[:, lo - 1 : hi] + nb_rev[:, BLK - T + lo : BLK - T + hi + 1])
+                    - 2.0 * torch.sum(a_t * b_t, dim=-1), min=0.0)
             if metric == "euclidean":
                 cost = torch.sqrt(cost)
         cc = T - 1 - rows[lo : hi + 1]
@@ -228,6 +252,7 @@ def dtw_long_batch_ref(
     normalize: str = "none",
     block: int = 256,
     band_mode: str = "widen",
+    matmul_dtype: str | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``dtw_long_batch`` on the device of ``a``: the
     reference's scan over the 2*nB-1 block anti-diagonals with boundary
@@ -237,7 +262,7 @@ def dtw_long_batch_ref(
     ``_REF_MAX_ELEMS`` elements."""
     B, S, d, BLK, nB = _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode)
     dev = a.device
-    xa, xb = _unit_frames(a.float(), metric), _unit_frames(b.float(), metric)
+    xa, xb = a.float(), b.float()        # dtw_block_kernel normalizes cosine's frames
     la_all, lb_all = len_a.long(), len_b.long()
     bw_all = _band_width(band, auto_widen, len_a, len_b)
     out = torch.full((B,), INF, dtype=torch.float32, device=dev)
@@ -266,7 +291,7 @@ def dtw_long_batch_ref(
                 (Is * BLK)[None, :].expand(P, W), (Js * BLK)[None, :].expand(P, W),
                 la[:, None].expand(P, W), lb[:, None].expand(P, W), metric=metric, band=band,
                 band_width=None if bw is None else bw[:, None].expand(P, W),
-                band_mode=band_mode,
+                band_mode=band_mode, matmul_dtype=matmul_dtype,
             )
             H[:, Js], V[:, Is] = bottom, right
             res = torch.where(has_hit.any(1), torch.where(has_hit, hit_val, 0.0).sum(1), res)
@@ -395,10 +420,38 @@ def long_boundary_bytes(la, lb, BLK: int) -> np.ndarray:
     return 4 * (BLK * (nBa + nBb) + 2 * (nBb + 1))
 
 
+def gram_layout(feats: torch.Tensor, metric: str = "euclidean") -> tuple[torch.Tensor, torch.Tensor]:
+    """K8's inputs for the bf16 Gram costs of a corpus [K, S, d]: the
+    ``frame_layout`` of its frames (cosine's unit frames, normalized in
+    fp32) rounded to bf16 and held as fp32, and [K, S] fp32 the squared
+    norms of the unrounded frames.  The per-pair scheduler builds it once a
+    job, beside where the fp32 path builds ``frame_layout``."""
+    x = _unit_frames(feats.float(), metric)
+    return frame_layout(round_bf16(x)), torch.sum(x * x, dim=-1).contiguous()
+
+
+def _check_gram_layout(frames, feats, metric) -> tuple[torch.Tensor, torch.Tensor]:
+    """``frames`` (a prebuilt ``gram_layout``) after checking it against the
+    corpus, or the layout built here."""
+    if frames is None:
+        return gram_layout(feats, metric)
+    layout, norms = frames
+    layout = _check_frame_layout(layout, feats, metric)
+    if (norms.shape != feats.shape[:2] or norms.dtype != torch.float32
+            or norms.device != feats.device or not norms.is_contiguous()):
+        raise ValueError(f"gram_layout norms must be a contiguous {tuple(feats.shape[:2])} "
+                         f"float32 tensor on {feats.device}, got {tuple(norms.shape)} "
+                         f"{norms.dtype} on {norms.device}")
+    return layout, norms
+
+
 def _launch_plan(fa, fb, plan: dict, out, *, BLK: int, J0: int, halo, metric, band, auto_widen,
-                 band_mode, events=None, config: tuple[int, bool] | None = None) -> torch.Tensor:
+                 band_mode, events=None, config: tuple[int, bool] | None = None,
+                 norms: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """Run a plan of K8 on the card on the current stream: one launch per
-    block anti-diagonal with blocks (``plan["launches"]``).  ``events``
+    block anti-diagonal with blocks (``plan["launches"]``).  ``norms`` (the
+    A and B corpora's squared norms from ``gram_layout``, whose rounded
+    frames are then ``fa`` and ``fb``) selects the Gram instantiation.  ``events``
     (two CUDA events, or None) are recorded around the launches alone;
     ``config`` overrides ``_long_config``'s (warps, stage_b) (a timing
     comparison's).  Returns V, the right columns of every pair's last block
@@ -417,13 +470,14 @@ def _launch_plan(fa, fb, plan: dict, out, *, BLK: int, J0: int, halo, metric, ba
         events[0].record()
     if plan["launches"]:
         _launch(
-            "dtw_long_block", 10, 15,
-            fa.data_ptr(), fb.data_ptr(), meta.data_ptr(), items.data_ptr(),
+            "dtw_long_block", 12, 16,
+            fa.data_ptr(), fb.data_ptr(), 0 if norms is None else norms[0].data_ptr(),
+            0 if norms is None else norms[1].data_ptr(), meta.data_ptr(), items.data_ptr(),
             plan["totals"].ctypes.data, H.data_ptr(), V.data_ptr(), C.data_ptr(),
             0 if halo is None else halo.data_ptr(), out.data_ptr(), len(plan["meta"]),
             fa.shape[1], fb.shape[1], nc4, BLK, plan["nK"], J0, plan["n_c"],
             0 if band is None else BAND_MODES[band_mode], 0 if band is None else int(band),
-            int(bool(auto_widen)), METRICS[metric], warps, R, int(stage_b),
+            int(bool(auto_widen)), METRICS[metric], warps, R, int(stage_b), int(norms is not None),
             stream=torch.cuda.current_stream(dev).cuda_stream,
         )
     if events:
@@ -451,7 +505,7 @@ def dtw_long_pairs(
     *,
     feats_b: torch.Tensor | None = None,     # [Kb, Lb, d]; None: feats
     lengths_b: torch.Tensor | None = None,   # [Kb] i32; None: lengths
-    frames: torch.Tensor | None = None,      # frame_layout(feats), prebuilt
+    frames=None,                             # frame_layout(feats) (gram_layout), prebuilt
     metric: str = "euclidean",
     band: int | None = None,
     auto_widen: bool = True,
@@ -459,6 +513,7 @@ def dtw_long_pairs(
     block: int = 256,
     band_mode: str = "widen",
     events: list | None = None,              # two CUDA events around the launches
+    matmul_dtype: str | None = None,
 ) -> torch.Tensor:
     """Blocked DTW of the P pairs (feats[ia[p]], feats_b[ib[p]]) -> [P] f32,
     normalized as ``normalize`` says: the merged K8 call.  Each pair runs on
@@ -467,8 +522,11 @@ def dtw_long_pairs(
     launches whatever the number of pairs.  A pair with an empty side or a
     side past its corpus's L is +inf.
 
+    ``matmul_dtype="bfloat16"``: the bf16 Gram costs (the module docstring).
+
     CUDA tensors launch K8 on the frame layouts (``frames``, the layout of
-    ``feats`` built once a job by the caller, or built here), count the
+    ``feats`` built once a job by the caller, or built here: its
+    ``frame_layout``, or under bf16 its ``gram_layout``), count the
     launches in ``dtw_long_batch.launches`` and record ``events``, where
     given, before the first launch and after the last, so that they time
     the kernel alone; the block must be a multiple of 32 frames there.  CPU tensors take the
@@ -500,9 +558,11 @@ def dtw_long_pairs(
         raise ValueError(f"pair indices outside the corpora ({Ka}, {Kb} sequences)")
     kw = dict(metric=metric, band=band, auto_widen=auto_widen, band_mode=band_mode)
     dev = feats.device
+    gram = matmul_dtype == "bfloat16"
     if dev.type == "cpu":
         return dtw_long_pairs_ref(feats, lengths, ia_np, ib_np, feats_b=feats_b,
-                                  lengths_b=lengths_b, normalize=normalize, block=BLK, **kw)
+                                  lengths_b=lengths_b, normalize=normalize, block=BLK,
+                                  matmul_dtype=matmul_dtype, **kw)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     ia_t, ib_t = torch.from_numpy(ia_np).to(dev), torch.from_numpy(ib_np).to(dev)
@@ -510,16 +570,22 @@ def dtw_long_pairs(
     out = torch.full((len(ia_np),), INF, dtype=torch.float32, device=dev)
     if len(ia_np) == 0:
         return out
-    fa = _check_frame_layout(frames, feats, metric)
-    fb = fa if feats_b is feats else _check_frame_layout(None, feats_b, metric)
+    norms = None
+    if gram:
+        fa, na = _check_gram_layout(frames, feats, metric)
+        fb, nb = (fa, na) if feats_b is feats else gram_layout(feats_b, metric)
+        norms = (na, nb)
+    else:
+        fa = _check_frame_layout(frames, feats, metric)
+        fb = fa if feats_b is feats else _check_frame_layout(None, feats_b, metric)
     plan = _long_plan(ia_np, ib_np, la.cpu().numpy(), lb.cpu().numpy(), La, Lb, BLK)
-    _launch_plan(fa, fb, plan, out, BLK=BLK, J0=0, halo=None, events=events, **kw)
+    _launch_plan(fa, fb, plan, out, BLK=BLK, J0=0, halo=None, events=events, norms=norms, **kw)
     dtw_long_batch.launches += plan["launches"]
     return _normalized(out, la, lb, normalize)
 
 
 def dtw_long_pairs_ref(feats, lengths, ia, ib, *, feats_b, lengths_b, metric, band, auto_widen,
-                       normalize, block, band_mode) -> torch.Tensor:
+                       normalize, block, band_mode, matmul_dtype=None) -> torch.Tensor:
     """Plain twin of ``dtw_long_pairs`` on the device of ``feats``: the pairs
     grouped by their padded grid (the longer side rounded up to whole
     blocks), each group gathered, zero-padded to it and run through
@@ -541,7 +607,8 @@ def dtw_long_pairs_ref(feats, lengths, ia, ib, *, feats_b, lengths_b, metric, ba
 
         out[sel] = dtw_long_batch_ref(
             side(feats, ia_t[sel], La), side(feats_b, ib_t[sel], Lb), la[sel], lb[sel],
-            metric=metric, band=band, auto_widen=auto_widen, block=block, band_mode=band_mode)
+            metric=metric, band=band, auto_widen=auto_widen, block=block, band_mode=band_mode,
+            matmul_dtype=matmul_dtype)
     return _normalized(out, la, lb, normalize)
 
 
@@ -557,6 +624,7 @@ def dtw_long_batch(
     normalize: str = "none",
     block: int = 256,
     band_mode: str = "widen",
+    matmul_dtype: str | None = None,
 ) -> torch.Tensor:
     """Batched DTW over long padded sequences with boundary-only memory ->
     [B] f32, normalized as ``normalize`` says (the reference's drop-in for
@@ -566,13 +634,15 @@ def dtw_long_batch(
     The case ia = ib = arange(B) of ``dtw_long_pairs``, with ``a`` and ``b``
     as the two corpora: CUDA tensors launch K8 once per block anti-diagonal
     of the largest pair grid (``launches`` counts the launches of both
-    entries; the block must be a multiple of 32 frames there), CPU tensors
-    take the plain twin.  Any other device raises."""
+    entries, of either instantiation; ``matmul_dtype="bfloat16"`` selects
+    the Gram one; the block must be a multiple of 32 frames there), CPU
+    tensors take the plain twin.  Any other device
+    raises."""
     B, _, _, BLK, _ = _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode)
     idx = np.arange(B, dtype=np.int64)
     return dtw_long_pairs(a, len_a, idx, idx, feats_b=b, lengths_b=len_b, metric=metric,
                           band=band, auto_widen=auto_widen, normalize=normalize, block=BLK,
-                          band_mode=band_mode)
+                          band_mode=band_mode, matmul_dtype=matmul_dtype)
 
 
 def long_block_columns(

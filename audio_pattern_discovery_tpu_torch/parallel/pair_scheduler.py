@@ -34,10 +34,11 @@ own, per class.
 The per-pair scheduler is the reference's legacy loop: pairs bucketed by
 length (``enumerate_pair_blocks``), gathered per block, K6
 (``dtw_batch_pallas``) or K7 (``_dtw_batch_stripe``) for widen and unbanded
-blocks, the plain ``ops/dtw.dtw_batch`` for diag blocks up to
-``MAX_KERNEL_SEQ_LEN`` (the reference has no kernel there), and K8
-(``ops/dtw_long.dtw_long_pairs``, the blocked wavefront) for every bucket
-past those, enumerated in the reference's blocks of at most 512 pairs but
+blocks, and K8 (``ops/dtw_long.dtw_long_pairs``, the blocked wavefront)
+for every other bucket: on the CPU the plain ``ops/dtw.dtw_batch`` takes
+the diag blocks up to ``MAX_KERNEL_SEQ_LEN`` instead (as the reference's
+XLA path does; it has no kernel there).  K8's buckets past that length are
+enumerated in the reference's blocks of at most 512 pairs but
 run as one merged call over all of a job's K8 pairs (each pair on its own
 grid, at most 63 launches at 8,192 frames); other blocks padded to a power
 of two, a window of blocks in flight, and ``D += D.T``.
@@ -92,6 +93,7 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
 )
 from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
     dtw_long_pairs,
+    gram_layout,
     long_block_shape,
     long_boundary_bytes,
 )
@@ -181,21 +183,13 @@ def _check_known(known, K: int) -> None:
         )
 
 
-def _check_dtype(cfg: DTWConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtw.dtype={cfg.dtype!r}: the port's DTW runs in float32 only "
-            '(ROADMAP.md Queue 1: "dtw.dtype=bfloat16")'
-        )
-
-
 def route_for(L: int, cfg: DTWConfig) -> str:
-    """The route of a job with sequences padded to L frames: the tile-pair
-    routes "diag" (K1), "widen" (K4 and K5), "tile" (K2) and "full" (K3), or
-    "per_pair" for unbanded and widen jobs past FULL_MAX_LEN frames, where
-    no tiled route applies (the reference's gates).  NotImplementedError for
-    ``dtw.dtype=bfloat16``."""
-    _check_dtype(cfg)
+    """The tiled route of a job with sequences padded to L frames: the
+    tile-pair routes "diag" (K1), "widen" (K4 and K5), "tile" (K2) and
+    "full" (K3), or "per_pair" for unbanded and widen jobs past
+    FULL_MAX_LEN frames, where no tiled route applies (the reference's
+    gates).  ``dtw.dtype`` does not enter: ``all_pairs_distances`` sends a
+    bfloat16 job per pair itself."""
     if cfg.band is not None and cfg.band_mode == "diag":
         return "diag"
     Lp = padded_len(L)
@@ -873,9 +867,11 @@ def all_pairs_distances(
     ``tiled=None``: the tiled scheduler where a tile-pair route takes the
     job, else the per-pair scheduler (``route_for`` decides, as the
     reference's gates do: unbanded and widen jobs past 4096 frames go per
-    pair).
+    pair), and the per-pair scheduler for every ``dtw.dtype=bfloat16`` job
+    (the reference's ``tiled`` gate: its tile kernels run fp32 only).
     ``tiled=True``: the tiled scheduler, which raises ``ValueError`` where
-    no tiled route applies.  ``tiled=False``: the per-pair scheduler
+    no tiled route applies; forced on a bfloat16 job it runs the job in
+    fp32, as the reference's tile kernels do.  ``tiled=False``: the per-pair scheduler
     (``all_pairs_distances_per_pair``), the reference's legacy path.
     ``block_dir``: persist each block for crash resume.  ``max_retries``: a
     block whose dispatch or collection raises is dispatched again up to this
@@ -887,7 +883,7 @@ def all_pairs_distances(
     kw = dict(device=device, stats=stats, block_dir=block_dir, known=known,
               max_retries=max_retries)
     if tiled is None:
-        tiled = route_for(features.shape[1], cfg) != "per_pair"
+        tiled = cfg.dtype != "bfloat16" and route_for(features.shape[1], cfg) != "per_pair"
     if tiled is False:
         return all_pairs_distances_per_pair(features, lengths, cfg, bucket_step=bucket_step, **kw)
     return all_pairs_distances_tiled(features, lengths, cfg, **kw)
@@ -987,14 +983,19 @@ def all_pairs_distances_per_pair(
     Blocks from ``enumerate_pair_blocks`` gather their pairs on the device
     and run ``_dtw_block``'s routing: widen and unbanded blocks go to
     ``dtw_batch_pallas`` (K6, or K7 where the stripe applies; their twins on
-    the CPU), diag blocks up to MAX_KERNEL_SEQ_LEN to the plain
-    ``ops/dtw.dtw_batch``, and every other bucket to K8.  K8's buckets are
-    enumerated in blocks of at most 512 pairs (the reference's cap), which
-    stay the units of ``block_dir``, ``known=`` and ``stats["blocks"]``,
-    but are not dispatched one by one: the blocks not resumed run after the
-    others are dispatched, as merged ``dtw_long_pairs`` calls on the
-    corpus's ``frame_layout`` (built once), each pair unpadded on its own
-    grid of blocks of ``long_block_shape(bucket)``, as few calls as keep
+    the CPU), and every other bucket to K8 (on the CPU, diag blocks up to
+    MAX_KERNEL_SEQ_LEN to the plain ``ops/dtw.dtw_batch``).  Under
+    ``dtw.dtype=bfloat16`` K6 and K7 stay fp32 (the reference's Pallas
+    kernels take no matmul dtype), and ``dtw_batch`` and K8 take the bf16
+    Gram costs (``matmul_dtype="bfloat16"``; K8's Gram instantiation on the
+    card, on the corpus's ``gram_layout``).  K8's buckets past
+    MAX_KERNEL_SEQ_LEN are enumerated in blocks of at most 512 pairs (the
+    reference's cap).  Its blocks stay the units of ``block_dir``,
+    ``known=`` and ``stats["blocks"]``, but are not dispatched one by one:
+    the blocks not resumed run after the others are dispatched, as merged
+    ``dtw_long_pairs`` calls on the corpus's ``frame_layout`` (built once),
+    each pair unpadded on its own grid of blocks of
+    ``long_block_shape(bucket)`` (at least 32 frames), as few calls as keep
     each call's boundaries under ``LONG_BOUNDARY_BUDGET`` bytes, and each
     call's distances split back per block.  Other blocks are padded to a
     power of two with self-pairs of sequence 0 (discarded).  Up to ten
@@ -1019,9 +1020,8 @@ def all_pairs_distances_per_pair(
     ``kernel_s_by``, the latter per entry name: the wrapper whose launch
     counter the call moved (``dtw_batch_pallas`` for K6,
     ``_dtw_batch_stripe`` for K7), ``dtw_long_batch`` for K8's merged
-    calls, else the entry called (``dtw_batch`` for diag blocks).  The
+    calls.  The
     default device is the card; without one, pass ``device="cpu"``."""
-    _check_dtype(cfg)
     device = resolve_device(device)
     K, L, d = features.shape
     lengths = np.asarray(lengths, dtype=np.int32)
@@ -1031,6 +1031,7 @@ def all_pairs_distances_per_pair(
     if K < 2:
         return D
     diag = cfg.band is not None and cfg.band_mode == "diag"
+    mm_dtype = "bfloat16" if cfg.dtype == "bfloat16" else None
     step = min(bucket_step, L) if cfg.length_bucketing else L
     if isinstance(features, torch.Tensor):
         feats_dev = features.to(device=device, dtype=torch.float32)
@@ -1079,7 +1080,7 @@ def all_pairs_distances_per_pair(
         if stripe_ok(bucket, mld):
             fn, kw["max_len_diff"] = dtw_batch_pallas, mld
         else:
-            fn, kw["band_mode"] = dtw_batch, cfg.band_mode
+            fn, kw["band_mode"], kw["matmul_dtype"] = dtw_batch, cfg.band_mode, mm_dtype
         if events:
             events[1].record()
         counts = [k.launches for k in _PER_PAIR_KERNELS]
@@ -1102,7 +1103,7 @@ def all_pairs_distances_per_pair(
         vals = dtw_long_pairs(feats_dev, lens_dev, ia, ib, frames=frames, metric=cfg.metric,
                               band=cfg.band, auto_widen=cfg.auto_widen_band,
                               normalize=cfg.normalize, block=group[0][3], band_mode=cfg.band_mode,
-                              events=events or None)
+                              events=events or None, matmul_dtype=mm_dtype)
         return vals, events
 
     def run_long_blocks():
@@ -1120,7 +1121,10 @@ def all_pairs_distances_per_pair(
             groups[-1].append(blk_args)
             used += need
         # The corpus as K8 reads it, built once a job (the twin takes feats).
-        frames = frame_layout(feats_dev, cfg.metric) if on_cuda else None
+        frames = None
+        if on_cuda:
+            frames = (gram_layout(feats_dev, cfg.metric) if mm_dtype
+                      else frame_layout(feats_dev, cfg.metric))
         for group in groups:
             t0 = time.perf_counter()
             try:
@@ -1187,6 +1191,10 @@ def all_pairs_distances_per_pair(
         long = bucket > MAX_KERNEL_SEQ_LEN and not stripe_ok(bucket, mld)
         if long:
             cap = min(cap, 512)
+        # On the card K8 also takes the shorter blocks K6 and K7 do not (diag
+        # blocks), in blocks of at least 32 frames: the plain dtw_batch runs
+        # on CPU tensors only.
+        to_k8 = long or (on_cuda and not stripe_ok(bucket, mld))
         for s in range(0, len(ii_all), cap):
             ii, jj = ii_all[s : s + cap], jj_all[s : s + cap]
             stats["enumerate_s"] += time.perf_counter() - t_enum
@@ -1200,8 +1208,8 @@ def all_pairs_distances_per_pair(
                     stats["blocks_resumed"] += 1
                     t_enum = time.perf_counter()
                     continue
-            if long:
-                long_blocks.append((ii, jj, path, long_block_shape(bucket)[0]))
+            if to_k8:
+                long_blocks.append((ii, jj, path, max(32, long_block_shape(bucket)[0])))
                 t_enum = time.perf_counter()
                 continue
             B_blk = min(B, max(8, 1 << (len(ii) - 1).bit_length()))

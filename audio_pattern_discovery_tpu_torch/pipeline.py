@@ -33,8 +33,9 @@ check of stored distances guard the reuse, and the scheduler's ``known=``
 computes only the pairs that touch a new clip.  ``query.py`` ranks new clips
 against an index the same way.
 
-Paths that are not ported yet raise ``NotImplementedError`` naming the
-ROADMAP.md item that will port them (``check_supported``).
+``dtw.dtype=bfloat16`` runs the DTW per pair with the reference's bf16
+Gram costs (``parallel/pair_scheduler.all_pairs_distances``); the
+alignments stay fp32, as the reference's.
 """
 
 from __future__ import annotations
@@ -79,10 +80,7 @@ from audio_pattern_discovery_tpu_torch.ops.spectrogram import (
     num_frames,
     spectrogram_corpus,
 )
-from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import (
-    all_pairs_distances,
-    route_for,
-)
+from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 from audio_pattern_discovery_tpu_torch.utils import checkpoint as ckpt
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
@@ -92,17 +90,6 @@ DTW_KERNELS = (
     dtw_tile_lane_diag_pairs, dtw_tile_pairs, dtw_tile_lane_full_pairs, dtw_tile_lane_pairs,
     dtw_tile_stripe_pairs, dtw_batch_pallas, _dtw_batch_stripe, dtw_long_batch,
 )
-
-
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this port does not
-    run yet (``dtw.dtype=bfloat16``), before any work starts."""
-    try:
-        route_for(cfg.dtw.max_seq_len, cfg.dtw)
-    except NotImplementedError as exc:
-        raise NotImplementedError(
-            f"not ported to audio_pattern_discovery_tpu_torch yet: {exc}"
-        ) from None
 
 
 class _PreparedSignals:
@@ -490,7 +477,6 @@ def discover(
     requires the feature-affecting config unchanged, every prior WAV still
     present, and a saved checkpoint when the embedder is on."""
     cfg = (config or PipelineConfig()).validate()
-    check_supported(cfg)
     device = resolve_device(device)
     log = logger or get_logger()
     counters = StageCounters()

@@ -100,12 +100,10 @@ def query_corpus(
         _load_update_state,
         _prepare_corpus,
         _validate_prior_segments,
-        check_supported,
     )
     from audio_pattern_discovery_tpu_torch.utils import checkpoint as ckpt
 
     cfg = (config or PipelineConfig()).validate()
-    check_supported(cfg)
     device = resolve_device(device)
     log = logger or get_logger()
     prior = Path(prior_out_dir)

@@ -26,8 +26,9 @@ Requests (all fields beyond "cmd" optional unless noted):
     {"cmd": "shutdown"}
 
 Responses: {"ok": true, "result": ...} or {"ok": false, "error": "...",
-"traceback": "..."}.  ``doctor`` is not ported and answers ok=false with
-its NotImplementedError.  Requests are served strictly one at a time on
+"traceback": "..."}.  ``doctor`` answers ``utils/doctor.run_doctor``'s
+report (the device probes only with ``"probe_device": true``).  Requests
+are served strictly one at a time on
 the device the server was started with, so two device jobs never run
 together.  A request that fails with a Python exception leaves the worker
 serving; a CUDA error that poisons the context (an illegal address) cannot
@@ -70,10 +71,9 @@ def _handle(req: dict, default_cfg: PipelineConfig, log, device: torch.device) -
     if cmd == "ping":
         return {"pong": True, "pid": os.getpid(), "device": str(device)}
     if cmd == "doctor":
-        raise NotImplementedError(
-            "doctor is not ported to audio_pattern_discovery_tpu_torch yet "
-            '(ROADMAP.md Queue 1: "Runtime extras")'
-        )
+        from audio_pattern_discovery_tpu_torch.utils.doctor import run_doctor
+
+        return run_doctor(probe_device=bool(req.get("probe_device", False)))
     if cmd == "discover":
         from audio_pattern_discovery_tpu_torch.pipeline import discover
 

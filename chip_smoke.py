@@ -7,7 +7,7 @@ Phases (each one passes or the script exits non-zero, and prints its
 seconds; ``--phases`` runs a subset, phase 1 always):
 
 1. device: a CUDA card is required; prints its name and power limit and
-   builds the kernels K1-K8 from ``audio_pattern_discovery_tpu_torch/csrc``
+   builds the kernels K1-K8 (K8 with its Gram instantiations) from ``audio_pattern_discovery_tpu_torch/csrc``
    (one nvcc each, started together), with each source's registers and
    spill bytes from ``ptxas -v`` (a spill fails the phase);
 2. K1 against its plain PyTorch twin on the card at the config-4 tile shape
@@ -131,8 +131,8 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    ``block_dir`` twice: each second run launches no DTW kernel and gives the
    same D bit for bit;
 25. ``--serve`` as a subprocess on the card: ping, ``discover`` on seed 7,
-   a request that fails, the same ``query`` twice, ``doctor``'s refusal,
-   shutdown; prints the
+   a request that fails, the same ``query`` twice, ``doctor`` with the
+   device probes, shutdown; prints the
    start-up and each request's wall; the served D equals the CLI's bit for
    bit;
 26. ``autoencoder.context_frames=2`` and ``spectrogram.upload_codec=mulaw8``,
@@ -172,7 +172,28 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 29. a diag band 16 job of mixed lengths through ``discover()`` (16 clips of
    90 s with motifs of 2-40 s): K1 alone launches, at the tile size the
    scheduler halves to, D the scheduler's bit for bit, 8 distances against
-   K8's twin.
+   K8's twin;
+30. the runtime extras: ``--doctor`` as a subprocess (the card's name and
+   power limit, ``dispatch_floor_ms``, ``hbm_gbps``, ``upload_mb_s``, and
+   the eight kernel libraries current in ``compile_cache``); the seed-7 CLI
+   at the golden config with ``--trace DIR``: the trace's CUDA kernel
+   events of K1's kernel number the run's K1 launches; ``time_fn`` beside
+   ``cuda_ms`` on one K1 call;
+31. ``dtw.dtype=bfloat16``: K8's Gram instantiation against its twin
+   (``K8_BF16_RTOL``) on 64 pairs at S=8192 unbanded, widen 16 and diag 16,
+   and at S=2048 at d=64 and cosine, never equal to the fp32 distances; it
+   and the fp32 instantiation timed in turns at 512 pairs of bucket 8192
+   with their bounds (``bound_gram``: the dot product at the bf16
+   tensor-core rate, the rest at the fp32 rate); ``all_pairs_distances`` on
+   phase 28's features in bfloat16 (per pair, K8's Gram instantiation
+   alone, its launches counted from 0), 8 pairs against the twin and the 3
+   shortest segments' pairs against the CPU port; the seed-7 CLI with
+   ``-s dtw.dtype=bfloat16 -s dtw.band=16`` on the card (its diag buckets
+   of at most 1024 frames on K8 alone) and on the CPU: partition exact,
+   ``dtw_tile_programs`` 0, the card's D within each pair's derived bound
+   (``bf16_pair_bound``) of the plain ``dtw_batch`` on the CPU on the card
+   run's own features, and the same job in the process, counted and timed,
+   bitwise the CLI's D.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
@@ -184,12 +205,12 @@ K3's, K4's, K6's and K7's outputs bitwise, K8's and phase 28's unbanded D
 reports their times and phase 28's per-pair wall and K8 time.
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
-beside their device time.  Kernel times are device times (``cuda_ms``:
-CUDA events around calls queued behind a device sleep, so the host's work
-per call does not show).  A bound is the larger of the call's fp32
-operations over 67 TFLOP/s and its bytes over 3.35 TB/s (the H100's
-published peaks): ``3d + 4`` operations for each DP cell the distances
-need (``pair_cells``).
+beside their device time.  Kernel times are device times
+(``utils/timer.cuda_ms``: CUDA events around calls queued behind a device
+sleep, so the host's work per call does not show).  A bound is the larger
+of the call's fp32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s
+(the H100's published peaks): ``3d + 4`` operations for each DP cell the
+distances need (``pair_cells``), ``2d + 8`` in K8's Gram instantiation.
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Everything else goes to
@@ -206,12 +227,14 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from audio_pattern_discovery_tpu_torch.utils.timer import cuda_ms
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden" / "GOLDEN_cpu_seed7_mfcc_pca.npz"
@@ -371,28 +394,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int, warm: bool = True, per_call: list | None = None) -> float:
-    """Mean device ms of ``reps`` calls of fn (after a warm call unless
-    ``warm`` is false), from CUDA events between the calls.  The device
-    first sleeps (~50 ms) while the host queues the calls, so no call waits
-    on the host's work for the next one: the time is the device's even where
-    that work outlasts the kernel.  ``per_call`` receives each call's ms."""
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(100_000_000)
-    ev[0].record()
-    for e in ev[1:]:
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    times = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
-    if per_call is not None:
-        per_call.extend(times)
-    return sum(times) / reps
 
 
 def spread(times: list[float]) -> str:
@@ -2254,8 +2255,9 @@ def phase24(dev, tmp: Path) -> dict:
 
 def phase25(tmp: Path) -> dict:
     """The resident worker: ``--serve`` as a subprocess on the card; ping,
-    discover on seed 7, the same query twice, doctor's refusal and a
-    shutdown.  The served D equals the CLI's bit for bit."""
+    discover on seed 7, the same query twice, doctor's report (with the
+    device probes) and a shutdown.  The served D equals the CLI's bit for
+    bit."""
     from audio_pattern_discovery_tpu_torch.serve import request
     from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
 
@@ -2304,11 +2306,11 @@ def phase25(tmp: Path) -> dict:
                 fail(f"phase 25: the {req['cmd']} request failed: {r.get('traceback', r)}")
             walls.append(wall)
             results.append(r["result"])
-        doctor = request(sock, {"cmd": "doctor"}, timeout=60)
-        if doctor["ok"] or "Runtime extras" not in doctor["error"]:
+        doctor = request(sock, {"cmd": "doctor", "probe_device": True}, timeout=120)
+        if not doctor["ok"] or "error" in doctor["result"].get("device", {"error": None}):
             fail(f"phase 25: doctor answered {doctor}")
         if not request(sock, {"cmd": "ping"}, timeout=30)["ok"]:
-            fail("phase 25: the worker stopped answering after doctor's refusal")
+            fail("phase 25: the worker stopped answering after doctor's report")
         bye = request(sock, {"cmd": "shutdown"}, timeout=60)
         proc.wait(timeout=120)
         if not bye["ok"] or proc.returncode != 0:
@@ -2334,7 +2336,7 @@ def phase25(tmp: Path) -> dict:
         f"request, then the same query {walls[1]:.3f} s and {walls[2]:.3f} s (best cluster "
         f"{q['best_cluster']}); the CLI's "
         f"process for the same discover {w_cli:.2f} s; served D bitwise the CLI's; doctor: "
-        f"{doctor['error'][:80]}")
+        f"{json.dumps({k: doctor['result']['device'][k] for k in DOCTOR_PROBES})}")
     return {"launches": int(counts["launches.dtw_tile_lane_diag_pairs"])}
 
 
@@ -2745,7 +2747,7 @@ def long_units_corpus_28(tmp: Path) -> tuple[Path, list]:
     return corpus, [vars(t) for t in truth]
 
 
-def phase28(dev, tmp: Path) -> dict:
+def phase28(dev, tmp: Path, keep: dict) -> dict:
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
@@ -2763,6 +2765,7 @@ def phase28(dev, tmp: Path) -> dict:
     if set(launched) != {"dtw_long_batch"}:
         fail(f"phase 28: discover() launched {launched}; want dtw_long_batch alone")
     D, f, n = res.distance_matrix, res.seg_features, res.seg_lengths
+    keep["features"] = (f, n)
     if not np.isfinite(D).all() or len(res.clusters) < 1:
         fail("phase 28: non-finite distances or no clusters")
     if int(n.min()) <= 4096:
@@ -2904,6 +2907,379 @@ def phase29(dev, tmp: Path) -> None:
         f"K8's twin (max abs err {err:.3g}, relative "
         f"{K8_READINGS[tag]:.3g}); discover() wall "
         f"{wall:.2f} s")
+
+
+# The device probes of utils/doctor.py that phases 25 and 30 print.
+DOCTOR_PROBES = ("name_power_limit", "dispatch_floor_ms", "hbm_gbps", "upload_mb_s")
+
+
+def phase30(dev, tmp: Path) -> None:
+    """Runtime extras on the card: ``--doctor`` (its device probes, and
+    every kernel library current in ``compile_cache`` after phase 1's
+    build); the seed-7 CLI at the golden config (band 16: K1) with
+    ``--trace DIR``, whose trace must hold a CUDA kernel event of K1's for
+    each of the run's K1 launches; ``time_fn`` (host wall to the
+    synchronization) beside ``cuda_ms`` (device time) on one K1 call."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
+    from audio_pattern_discovery_tpu_torch.utils.timer import time_fn
+
+    proc = subprocess.run([sys.executable, "-m", "audio_pattern_discovery_tpu_torch", "--doctor"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"phase 30: --doctor exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout)
+    probes, cache = rep["device"], rep["compile_cache"]
+    if set(rep) != {"versions", "host", "native_lib", "compile_cache", "env", "device"}:
+        fail(f"phase 30: --doctor's report has the keys {sorted(rep)}")
+    if "error" in probes or probes["platform"] != "gpu" or not all(
+            isinstance(probes[k], (int, float)) and probes[k] > 0 for k in DOCTOR_PROBES[1:]):
+        fail(f"phase 30: --doctor's device probes: {probes}")
+    if not isinstance(probes["name_power_limit"], str) or not probes["name_power_limit"]:
+        fail(f"phase 30: --doctor read no name and power limit: {probes['name_power_limit']}")
+    libs = cache["libraries"]
+    if sorted(libs) != sorted(KERNELS) or set(libs.values()) != {"current"} or "error" in cache[
+            "nvcc"]:
+        fail(f"phase 30: --doctor's compile cache: {cache}")
+    log(f"phase 30: --doctor: {json.dumps(probes)}; nvcc {cache['nvcc']['version']}; "
+        f"{len(libs)} kernel libraries current in {cache['entries']} build entries "
+        f"({cache['bytes']} bytes); native {json.dumps(rep['native_lib'])}")
+    # --trace: K1's kernel events in the trace, one per launch of the run.
+    cfg_path = tmp / "golden_cfg.json"
+    golden_config().to_json(cfg_path)
+    trace_dir = tmp / "trace_30"
+    summary, wall, _ = cli("phase 30 (--trace)", seed7_corpus(tmp), tmp / "trace_30_out",
+                           "-c", str(cfg_path), "--trace", str(trace_dir))
+    launches = int(summary["counts"].get("launches.dtw_tile_lane_diag_pairs", 0))
+    traces = list(trace_dir.glob("*.json"))
+    if len(traces) != 1 or launches < 1:
+        fail(f"phase 30: --trace wrote {traces} for a run of {launches} K1 launches")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in kernels if "lane_diag_kernel" in e.get("name", "")]
+    if len(k1_events) != launches:
+        fail(f"phase 30: the trace holds {len(k1_events)} events of K1's kernel "
+             f"({len(kernels)} kernel events) for {launches} launches")
+    k1_us = sum(float(e.get("dur", 0.0)) for e in k1_events)
+    log(f"phase 30: --trace of the seed-7 CLI (wall {wall:.2f} s): {traces[0].name}, "
+        f"{traces[0].stat().st_size} bytes, {len(events)} events, {len(kernels)} CUDA kernel "
+        f"events, {len(k1_events)} of K1's ({k1_events[0]['name'][:60]}...) for {launches} "
+        f"launches, {k1_us / 1e3:.3f} ms of K1 on the trace")
+    # time_fn and cuda_ms on one K1 call at phase 2's shape.
+    (feats, lens, rep_t, ii, jj), kw = k1_inputs(dev, 4, 16, seed=1)
+    n0 = dtw_tile_lane_diag_pairs.launches
+    wall_s = time_fn(lambda: dtw_tile_lane_diag_pairs(feats, lens, rep_t, ii, jj, **kw),
+                     warmup=2, iters=11)
+    dev_ms = cuda_ms(lambda: dtw_tile_lane_diag_pairs(feats, lens, rep_t, ii, jj, **kw), 20)
+    if dtw_tile_lane_diag_pairs.launches - n0 != 13 + 21:
+        fail("phase 30: time_fn and cuda_ms did not launch K1 once a call")
+    if not wall_s * 1e3 >= dev_ms > 0:
+        fail(f"phase 30: time_fn's wall {wall_s * 1e3:.3f} ms below cuda_ms's {dev_ms:.3f} ms")
+    log(f"phase 30: one K1 call (10 tile-pairs, config-4 shape): time_fn {wall_s * 1e3:.3f} ms "
+        f"(median host wall to the synchronization), cuda_ms {dev_ms:.3f} ms (device)")
+
+
+# K8's Gram instantiation against its twin: both take the same rounded
+# frames, so every product is exact and a cell differs only in the order
+# of its fp32 sums (the d-term dot product, the squared norms), amplified
+# by the cancellation in |a|^2 + |b|^2 - 2 a.b (tests/test_torch_bf16.py
+# derives the bound, d 2^-24 (|a|^2 + |b|^2) relative to the squared cost:
+# ~4e-6 a cell at d=16 on unit-variance frames, half that after the sqrt),
+# and the errors cancel along a path.  The largest reading over phase 31 on
+# the H100 80GB HBM3 at 700 W was 1.16e-7 relative (most checks bitwise);
+# the limit is K8_RTOL's, over 10x that.
+K8_BF16_RTOL = K8_RTOL
+K8_BF16_ATOL = K8_ATOL
+
+
+# bf16 products with fp32 sums on the tensor cores, dense (the H100 SXM's
+# published peak at 700 W).
+BF16_TC_OPS_S = 989e12
+
+
+def cell_ops_gram(d: int) -> tuple[int, int]:
+    """(fp32 operations outside the tensor cores, bf16 tensor-core
+    operations) of one Euclidean DP cell of K8's Gram instantiation: the
+    dot product's d products and d sums of bf16 operands in fp32 are
+    tensor-core work; |a|^2 + |b|^2, the FMA |a|^2 + |b|^2 - 2 a.b, the max
+    with 0, a sqrt, two mins and an add are not."""
+    return 7, 2 * d
+
+
+def bound_gram(cells: float, d: int, nbytes: float) -> tuple[float, str]:
+    """``bound`` for K8's Gram instantiation: each kind of operation at its
+    own peak rate."""
+    fp32_ops, tc_ops = cell_ops_gram(d)
+    t_ops = cells * (fp32_ops / FP32_OPS_S + tc_ops / BF16_TC_OPS_S)
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bf16_pair_bound(a: np.ndarray, b: np.ndarray, metric: str, band, band_mode: str,
+                    normalize: str, want: float) -> float:
+    """How far two bf16 Gram DTW runs on the same frames a [la, d] and
+    b [lb, d] may differ (tests/test_torch_bf16.py derives it): both round
+    the same fp32 operands to bf16, so every product is exact and a cell's
+    cost differs only by the order of its fp32 sums (eps per squared cost,
+    amplified by the sqrt near 0); a distance by the largest sum of that
+    over a monotone path through the band (a max-plus DTW), plus each
+    side's fp32 rounding of the path's sum."""
+    U = 2.0 ** -24
+    la, lb, d = len(a), len(b), a.shape[1]
+    if metric == "cosine":
+        a = a / np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
+        b = b / np.maximum(np.linalg.norm(b, axis=1, keepdims=True), 1e-12)
+    ar = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).double().numpy()
+    br = torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(torch.bfloat16).double().numpy()
+    absdot = np.abs(ar) @ np.abs(br).T
+    if metric == "cosine":
+        e = 2 * (d - 1) * U * absdot + 2 * U
+    else:
+        na = np.sum(a.astype(np.float64) ** 2, axis=1)[:, None]
+        nb = np.sum(b.astype(np.float64) ** 2, axis=1)[None, :]
+        e = 2 * (d + 2) * U * (na + nb + 2 * absdot)
+        if metric == "euclidean":
+            sq = np.maximum(na + nb - 2 * ar @ br.T, 0.0)
+            e = 2 * e / np.sqrt(np.maximum(sq, e)) + 2 * U * np.sqrt(sq)
+    i, j = np.arange(la)[:, None], np.arange(lb)[None, :]
+    if band is None:
+        valid = np.ones((la, lb), bool)
+    elif band_mode == "diag":
+        valid = np.abs(j * (la - 1) - i * (lb - 1)) <= max(band, 1) * max(la - 1, lb - 1)
+    else:
+        valid = np.abs(i - j) <= max(band, abs(la - lb))
+    prev = np.full(lb + 1, -np.inf)          # prev[j + 1]: the row above; prev[0] the origin's
+    prev[0] = 0.0
+    for r in range(la):
+        cols = np.nonzero(valid[r])[0]
+        cur = np.full(lb + 1, -np.inf)
+        if len(cols):
+            lo, hi = cols[0], cols[-1]
+            up = np.maximum(prev[lo:hi + 1], prev[lo + 1:hi + 2])
+            run = np.cumsum(e[r, lo:hi + 1])
+            cur[lo + 1:hi + 2] = run + np.maximum.accumulate(up - np.concatenate([[0.0], run[:-1]]))
+        prev = cur
+        prev[0] = -np.inf
+    tol = float(prev[lb])
+    if normalize == "path_len":
+        tol /= la + lb
+    return tol + 2 * (la + lb) * U * abs(want)
+
+
+def k8_bf16_check(tag: str, args, **kw) -> tuple[float, float]:
+    """K8's Gram instantiation against its twin on the card: the max abs
+    error and the twin's ms."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
+
+    n0 = dtw_long_batch.launches
+    got = dtw_long_batch(*args, matmul_dtype="bfloat16", **kw)
+    torch.cuda.synchronize()
+    if dtw_long_batch.launches == n0:
+        fail(f"{tag}: K8's Gram instantiation did not launch")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = dtw_long_batch_ref(*args, matmul_dtype="bfloat16", **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    k8_reading(tag, got, want)
+    f32 = dtw_long_batch(*args, **kw)
+    fin = torch.isfinite(f32)
+    if bool(fin.any()) and bool((got[fin] == f32[fin]).all()):
+        fail(f"{tag}: the Gram instantiation gave the fp32 distances")
+    return agree(tag, got, want, K8_BF16_RTOL, K8_BF16_ATOL), ev[0].elapsed_time(ev[1])
+
+
+def phase31(dev, tmp: Path, keep: dict) -> dict:
+    """dtw.dtype=bfloat16 on the card: K8's Gram instantiation against its
+    twin (64 pairs at S=8192 unbanded, widen 16 and diag 16 at d=16; d=64
+    and cosine at S=2048), timed beside the fp32 instantiation at 512 pairs
+    of bucket 8192; ``all_pairs_distances`` on phase 28's features with
+    dtype bfloat16 (the main path of the Gram instantiation: its launches
+    counted from 0), 8 pairs against the twin on the card and the 3 shortest
+    segments' pairs against the CPU port; the seed-7 CLI with
+    ``-s dtw.dtype=bfloat16 -s dtw.band=16`` (diag buckets of at most 1024
+    frames: K8's Gram instantiation on the card) on the card and on the
+    CPU, and that job again in this process."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+    from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
+
+    S, d = 8192, 16
+    args = long_pairs(dev, 64, S, d, 4097, seed=31, near=32)
+    errs, plain = {}, {}
+    for mode, kw in (("unbanded", dict(band=None)), ("widen 16", dict(band=16)),
+                     ("diag 16", dict(band=16, band_mode="diag"))):
+        errs[mode], plain[mode] = k8_bf16_check(f"phase 31 (S={S}, {mode})", args, **kw)
+    Sw = K8_SWEEP_S
+    errs["d=64"], _ = k8_bf16_check("phase 31 (d=64)", long_pairs(dev, 8, Sw, 64, Sw // 2,
+                                                                    seed=311))
+    errs["cosine"], _ = k8_bf16_check("phase 31 (cosine)", long_pairs(dev, 8, Sw, d, Sw // 2,
+                                                                       seed=312), metric="cosine")
+    res = {"max_abs_err": max(errs.values()), "plain_ms": plain["unbanded"]}
+    res["ms"] = cuda_ms(lambda: dtw_long_batch(*args, matmul_dtype="bfloat16"), 3)
+    cells = float(pair_cells(args[2], args[3], "full").sum())
+    nbytes = pair_bytes(args[2], args[3], d + 1)        # frames and their norms
+    res["bound_ms"], res["bound_by"] = bound_gram(cells, d, nbytes)
+    readings = {k: v for k, v in K8_READINGS.items() if k.startswith("phase 31")}
+    log(f"phase 31: K8 (Gram) vs its twin: max abs err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (rtol {K8_BF16_RTOL:.3g}, "
+        f"atol {K8_BF16_ATOL}); largest relative difference per check (distances past 1): "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in readings.items()})}")
+    log(f"phase 31: K8 (Gram) {res['ms']:.3f} ms/call on the 64 pairs ({cells:.4g} cells, "
+        f"{rate_line(res['ms'], cells, res['bound_ms'])} at {cell_ops_gram(d)} (fp32, "
+        f"bf16 tensor-core) ops a cell), "
+        f"plain {res['plain_ms']:.3f} ms/call")
+    del args
+    # 512 pairs of bucket 8192 (phase 27's launch size), unbanded: the Gram
+    # and the fp32 instantiations in turns.
+    g = torch.Generator(device=dev).manual_seed(277)
+    la = torch.randint(4097, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
+    lb = torch.randint(S - 31, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
+    big = (torch.randn((512, S, d), generator=g, device=dev),
+           torch.randn((512, S, d), generator=g, device=dev), la, lb)
+    times: dict[str, list[float]] = {"bf16": [], "fp32": []}
+    for name in ("bf16", "fp32", "fp32", "bf16"):
+        mm = "bfloat16" if name == "bf16" else None
+        cuda_ms(lambda: dtw_long_batch(*big, matmul_dtype=mm), 3, per_call=times[name])
+    c512 = float(pair_cells(la, lb, "full").sum())
+    b16_ms, _ = bound_gram(c512, d, pair_bytes(la, lb, d + 1))
+    f32_ms, _ = bound(c512, d, pair_bytes(la, lb, d))
+    med = {k: sorted(t)[len(t) // 2] for k, t in times.items()}
+    log(f"phase 31: 512 pairs of bucket {S} (unbanded, in turns): K8 Gram {spread(times['bf16'])}, "
+        f"{b16_ms / med['bf16']:.1%} of its bound {b16_ms:.3f} ms; K8 fp32 "
+        f"{spread(times['fp32'])}, {f32_ms / med['fp32']:.1%} of its bound {f32_ms:.3f} ms")
+    del big
+    # The main path: all_pairs_distances on phase 28's features, bfloat16.
+    if "features" not in keep:
+        res28 = discover(long_units_corpus_28(tmp)[0], phase28_config(),
+                         out_dir=tmp / "long_units_31_out", device=dev)
+        keep["features"] = (res28.seg_features, res28.seg_lengths)
+    f, n = keep["features"]
+    cfg = DTWConfig(band=None, max_seq_len=8192, dtype="bfloat16")
+    for k in DTW_KERNELS:
+        k.launches = 0
+    st: dict = {}
+    t0 = time.perf_counter()
+    D = ps.all_pairs_distances(f, n, cfg, device=dev, stats=st)
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in DTW_KERNELS if k.launches}
+    res["launches"] = dtw_long_batch.launches
+    if st["route"] != "per_pair" or launched != {"dtw_long_batch": res["launches"]} or \
+            res["launches"] < 1:
+        fail(f"phase 31: the bf16 job took the route {st['route']} and launched {launched} "
+             f"(Gram {res['launches']}); want K8's Gram instantiation alone")
+    rng = np.random.default_rng(31)
+    ia = rng.integers(0, len(n), 8)
+    ib = (ia + rng.integers(1, len(n), 8)) % len(n)
+    fd = torch.from_numpy(f).to(dev)
+    nd = torch.from_numpy(n.astype(np.int32)).to(dev)
+    tag = "phase 31 (8 distances vs the twin)"
+    want = dtw_long_batch_ref(fd[ia], fd[ib], nd[ia], nd[ib], normalize="path_len",
+                              matmul_dtype="bfloat16")
+    got = torch.from_numpy(D[ia, ib]).to(dev)
+    k8_reading(tag, got, want)
+    err8 = agree(tag, got, want, K8_BF16_RTOL, K8_BF16_ATOL)
+    short = np.argsort(n, kind="stable")[:3]
+    t0 = time.perf_counter()
+    D_cpu = ps.all_pairs_distances(f[short], n[short], cfg, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    tag_cpu = "phase 31 (3 pairs vs the CPU port)"
+    k8_reading(tag_cpu, torch.from_numpy(D[np.ix_(short, short)]), torch.from_numpy(D_cpu))
+    err_cpu = agree(tag_cpu, torch.from_numpy(D[np.ix_(short, short)]), torch.from_numpy(D_cpu),
+                    K8_BF16_RTOL, K8_BF16_ATOL)
+    D32 = ps.all_pairs_distances(f, n, DTWConfig(band=None, max_seq_len=8192), device=dev)
+    off = ~np.eye(len(n), dtype=bool)
+    log(f"phase 31: all_pairs_distances on phase 28's features ({len(n)} segments of "
+        f"{int(n.min())}-{int(n.max())} frames), dtype bfloat16: route {st['route']}, K8 Gram "
+        f"{res['launches']} launches in {st['long_calls']} merged calls, "
+        f"{st['kernel_s_by'].get('dtw_long_batch', 0.0):.4f} s of device time, wall {wall:.3f} s; "
+        f"8 distances vs the twin max abs err {err8:.3g} (relative {K8_READINGS[tag]:.3g}); the 3 "
+        f"shortest segments' pairs vs the CPU port ({cpu_wall:.1f} s) {err_cpu:.3g} (relative "
+        f"{K8_READINGS[tag_cpu]:.3g}); against the fp32 D: max relative difference "
+        f"{float(np.max(np.abs(D - D32)[off] / D32[off])):.3g}")
+    # The seed-7 CLI in bf16 with band 16: every bucket is a diag bucket of at
+    # most 1024 frames, which K8's Gram instantiation takes on the card
+    # (the plain dtw_batch on the CPU).  The card run's D is held to the
+    # plain dtw_batch on the CPU on the card run's own features (same
+    # inputs) at each pair's derived bound; the partition is held to a CPU
+    # run of the CLI (its features differ from the card's in their last
+    # bits, phase 9).
+    golden_config().to_json(tmp / "golden_cfg.json")
+    flags = ("-c", str(tmp / "golden_cfg.json"), "-s", "dtw.dtype=bfloat16", "-s", "dtw.band=16",
+             "-s", "output.write_features=true")
+    out = {}
+    corpus = seed7_corpus(tmp)
+    with ThreadPoolExecutor(2) as pool:      # the two processes run side by side
+        runs = {devname: pool.submit(cli, f"phase 31 (CLI, {devname})", corpus,
+                                     tmp / f"bf16_{devname}", *flags, "--device", devname)
+                for devname in ("cuda", "cpu")}
+    for devname, run in runs.items():
+        summary, w, manifest = run.result()
+        counts = summary["counts"]
+        if int(counts["dtw_tile_programs"]) != 0:
+            fail(f"phase 31: the bf16 CLI on {devname} ran tile-pair programs")
+        launched = {k.__name__: int(counts.get(f"launches.{k.__name__}", 0)) for k in DTW_KERNELS}
+        k8_only = {k: n for k, n in launched.items() if n} == (
+            {"dtw_long_batch": launched["dtw_long_batch"]} if devname == "cuda" else {})
+        if not k8_only or (devname == "cuda" and launched["dtw_long_batch"] < 1):
+            fail(f"phase 31: the bf16 CLI on {devname} launched {launched}; want K8 alone on the "
+                 "card, no kernel on the CPU")
+        out[devname] = (np.load(tmp / f"bf16_{devname}" / "distance_matrix.npy"),
+                        partition_of(manifest), w, launched["dtw_long_batch"])
+    if out["cuda"][1] != out["cpu"][1]:
+        fail("phase 31: the bf16 CLI's partition on the card differs from the CPU's")
+    Dc = out["cuda"][0]
+    with np.load(tmp / "bf16_cuda" / "features.npz") as z:
+        f7, n7 = z["features"], z["lengths"].astype(np.int32)
+    dcfg = golden_config().dtw
+    kw7 = dict(metric=dcfg.metric, band=16, band_mode=dcfg.band_mode, normalize=dcfg.normalize)
+    ii, jj = np.triu_indices(len(n7), 1)
+    ref = np.concatenate([
+        dtw_batch(torch.from_numpy(f7[ii[s:s + 512]]), torch.from_numpy(f7[jj[s:s + 512]]),
+                  torch.from_numpy(n7[ii[s:s + 512]]), torch.from_numpy(n7[jj[s:s + 512]]),
+                  matmul_dtype="bfloat16", **kw7).numpy() for s in range(0, len(ii), 512)])
+    tol = np.array([bf16_pair_bound(f7[i, :n7[i]], f7[j, :n7[j]], dcfg.metric, 16,
+                                    dcfg.band_mode, dcfg.normalize, r)
+                    for i, j, r in zip(ii, jj, ref)])
+    err7 = np.abs(Dc[ii, jj].astype(np.float64) - ref)
+    if Dc.shape != (len(n7),) * 2 or not (err7 <= tol).all():
+        worst = int(np.argmax(err7 - tol))
+        fail(f"phase 31: the bf16 CLI's D on the card differs from the plain dtw_batch on the CPU "
+             f"on its features by {err7[worst]:.3g} at pair ({ii[worst]}, {jj[worst]}), over "
+             f"its bound {tol[worst]:.3g}")
+    f32_7 = ps.all_pairs_distances(f7, n7, DTWConfig(band=16, band_mode=dcfg.band_mode,
+                                                     normalize=dcfg.normalize), device=dev)
+    if np.array_equal(Dc, f32_7):
+        fail("phase 31: the bf16 CLI's D on the card is the fp32 D")
+    # The same diag path in this process, its K8 launches counted from 0 and
+    # timed: bitwise the CLI's D (same features, same kernel).
+    for k in DTW_KERNELS:
+        k.launches = 0
+    st7: dict = {}
+    t0 = time.perf_counter()
+    D7 = ps.all_pairs_distances(f7, n7, DTWConfig(band=16, band_mode=dcfg.band_mode,
+                                                  normalize=dcfg.normalize, dtype="bfloat16"),
+                                device=dev, stats=st7)
+    wall7 = time.perf_counter() - t0
+    launched7 = {k.__name__: k.launches for k in DTW_KERNELS if k.launches}
+    if launched7 != {"dtw_long_batch": launched7.get("dtw_long_batch", 0)} or not \
+            np.array_equal(D7, Dc):
+        fail(f"phase 31: the seed-7 diag job in this process launched {launched7}; its D "
+             f"differs from the CLI's by {np.abs(D7 - Dc).max():.3g}")
+    off = ~np.eye(len(n7), dtype=bool)
+    log(f"phase 31: the seed-7 CLI with -s dtw.dtype=bfloat16 -s dtw.band=16 (the two processes "
+        f"side by side): card {out['cuda'][2]:.2f} s ({out['cuda'][3]} K8 Gram launches), CPU "
+        f"{out['cpu'][2]:.2f} s, partition exact, dtw_tile_programs 0; the card's D vs the plain "
+        f"dtw_batch on the CPU on the card's features ({len(ii)} pairs of {int(n7.min())}-"
+        f"{int(n7.max())} frames, d={f7.shape[2]}): max abs {err7.max():.3g}, at most "
+        f"{float((err7 / tol).max()):.3g} of each pair's bound (largest bound "
+        f"{tol.max():.3g}); vs the fp32 D max relative "
+        f"{float(np.max(np.abs(Dc - f32_7)[off] / f32_7[off])):.3g}; in this process "
+        f"all_pairs_distances: {launched7['dtw_long_batch']} K8 Gram launches in "
+        f"{st7['long_calls']} merged calls, {st7['kernel_s_by']['dtw_long_batch'] * 1e3:.3f} ms "
+        f"of device time, wall {wall7 * 1e3:.1f} ms, D bitwise the CLI's")
+    return res
 
 
 def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> tuple[np.ndarray, int]:
@@ -3205,6 +3581,10 @@ def main() -> int:
                       "replaces": replaces, "library_ms": None}
                for name, (fn, replaces) in KERNELS.items()}
     k1, k2, k3, k4, k5, k6, k7, k8 = (kernels[name] for name in KERNELS)
+    # K8's Gram instantiation (dtw.dtype=bfloat16): the same source and
+    # reference body, the launches of phase 31's bf16 job.
+    k8_bf16 = kernels["dtw_long_block (Gram)"] = {
+        **k8, "name": "dtw_long_batch(matmul_dtype=bfloat16)"}
 
     def per_pair(res: dict) -> None:
         k6.update(res["k6"])
@@ -3228,6 +3608,7 @@ def main() -> int:
             f"{json.dumps(res['ooo'])}")
 
     full_d: dict = {}   # phases 5 and 11's D, for phase 22
+    long_units: dict = {}   # phase 28's features, for phase 31
     with tempfile.TemporaryDirectory(prefix="apd_smoke_") as tmp_dir:
         tmp = Path(tmp_dir)
         phases = [
@@ -3258,8 +3639,10 @@ def main() -> int:
             lambda: phase25(tmp),
             lambda: phase26(dev, tmp),
             lambda: k8.update(phase27(dev)),
-            lambda: k8.update(phase28(dev, tmp)),
+            lambda: k8.update(phase28(dev, tmp, long_units)),
             lambda: phase29(dev, tmp),
+            lambda: phase30(dev, tmp),
+            lambda: k8_bf16.update(phase31(dev, tmp, long_units)),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):

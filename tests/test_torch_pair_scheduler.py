@@ -1,6 +1,6 @@
 """The port's tiled all-pairs scheduler
 (audio_pattern_discovery_tpu_torch/parallel/pair_scheduler.py) against the
-JAX scheduler on the same inputs, and the routes that raise.
+JAX scheduler on the same inputs, and the routes that leave it.
 
 Tolerance rtol 1e-5 / atol 1e-6 on path_len-normalized distances: both
 sides compute the same corridor DP in fp32 (the JAX kernel from a Gram
@@ -114,33 +114,42 @@ def test_tiny_corpus():
 
 
 @pytest.mark.parametrize(
-    "cfg,match",
+    "cfg,tiled_dtype",
     [
         (DTWConfig(band=None, max_seq_len=8192), None),
         (DTWConfig(band=4, band_mode="widen", max_seq_len=8192), None),
         (DTWConfig(band=4, dtype="bfloat16"), "float32"),
     ],
 )
-def test_unported_routes_raise(cfg, match):
-    # bfloat16 still raises.  Unbanded and widen jobs padded past 4096 frames
-    # raised until the blocked wavefront (K8) was ported; no tiled route
-    # takes them, so they run per pair, as in the reference, and give the
-    # JAX package's D (here with short real lengths, so K6 takes every
-    # bucket; tests/test_torch_dtw_long.py holds K8's buckets).
+def test_unported_routes_raise(cfg, tiled_dtype):
+    # The jobs no tiled route runs, which raised until they were ported.
+    # Unbanded and widen jobs padded past 4096 frames run per pair, as in
+    # the reference, and give the JAX package's D (here with short real
+    # lengths, so K6 takes every bucket; tests/test_torch_dtw_long.py holds
+    # K8's buckets); forced onto the tiled route they raise.  A bfloat16
+    # job runs per pair with the bf16 Gram (diag band: the plain dtw_batch)
+    # and gives the JAX package's bf16 D (tests/test_torch_bf16.py derives
+    # the tolerance; 1e-5 here covers it); forced onto the tiled route it
+    # runs there in ``tiled_dtype``, as the reference's tile kernels do.
     feats, lens = _case(17, K=4, L=cfg.max_seq_len if cfg.max_seq_len > 4096 else 32)
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            tps.all_pairs_distances(feats, lens, cfg, device="cpu")
-        return
-    lens = (8 + lens % 300).astype(np.int32)
+    if tiled_dtype is None:
+        lens = (8 + lens % 300).astype(np.int32)
     stats = {}
     got = tps.all_pairs_distances(feats, lens, cfg, device="cpu", stats=stats)
     assert stats["route"] == "per_pair"
     want = jps.all_pairs_distances(
-        feats, lens, JCfg(band=cfg.band, band_mode=cfg.band_mode, max_seq_len=8192))
+        feats, lens, JCfg(band=cfg.band, band_mode=cfg.band_mode,
+                          max_seq_len=cfg.max_seq_len, dtype=cfg.dtype))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-    with pytest.raises(ValueError, match="no tiled route"):
-        tps.all_pairs_distances(feats, lens, cfg, device="cpu", tiled=True)
+    if tiled_dtype is None:
+        with pytest.raises(ValueError, match="no tiled route"):
+            tps.all_pairs_distances(feats, lens, cfg, device="cpu", tiled=True)
+        return
+    f32 = DTWConfig(band=cfg.band, band_mode=cfg.band_mode, dtype=tiled_dtype)
+    np.testing.assert_array_equal(
+        tps.all_pairs_distances(feats, lens, cfg, device="cpu", tiled=True),
+        tps.all_pairs_distances(feats, lens, f32, device="cpu"))
+    assert np.abs(got - tps.all_pairs_distances(feats, lens, f32, device="cpu")).max() > 1e-4
 
 
 @pytest.mark.parametrize(

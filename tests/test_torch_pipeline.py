@@ -1,7 +1,7 @@
 """The port's whole slice on the CPU: discover() and the CLI against the
 committed goldens and the JAX pipeline, the AE's checkpoint resume and
-two-phase training pool, import hygiene, and the routes that raise
-NotImplementedError.
+two-phase training pool, import hygiene, and the configurations and flags
+that raised NotImplementedError until they were ported.
 
 Golden tolerances are those of tests/test_pipeline_e2e.py (D at rtol 1e-4 /
 atol 1e-5, cluster partition exact), except for the AE goldens' D: see
@@ -184,24 +184,39 @@ print("OK")
 
 
 @pytest.mark.parametrize(
-    "overrides,match",
+    "overrides,alignments_dtype",
     [
         ({"dtw.band": None, "dtw.max_seq_len": 8192}, None),
         ({"dtw.dtype": "bfloat16"}, "float32 only"),
     ],
 )
-def test_unported_configs_raise(seed7, overrides, match):
-    # bfloat16 still raises before any work.  Unbanded DTW at max_seq_len
-    # 8192 raised until the blocked wavefront was ported: it runs per pair
-    # (no tiled route past 4096 frames) and gives the tiled route's D on the
-    # same segments (max_seq_len only pads them).
+def test_unported_configs_raise(seed7, overrides, alignments_dtype):
+    # Two configurations that raised until they were ported.  Unbanded DTW
+    # at max_seq_len 8192 runs per pair (no tiled route past 4096 frames)
+    # and gives the tiled route's D on the same segments (max_seq_len only
+    # pads them).  dtw.dtype=bfloat16 runs per pair with the bf16 Gram (diag
+    # band 16: the plain dtw_batch), its D that of dtw_batch's bf16 recipe
+    # on the run's features, while the alignments stay "float32 only", as
+    # the reference's: the fp32 run's paths on the same clusters.
     cfg = PipelineConfig().override({"dtw.band": 16, "autoencoder.method": "pca", **overrides})
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            discover(seed7, cfg, device="cpu")
-        return
     got = discover(seed7, cfg, device="cpu")
     assert got.counters.counts["dtw_tile_programs"] == 0      # the per-pair route
+    if alignments_dtype is not None:
+        from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
+        from audio_pattern_discovery_tpu_torch.pipeline import _cluster_alignments
+
+        n, f = got.seg_lengths, torch.from_numpy(got.seg_features)
+        ii, jj = np.triu_indices(len(n), 1)
+        want = dtw_batch(f[ii], f[jj], torch.from_numpy(n[ii]), torch.from_numpy(n[jj]),
+                         band=16, band_mode="diag", normalize="path_len",
+                         matmul_dtype="bfloat16").numpy()
+        np.testing.assert_allclose(got.distance_matrix[ii, jj], want, rtol=1e-5, atol=1e-6)
+        f32 = PipelineConfig().override({"dtw.band": 16, "autoencoder.method": "pca"})
+        for c in (c for c in got.clusters if len(c.members) > 1):
+            assert c.alignments == _cluster_alignments(
+                c.exemplar, [m for m in c.members if m != c.exemplar], got.seg_features,
+                got.seg_lengths, f32, "cpu")
+        return
     cfg.dtw.max_seq_len = 256
     want = discover(seed7, cfg, device="cpu")
     np.testing.assert_allclose(got.distance_matrix, want.distance_matrix, rtol=1e-5, atol=1e-6)
@@ -251,12 +266,23 @@ def test_update_query_serve_and_long_alignments_raise(seed7, tmp_path, capsys):
     (["--doctor"], "Runtime extras"),
     (["--trace", "trace_dir"], "Runtime extras"),
 ])
-def test_reference_only_flags_raise_naming_their_item(flags, title):
-    # The reference's flags are accepted, so a command line written for it
-    # fails with its ROADMAP item rather than argparse's "unrecognized
-    # arguments" (SystemExit).
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md Queue 1: "{re.escape(title)}"'):
-        cli_main(flags)
+def test_reference_only_flags_raise_naming_their_item(seed7, tmp_path, capsys, flags, title):
+    # The reference's flags, which raised naming their ROADMAP.md item until
+    # it was ported: each runs as the reference's does, and ROADMAP.md
+    # records the item among the ported modules.
+    roadmap = (REPO / "ROADMAP.md").read_text().replace("`", "")
+    assert f"Ported: {title}" in roadmap
+    if flags[0] == "--trace":
+        flags = [str(seed7), "-o", str(tmp_path / "out"), "--device", "cpu",
+                 "--trace", str(tmp_path / flags[1]), "-s", "dtw.band=16",
+                 "-s", "autoencoder.method=pca", "-s", "output.write_images=false"]
+    assert cli_main(flags) == 0
+    out = json.loads(capsys.readouterr().out)
+    if flags[0] == "--doctor":
+        assert {"versions", "host", "native_lib", "compile_cache", "env", "device"} == set(out)
+    else:
+        assert out["n_clusters"] >= 1
+        assert len(list((tmp_path / "trace_dir").glob("*.pt.trace.json"))) == 1
 
 
 @pytest.mark.parametrize("entry", ["discover", "cli", "all_pairs_distances",
@@ -361,26 +387,25 @@ def test_discover_past_4096_matches_jax_pipeline(seed7):
     assert got.counters.counts["dtw_tile_programs"] == 0
 
 
-def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path):
-    # Every NotImplementedError of the port names its ROADMAP.md item by a
-    # quoted title, and every quoted title is in ROADMAP.md.
-    import re
-
-    roadmap = (REPO / "ROADMAP.md").read_text().replace("`", "")
+def test_not_implemented_messages_cite_roadmap_titles(seed7, tmp_path, capsys):
+    # The three calls that raised NotImplementedError, naming their
+    # ROADMAP.md items, until those were ported now run; no source file of
+    # the port raises it any more, and ROADMAP.md lists no raise left.
     base = {"dtw.band": 16, "autoencoder.method": "pca"}
-    calls = [
-        lambda: discover(tmp_path, PipelineConfig().override({**base, "dtw.dtype": "bfloat16"}),
-                         device="cpu"),
-        lambda: cli_main(["--doctor"]),
-        lambda: cli_main(["--trace", "trace_dir"]),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError) as info:
-            call()
-        titles = re.findall(r'ROADMAP\.md Queue \d: "([^"]+)"', str(info.value))
-        assert titles, str(info.value)
-        for title in titles:
-            assert title in roadmap, title
+    res = discover(seed7, PipelineConfig().override({**base, "dtw.dtype": "bfloat16"}),
+                   device="cpu")
+    assert np.isfinite(res.distance_matrix).all() and len(res.clusters) >= 1
+    assert cli_main(["--doctor"]) == 0
+    assert cli_main([str(seed7), "-o", str(tmp_path / "out"), "--device", "cpu", "--trace",
+                     str(tmp_path / "trace_dir"), "-s", "dtw.band=16",
+                     "-s", "autoencoder.method=pca", "-s", "output.write_images=false"]) == 0
+    capsys.readouterr()
+    assert list((tmp_path / "trace_dir").glob("*.json"))
+    pkg = REPO / "audio_pattern_discovery_tpu_torch"
+    raising = [str(p) for p in pkg.rglob("*.py") if "NotImplementedError" in p.read_text()]
+    assert raising == []
+    roadmap = (REPO / "ROADMAP.md").read_text().replace("`", "")
+    assert not re.findall(r'ROADMAP\.md Queue \d: "([^"]+)"', roadmap)
 
 
 @pytest.fixture(scope="module")

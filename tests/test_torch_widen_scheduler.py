@@ -201,9 +201,12 @@ def test_per_pair_unported_options_raise(tmp_path):
                                   device="cpu")
     want = jps.all_pairs_distances(long_feats, long_lens, JCfg(band=None), tiled=False)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="float32"):
-        tps.all_pairs_distances(feats, lens, DTWConfig(band=4, dtype="bfloat16"), tiled=False,
-                                device="cpu")
+    # dtw.dtype=bfloat16 raised until it was ported: per pair with the bf16
+    # Gram on the plain dtw_batch (diag band 4), the JAX package's bf16 D.
+    got = tps.all_pairs_distances(feats, lens, DTWConfig(band=4, dtype="bfloat16"), tiled=False,
+                                  device="cpu")
+    want = jps.all_pairs_distances(feats, lens, JCfg(band=4, dtype="bfloat16"), tiled=False)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="widen kernel"):
         tps.all_pairs_distances_tiled(feats, lens, DTWConfig(band=4, band_mode="diag"), lane=True,
                                       device="cpu")
