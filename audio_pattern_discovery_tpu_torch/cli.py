@@ -6,8 +6,9 @@ file, ``-s section.key=value`` overrides, ``--dump-config``, ``--update``
 indexed segments against new WAVs), ``--serve`` (a resident worker on a
 Unix socket), ``--doctor`` (the environment report of ``utils/doctor.py``)
 and ``--trace DIR`` (a ``torch.profiler`` trace of a discovery or update
-run), with the reference's conflict checks; ``--device`` picks the card
-(the default) or the CPU.
+run), with the reference's conflict checks; ``--device`` picks the cards
+(the default: every visible card, the reference's mesh over them) or the
+CPU.
 """
 
 from __future__ import annotations
@@ -105,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--device",
         choices=("cuda", "cpu"),
         default="cuda",
-        help="where the pipeline runs (default: the card; cpu runs the kernels' plain twins)",
+        help="where the pipeline runs (default: every visible card, as the mesh of "
+        "parallel.data_axis x parallel.model_axis; cpu runs the kernels' plain twins)",
     )
     p.add_argument("--dump-config", action="store_true", help="print config and exit")
     p.add_argument("--json-logs", action="store_true")

@@ -43,7 +43,12 @@
 // blocks a +inf left column.  Block columns start at J0; `halo` (or null:
 // +inf) holds the right columns of block column J0 - 1 in V's layout, so a
 // stripe of block columns on one device can run with its left neighbour's
-// columns as input.
+// columns as input, holding only its own frames of B (xb then
+// [Kb, Sb, 4*nc4] holds frames b_off .. b_off + Sb - 1 of each sequence).
+// A call launches the diagonals k_begin <= k < nK of the plan; H, V, C and
+// out persist between calls, so a stripe advanced a range of diagonals at a
+// time (parallel/wavefront.py: one diagonal a step, with the halo's block
+// row copied in between) is the stripe run in one call.
 //
 // What bounds it on the H100.  A Euclidean cell is 3d + 4 fp32 operations,
 // and a block's cells are one dependent chain along each row and column;
@@ -103,6 +108,7 @@
 // a register budget of their own, so their extra registers never spill.
 
 #include <climits>
+#include <cstddef>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -332,16 +338,16 @@ __host__ __device__ inline size_t smem_bytes(int R, int D4, bool stage_b, int BL
 template <int R, int D4, bool kStageB, bool kGram>
 __global__ void __launch_bounds__(256, (kGram || D4 == 8 || !kStageB) ? 1 : 2) long_block_kernel(
     const float4* __restrict__ xa,       // [Ka, Sa, nc4]
-    const float4* __restrict__ xb,       // [Kb, Sb, nc4]
+    const float4* __restrict__ xb,       // [Kb, Sb, nc4]: frame j of sequence m at m Sb + j
     const float* __restrict__ na_all,    // kGram: [Ka, Sa] squared norms, else unused
-    const float* __restrict__ nb_all,    // kGram: [Kb, Sb]
+    const float* __restrict__ nb_all,    // kGram: [Kb, Sb], indexed as xb
     const long long* __restrict__ meta,  // [P, kMetaFields]
     const int* __restrict__ items,       // [P + 1]: launch k's row of the prefix sums
     float* __restrict__ H, float* __restrict__ V, float* __restrict__ C,
     const float* __restrict__ halo,      // V's layout, or null
     float* __restrict__ out,             // [P]
-    int n_pairs, int Sa, int Sb, int nc4, int BLK, int k, int J0, int totC, int mode,
-    int band, int auto_widen, int metric) {
+    int n_pairs, int Sa, int Sb, int lb_cap, int nc4, int BLK, int k, int J0, int totC,
+    int mode, int band, int auto_widen, int metric) {
   extern __shared__ float4 smem4[];
   const int n_pass = BLK / (32 * R);
   const int lane = threadIdx.x & 31;
@@ -389,7 +395,7 @@ __global__ void __launch_bounds__(256, (kGram || D4 == 8 || !kStageB) ? 1 : 2) l
   const float* nap = kGram ? na_all + (size_t)m[0] * Sa : nullptr;
   const float* nbp = kGram ? nb_all + (size_t)m[1] * Sb : nullptr;
   const int la_end = pb.la < Sa ? pb.la : Sa;
-  const int lb_end = pb.lb < Sb ? pb.lb : Sb;
+  const int lb_end = pb.lb < lb_cap ? pb.lb : lb_cap;
 
   // The block's top (row buffer 0) and left column, by asynchronous copies.
   for (int t = threadIdx.x; t < BLK / 4; t += blockDim.x) {
@@ -542,20 +548,25 @@ __global__ void __launch_bounds__(256, (kGram || D4 == 8 || !kStageB) ? 1 : 2) l
 template <int R, int D4, bool kStageB, bool kGram>
 int launch(const float* xa, const float* xb, const float* na, const float* nb,
            const long long* meta, const int* items, const int* totals, float* H, float* V,
-           float* C, const float* halo, float* out, int n_pairs, int Sa, int Sb, int nc4, int BLK,
-           int nK, int J0, int totC, int mode, int band, int auto_widen, int metric, int warps,
-           void* stream) {
+           float* C, const float* halo, float* out, int n_pairs, int Sa, int Sb, int b_off,
+           int nc4, int BLK, int k_begin, int nK, int J0, int totC, int mode, int band,
+           int auto_widen, int metric, int warps, void* stream) {
   const size_t smem = smem_bytes(R, D4, kStageB, BLK, nc4, BLK / (32 * R), warps);
   cudaError_t err = cudaFuncSetAttribute(long_block_kernel<R, D4, kStageB, kGram>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  for (int k = 0; k < nK; ++k) {
+  // B's layout holds frames b_off .. b_off + Sb - 1 of each sequence: the
+  // kernel gets its base moved back by b_off frames, so that frame j of
+  // sequence m is at m Sb + j, and the end of the frames it holds.
+  const float4* xb4 = reinterpret_cast<const float4*>(xb) - (ptrdiff_t)b_off * nc4;
+  const float* nb0 = nb != nullptr ? nb - b_off : nullptr;
+  for (int k = k_begin; k < nK; ++k) {
     if (totals[k] == 0) continue;
     long_block_kernel<R, D4, kStageB, kGram>
         <<<(unsigned)totals[k], 32 * warps, smem, (cudaStream_t)stream>>>(
-            reinterpret_cast<const float4*>(xa), reinterpret_cast<const float4*>(xb), na, nb, meta,
-            items + (size_t)k * (n_pairs + 1), H, V, C, halo, out, n_pairs, Sa, Sb, nc4, BLK, k,
-            J0, totC, mode, band, auto_widen, metric);
+            reinterpret_cast<const float4*>(xa), xb4, na, nb0, meta,
+            items + (size_t)k * (n_pairs + 1), H, V, C, halo, out, n_pairs, Sa, Sb, b_off + Sb,
+            nc4, BLK, k, J0, totC, mode, band, auto_widen, metric);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -564,10 +575,15 @@ int launch(const float* xa, const float* xb, const float* na, const float* nb,
 
 }  // namespace
 
-// Launches block diagonals 0 <= k < nK in order on `stream`, one launch each
-// where `totals` (host memory, [nK]) lists blocks, a CUDA block of `warps`
-// warps per DP block.  R rows a lane (ops/dtw_long.py:_long_rows): 4, or 2
-// at 8 float4s a frame, with a pass of 32R rows dividing the block (so 2 at
+// Launches block diagonals k_begin <= k < nK in order on `stream`, one launch
+// each where `totals` (host memory, indexed by k) lists blocks, a CUDA block
+// of `warps` warps per DP block.  H, V, C and `out` carry the walk from one
+// call to the next, so a plan run as consecutive ranges of diagonals is the
+// plan run in one call (C's parity is that of k).  b_off: the first frame of
+// the B sequences that xb (and nb) hold, Sb frames each (a stripe of block
+// columns holds frames J0 * BLK on; 0 for whole sequences); the offset is
+// applied here, on the host.  R rows a lane (ops/dtw_long.py:_long_rows): 4,
+// or 2 at 8 float4s a frame, with a pass of 32R rows dividing the block (so 2 at
 // BLK = 64 and 1 at 32).  nc4: float4s per frame.  stage_b (the wrapper's
 // choice, ops/dtw_long.py:_long_config): B's frames through each warp's ring
 // in shared memory, where at R = 4 the listed widths (and 8 at R = 2) keep a
@@ -579,16 +595,18 @@ int launch(const float* xa, const float* xb, const float* na, const float* nb,
 extern "C" int apd_dtw_long_block(
     const float* xa, const float* xb, const float* na, const float* nb, const long long* meta,
     const int* items, const int* totals, float* H, float* V, float* C, const float* halo,
-    float* out, int n_pairs, int Sa, int Sb, int nc4, int BLK, int nK, int J0, int totC,
-    int mode, int band, int auto_widen, int metric, int warps, int R, int stage_b, int gram,
-    void* stream) {
+    float* out, int n_pairs, int Sa, int Sb, int b_off, int nc4, int BLK, int k_begin, int nK,
+    int J0, int totC, int mode, int band, int auto_widen, int metric, int warps, int R,
+    int stage_b, int gram, void* stream) {
 #define APD_K8(RR, D4, ST)                                                                     \
   return gram ? launch<RR, D4, ST, true>(xa, xb, na, nb, meta, items, totals, H, V, C, halo, \
-                                         out, n_pairs, Sa, Sb, nc4, BLK, nK, J0, totC, mode,  \
-                                         band, auto_widen, metric, warps, stream)             \
+                                         out, n_pairs, Sa, Sb, b_off, nc4, BLK, k_begin, nK,  \
+                                         J0, totC, mode, band, auto_widen, metric, warps,     \
+                                         stream)                                              \
               : launch<RR, D4, ST, false>(xa, xb, na, nb, meta, items, totals, H, V, C, halo, \
-                                          out, n_pairs, Sa, Sb, nc4, BLK, nK, J0, totC, mode, \
-                                          band, auto_widen, metric, warps, stream)
+                                          out, n_pairs, Sa, Sb, b_off, nc4, BLK, k_begin, nK, \
+                                          J0, totC, mode, band, auto_widen, metric, warps,    \
+                                          stream)
   if (!stage_b) {
     if (R == 4) APD_K8(4, 0, false);
     if (R == 2) APD_K8(2, 0, false);

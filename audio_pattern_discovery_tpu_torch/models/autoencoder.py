@@ -17,7 +17,16 @@ and trains it with optax; the port uses ``torch.nn.Linear`` and
 * Adam with optax's ``b1=0.9, b2=0.999, eps=1e-8``;
 * the minibatches are the reference's: the same NumPy permutation of the
   same (quantized) pool every epoch, gathered from frames resident on the
-  device.
+  device;
+* over a mesh (``parallel/mesh.py``), the reference's data and model axes:
+  each data slot runs forward and backward on its share of the minibatch
+  with its own copy of the parameters, the gradients are summed on the
+  primary device (weighted so that the loss is the global batch mean) and
+  Adam steps once there; with ``param_shardings`` each layer's output
+  columns are split over the slot's model devices and its activations
+  gathered on the slot's first device before the next layer.  The sums run
+  in another order than on one device, so a mesh run agrees with one device
+  to rounding, not bit for bit.
 
 The port's ``TrainState`` keeps the parameters under torch's names
 (``enc_layers.0.weight`` [out, in]); the checkpoint (utils/checkpoint.py)
@@ -217,6 +226,82 @@ def _quantize_pool(frames: np.ndarray, seed: int) -> np.ndarray:
     return np.concatenate([frames, frames[extra]], axis=0)
 
 
+def _mesh_mlp(h: torch.Tensor, layers, act, dtype: torch.dtype, row) -> torch.Tensor:
+    """``_mlp`` over one data slot's model devices ``row``: each layer
+    ``(weights, biases)`` is a list of pieces of its output columns, piece m
+    on ``row[m]``; each piece's output comes back to ``row[0]``, where the
+    next layer reads the whole activation."""
+    dev0 = row[0]
+    for i, (ws, bs) in enumerate(layers):
+        if len(ws) == 1:
+            h = F.linear(h.to(dtype), ws[0].to(dtype), bs[0].to(dtype))
+        else:
+            h = torch.cat([
+                F.linear(h.to(dev, dtype), w.to(dtype), b.to(dtype)).to(dev0)
+                for w, b, dev in zip(ws, bs, row)
+            ], dim=-1)
+        if i < len(layers) - 1:
+            h = act(h)
+    return h
+
+
+def _slot_params(params: dict[str, torch.Tensor], specs, row) -> dict[str, list[torch.Tensor]]:
+    """Leaf copies of ``params`` for one data slot: each a list of pieces
+    over the slot's model devices ``row`` (``split_over`` by its sharding in
+    ``specs``; whole on ``row[0]`` without one), each requiring grad."""
+    from audio_pattern_discovery_tpu_torch.parallel.mesh import split_over
+
+    out = {}
+    for name, p in params.items():
+        if specs is None:
+            parts = [p.detach().to(row[0])]
+        else:
+            parts = split_over(p.detach(), specs[name], 0, list(row))
+        out[name] = [t.detach().requires_grad_() for t in parts]
+    return out
+
+
+def _mesh_step(model: AutoEncoder, tx: torch.optim.Adam, rows, specs, batch: torch.Tensor,
+               noisy: torch.Tensor) -> torch.Tensor:
+    """One Adam step over the data slots ``rows`` (each a row of model
+    devices): slot r takes rows r of ``torch.tensor_split(batch, len(rows))``
+    with its own copy of the parameters, and its loss is its squared error
+    over the whole batch's element count, so the slots' losses sum to the
+    global mean and their gradients to its gradient.  The gradients are
+    summed on the primary device in slot order and Adam steps there.
+    Returns the loss as a 0-d tensor on the primary device."""
+    named = list(model.named_parameters())
+    primary = named[0][1].device
+    n_el = batch.numel()
+    grads: dict[str, torch.Tensor] = {}
+    loss = None
+    n_enc = len(model.enc_layers)
+    for r, (x, y) in enumerate(zip(torch.tensor_split(noisy, len(rows)),
+                                   torch.tensor_split(batch, len(rows)))):
+        row = list(rows[r])
+        leaves = _slot_params({n: p for n, p in named}, specs, row)
+
+        def layers(side, count):
+            return [(leaves[f"{side}.{i}.weight"], leaves[f"{side}.{i}.bias"])
+                    for i in range(count)]
+
+        z = _mesh_mlp(x.to(row[0]), layers("enc_layers", n_enc), model.act, model.dtype, row)
+        recon = _mesh_mlp(z, layers("dec_layers", len(model.dec_layers)), model.act, model.dtype,
+                          row)
+        part = torch.sum((recon.float() - y.to(row[0])) ** 2) / n_el
+        flat = [t for n, _ in named for t in leaves[n]]
+        gs = iter(torch.autograd.grad(part, flat))
+        for n, _ in named:
+            g = torch.cat([next(gs).to(primary) for _ in leaves[n]])
+            grads[n] = g if n not in grads else grads[n] + g
+        part = part.detach().to(primary)
+        loss = part if loss is None else loss + part
+    for n, p in named:
+        p.grad = grads[n]
+    tx.step()
+    return loss
+
+
 def train_autoencoder(
     frames: np.ndarray,            # [N, dim] standardized training frames
     cfg: AutoencoderConfig,
@@ -224,6 +309,8 @@ def train_autoencoder(
     logger=None,
     sync_losses: bool = True,
     device: torch.device | str = "cuda",
+    data_sharding=None,
+    param_shardings=None,
 ) -> tuple[AutoEncoder, TrainState, list]:
     """Train on spectrogram frames on ``device``; returns (model, state,
     per-epoch losses), each epoch's loss the mean of its steps' losses.
@@ -233,12 +320,39 @@ def train_autoencoder(
     (every ``log_every`` epochs when a logger is given) and, with
     ``sync_losses``, once at the end; ``sync_losses=False`` returns the
     losses as 0-d device tensors, so the caller can overlap training with
-    other work (pipeline.discover's two-phase corpus)."""
+    other work (pipeline.discover's two-phase corpus).
+
+    ``data_sharding`` (``parallel.mesh.data_sharding``): data parallel over
+    the mesh's data axis, on its first device (``device`` is then ignored).
+    The minibatch is cut to a multiple of the mesh's size,
+    ``max(size, bs - bs % size)``, as the reference cuts it, and a pool of
+    fewer frames than that runs on the first data slot alone.  The
+    denoising noise is drawn for the whole minibatch on the first device
+    before it is split, so a seed gives the batches and noise of one
+    device.  ``param_shardings``: a callable from the parameters to their
+    layout (``parallel.mesh.ae_param_sharding``): each layer's output
+    columns over the model axis.  The returned parameters are the whole
+    ones, on the first device."""
+    rows = None
+    if data_sharding is not None:
+        grid = data_sharding.mesh.devices
+        device = grid.flat[0]
     device = resolve_device(device)
     frames = _quantize_pool(np.asarray(frames), cfg.seed)
     n, dim = frames.shape
     model, _, tx = init_state(cfg, dim, device=device)
     bs = min(cfg.batch_size, n)
+    specs = None
+    if data_sharding is not None:
+        n_shards = grid.size
+        if n < n_shards:
+            # Too few frames to shard: the first data slot alone.
+            rows = grid[:1]
+        else:
+            rows = grid
+            bs = max(n_shards, bs - bs % n_shards)
+        if param_shardings is not None:
+            specs = param_shardings(dict(model.named_parameters()))
     n_batches = max(1, n // bs)
     frames_dev = torch.from_numpy(np.ascontiguousarray(frames, np.float32)).to(device)
     noise_gen = None
@@ -256,7 +370,11 @@ def train_autoencoder(
             if noise_gen is not None:
                 noise = cfg.denoising_std * torch.randn(
                     batch.shape, generator=noise_gen, device=device)
-            step_losses.append(train_step(model, tx, batch, noise))
+            if rows is None:
+                step_losses.append(train_step(model, tx, batch, noise))
+            else:
+                noisy = batch if noise is None else batch + noise
+                step_losses.append(_mesh_step(model, tx, rows, specs, batch, noisy))
         epoch_loss = torch.stack(step_losses).mean()
         if log_every and logger and (epoch + 1) % log_every == 0:
             # Sync only when asked to log; otherwise epochs stay in flight.
@@ -264,6 +382,27 @@ def train_autoencoder(
         loss_futs.append(epoch_loss)
     losses = torch.stack(loss_futs).tolist() if sync_losses and loss_futs else loss_futs
     return model, state_of(model, tx, cfg.epochs * n_batches), losses
+
+
+def _params_device_span(params) -> set[torch.device]:
+    """The devices the parameters' leaves lie on (a leaf placed over a
+    mesh's model axis is a list of pieces on their devices).  No entry
+    point of the port makes such pieces: ``train_autoencoder`` returns its
+    parameters whole on the first device.  A caller that places them
+    itself, as the reference's sharded parameters are placed, reads and
+    encodes them through this, ``_gathered`` and ``params_to_flax``."""
+    span: set[torch.device] = set()
+    for leaf in params.values():
+        span |= {t.device for t in (leaf if isinstance(leaf, (list, tuple)) else [leaf])}
+    return span
+
+
+def _gathered(leaf, dev: torch.device) -> torch.Tensor:
+    """A leaf whole on ``dev``: its pieces (a list, split on dimension 0)
+    concatenated there."""
+    if isinstance(leaf, (list, tuple)):
+        return torch.cat([t.to(dev) for t in leaf])
+    return leaf.to(dev)
 
 
 def encode_frames(
@@ -274,17 +413,22 @@ def encode_frames(
 ) -> torch.Tensor:
     """Encode [..., dim] frames -> latent [..., latent] float32, through the
     encoder layers of ``params`` (a state dict) on their device, ``chunk``
-    rows at a time.  The result lies on the input's device (the CPU for a
-    NumPy array), so a tensor on the card stays there."""
+    rows at a time.  Parameters placed over several devices (leaves, or
+    pieces of leaves, on different devices; ``_params_device_span``) are
+    gathered on the device of the first layer's weight (its first piece).
+    The result lies on the input's device (the CPU for a NumPy array), so a
+    tensor on the card stays there."""
     out_device = frames.device if isinstance(frames, torch.Tensor) else torch.device("cpu")
     x = torch.as_tensor(frames)
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1])
     if flat.shape[0] == 0:
         return torch.zeros((*lead, model.latent_dim), dtype=torch.float32, device=out_device)
-    layers = [(params[f"enc_layers.{i}.weight"], params[f"enc_layers.{i}.bias"])
+    first = params["enc_layers.0.weight"]
+    dev = (first[0] if isinstance(first, (list, tuple)) else first).device
+    layers = [(_gathered(params[f"enc_layers.{i}.weight"], dev),
+               _gathered(params[f"enc_layers.{i}.bias"], dev))
               for i in range(len(model.enc_layers))]
-    dev = layers[0][0].device
     with torch.no_grad():
         z = torch.cat([
             _mlp(flat[s:s + chunk].to(dev, torch.float32), layers, model.act, model.dtype).float()
@@ -309,11 +453,12 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
 
 def params_to_flax(params: dict[str, torch.Tensor]) -> dict[str, dict[str, np.ndarray]]:
     """Inverse of ``params_from_flax``: flax leaf names and layout, on the
-    host."""
+    host.  A leaf placed over a mesh's model axis (a list of pieces) is
+    gathered whole."""
     tree: dict[str, dict[str, np.ndarray]] = {}
     for name, t in params.items():
         side, i, kind = name.split(".")
-        arr = t.detach().cpu().numpy()
+        arr = _gathered(t, torch.device("cpu")).detach().numpy()
         tree.setdefault(f"{side}_{i}", {})["kernel" if kind == "weight" else "bias"] = (
             np.ascontiguousarray(arr.T) if kind == "weight" else arr)
     return tree

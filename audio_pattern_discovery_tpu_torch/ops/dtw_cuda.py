@@ -351,7 +351,7 @@ def dtw_tile_lane_diag_pairs(
         x.data_ptr(), lengths.data_ptr(), tile_rep.data_ptr(),
         ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
         S, nc4, ti, U, rows, int(band), wv, METRICS[metric], lanes,
-        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+        device=feats.device,
     )
     dtw_tile_lane_diag_pairs.launches += 1
     return out
@@ -360,9 +360,12 @@ def dtw_tile_lane_diag_pairs(
 dtw_tile_lane_diag_pairs.launches = 0
 
 
-def _launch(name: str, n_ptrs: int, n_ints: int, *args, stream: int) -> None:
+def _launch(name: str, n_ptrs: int, n_ints: int, *args, device: torch.device) -> None:
     """Call ``apd_<name>`` of ``lib<name>.so`` (built at first use): n_ptrs
-    pointers, n_ints ints, then the stream; raise on a CUDA error."""
+    pointers, n_ints ints, then ``device``'s current stream, with ``device``
+    (that of the tensors launched on) the thread's current device, so that
+    the launch and any attribute the entry sets reach that card; raise on a
+    CUDA error."""
     from audio_pattern_discovery_tpu_torch.ops import _build
 
     if len(args) != n_ptrs + n_ints:
@@ -371,7 +374,8 @@ def _launch(name: str, n_ptrs: int, n_ints: int, *args, stream: int) -> None:
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    err = fn(*args, stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -568,7 +572,7 @@ def dtw_tile_pairs(
         x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
         S, nc4, ti, U, rows, -1 if band is None else int(band), int(bool(auto_widen)),
         METRICS[metric], lanes, R,
-        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+        device=feats.device,
     )
     dtw_tile_pairs.launches += 1
     return out
@@ -682,7 +686,7 @@ def dtw_tile_lane_full_pairs(
         "dtw_lane_full", 5, 8,
         x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
         S, nc4, ti, U, rows, W, METRICS[metric], warps,
-        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+        device=feats.device,
     )
     dtw_tile_lane_full_pairs.launches += 1
     return out
@@ -863,7 +867,7 @@ def dtw_tile_lane_pairs(
         "dtw_lane", 5, 10,
         x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
         S, nc4, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric], lanes,
-        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+        device=feats.device,
     )
     dtw_tile_lane_pairs.launches += 1
     return out
@@ -950,7 +954,7 @@ def dtw_tile_stripe_pairs(
         "dtw_tile_stripe", 5, 10,
         x.data_ptr(), lengths.data_ptr(), ti_idx.data_ptr(), tj_idx.data_ptr(), out.data_ptr(),
         S, nc4, ti, U, rows, int(band), wv, int(bool(auto_widen)), METRICS[metric], warps,
-        stream=torch.cuda.current_stream(feats.device).cuda_stream,
+        device=feats.device,
     )
     dtw_tile_stripe_pairs.launches += 1
     return out
@@ -1133,7 +1137,7 @@ def dtw_batch_pallas(
         xa.data_ptr(), xb.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
         B, R, S, nc4, -1 if band is None else int(band), int(bool(auto_widen)),
         METRICS[metric], warps, G, rows,
-        stream=torch.cuda.current_stream(a.device).cuda_stream,
+        device=a.device,
     )
     dtw_batch_pallas.launches += 1
     return _normalized(out, len_a, len_b, normalize)
@@ -1237,7 +1241,7 @@ def _dtw_batch_stripe(
         "dtw_stripe", 5, 9,
         xa.data_ptr(), xb.data_ptr(), len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(),
         B, R, S, nc4, int(band), wv, int(bool(auto_widen)), METRICS[metric], warps,
-        stream=torch.cuda.current_stream(a.device).cuda_stream,
+        device=a.device,
     )
     _dtw_batch_stripe.launches += 1
     return _normalized(out, len_a, len_b, normalize)

@@ -12,6 +12,13 @@ thousands of frames fit.  The per-pair scheduler sends every bucket that
 K6 and K7 do not take here, and so does a diag bucket past
 ``MAX_KERNEL_SEQ_LEN``.
 
+``LongStripe`` is K8 on a stripe of block columns of every pair's grid,
+advanced a range of block diagonals at a time (on the card a ``LongJob``
+keeps the boundaries between calls; on the CPU the twin ``_StripeRef``
+steps the same ones): one stripe a device of the multi-device wavefront
+(``parallel/wavefront.py``), and the whole grid in one call
+(``long_block_columns``) for the same distances.
+
 ``dtw_long_pairs`` is the merged call: any list of pairs by index into a
 corpus (on the card its ``frame_layout``, built once a job), each pair on
 its own grid of ceil(la/BLK) x ceil(lb/BLK) blocks, and every launch one
@@ -24,7 +31,8 @@ and pair, its frames staged in shared memory; ``dtw_long_batch.launches``
 counts the launches of both), and on CPU tensors they run the plain twins
 ``dtw_long_pairs_ref`` and ``dtw_long_batch_ref``; they never fall back
 from one to the other.  The batch twin is the reference's loop over the
-2*nB-1 block diagonals, vectorized over pairs and the diagonal's blocks,
+2*nB-1 block diagonals (``_StripeRef`` over the whole grid, the one plain
+step of K8), vectorized over pairs and the diagonal's blocks,
 with each block walked cell by cell along its own anti-diagonals (``dtw_block_kernel``), so twin
 and kernel add every cell's terms in the same order and differ only in
 each cost's rounding.  The reference resolves each block row with a
@@ -240,6 +248,67 @@ def _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode):
     return B, S, d, BLK, S // BLK
 
 
+class _StripeRef:
+    """The plain twin of K8 on block columns [J0, J0 + nJ) of every pair's
+    nB x nB grid, stepped one block anti-diagonal at a time (``step``) with
+    the kernel's boundaries: H over the stripe's columns, V over every block
+    row, the corners one diagonal back in two slots by the parity of k (the
+    reference's corner snapshot), and a halo (or +inf) left of column J0.
+    Each step walks the diagonal's blocks of all pairs at once through
+    ``dtw_block_kernel``.  ``b`` holds the B sides' frames from ``b_off``
+    on; the terminal cells land in ``out`` [B], unnormalized."""
+
+    def __init__(self, a, b, len_a, len_b, out, *, BLK: int, J0: int, nJ: int, b_off: int,
+                 halo, metric, band, auto_widen, band_mode, matmul_dtype=None):
+        B, S, d = a.shape
+        dev = a.device
+        self.nB, self.BLK, self.J0, self.nJ, self.halo, self.out = S // BLK, BLK, J0, nJ, halo, out
+        self.kw = dict(metric=metric, band=band, band_mode=band_mode, matmul_dtype=matmul_dtype)
+        self.a = a.float().reshape(B, self.nB, BLK, d)   # dtw_block_kernel normalizes cosine's
+        self.b = b.float()[:, : (b.shape[1] // BLK) * BLK].reshape(B, -1, BLK, d)
+        self.jb = b_off // BLK                             # block column of b's first block
+        self.la, self.lb = len_a.long(), len_b.long()
+        self.bw = _band_width(band, auto_widen, len_a, len_b)
+        self.H = torch.full((B, nJ, BLK), INF, device=dev)
+        self.V = torch.full((B, self.nB, BLK), INF, device=dev)
+        self.C = torch.full((2, B, nJ + 1), INF, device=dev)
+
+    def step(self, k: int) -> None:
+        """Every block of diagonal k in the stripe: one launch of K8."""
+        nB, J0, BLK, halo = self.nB, self.J0, self.BLK, self.halo
+        dev = self.out.device
+        j_lo, j_hi = max(J0, k - nB + 1), min(k, J0 + self.nJ - 1)
+        if j_lo > j_hi:
+            return
+        Js = torch.arange(j_lo, j_hi + 1, device=dev)
+        Is, jl = k - Js, Js - J0
+        P, W = self.out.shape[0], len(Js)
+        H, V, C = self.H, self.V, self.C
+        top = torch.where((Is == 0)[None, :, None], INF, H[:, jl])
+        at_edge = (Js == J0)[None, :, None]
+        if halo is not None:
+            left = torch.where(at_edge, halo[:, Is], V[:, Is])
+            edge_corner = torch.where(Is[None, :] > 0, halo[:, (Is - 1).clamp(min=0), -1], INF)
+        else:
+            left = torch.where(at_edge, INF, V[:, Is])
+            edge_corner = torch.full((P, W), INF, device=dev)
+        edge_corner = torch.where((Js == 0)[None, :], torch.where(Is == 0, 0.0, INF)[None, :],
+                                  edge_corner)
+        corner = torch.where((Js > J0)[None, :], C[(k + 1) & 1][:, jl], edge_corner)
+        # The top's last value is the corner of block (I, J + 1) next diagonal.
+        C[k & 1][:, jl + 1] = torch.where((Is > 0)[None, :], H[:, jl, -1], INF)
+        bw = self.bw
+        bottom, right, hit_val, has_hit = dtw_block_kernel(
+            self.a[:, Is], self.b[:, Js - self.jb], top, left, corner,
+            (Is * BLK)[None, :].expand(P, W), (Js * BLK)[None, :].expand(P, W),
+            self.la[:, None].expand(P, W), self.lb[:, None].expand(P, W),
+            band_width=None if bw is None else bw[:, None].expand(P, W), **self.kw,
+        )
+        H[:, jl], V[:, Is] = bottom, right
+        self.out.copy_(torch.where(has_hit.any(1), torch.where(has_hit, hit_val, 0.0).sum(1),
+                                   self.out))
+
+
 def dtw_long_batch_ref(
     a: torch.Tensor,           # [B, S, d] padded (S a multiple of block)
     b: torch.Tensor,           # [B, S, d]
@@ -255,48 +324,20 @@ def dtw_long_batch_ref(
     matmul_dtype: str | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch twin of ``dtw_long_batch`` on the device of ``a``: the
-    reference's scan over the 2*nB-1 block anti-diagonals with boundary
-    rows H, right columns V and the corner snapshot, each step's blocks
-    walked by ``dtw_block_kernel`` for all pairs and active blocks at once,
-    the pairs in groups that keep a step's cost build under
-    ``_REF_MAX_ELEMS`` elements."""
+    reference's scan over the 2*nB-1 block anti-diagonals, the stripe twin
+    (``_StripeRef``) over the whole grid stepped through every diagonal, the
+    pairs in groups that keep a step's cost build under ``_REF_MAX_ELEMS``
+    elements."""
     B, S, d, BLK, nB = _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode)
-    dev = a.device
-    xa, xb = a.float(), b.float()        # dtw_block_kernel normalizes cosine's frames
-    la_all, lb_all = len_a.long(), len_b.long()
-    bw_all = _band_width(band, auto_widen, len_a, len_b)
-    out = torch.full((B,), INF, dtype=torch.float32, device=dev)
+    out = torch.full((B,), INF, dtype=torch.float32, device=a.device)
     step = max(1, _REF_MAX_ELEMS // (nB * BLK * d))
     for p0 in range(0, B, step):
-        P = min(step, B - p0)
-        la, lb = la_all[p0 : p0 + P], lb_all[p0 : p0 + P]
-        bw = None if bw_all is None else bw_all[p0 : p0 + P]
-        ab = xa[p0 : p0 + P].reshape(P, nB, BLK, d)
-        bb = xb[p0 : p0 + P].reshape(P, nB, BLK, d)
-        H = torch.full((P, nB, BLK), INF, device=dev)
-        V = torch.full((P, nB, BLK), INF, device=dev)
-        snap = torch.full((P, nB), INF, device=dev)       # H[..., -1] one step back
-        res = torch.full((P,), INF, device=dev)
+        g = slice(p0, p0 + step)
+        twin = _StripeRef(a[g], b[g], len_a[g], len_b[g], out[g], BLK=BLK, J0=0, nJ=nB, b_off=0,
+                          halo=None, metric=metric, band=band, auto_widen=auto_widen,
+                          band_mode=band_mode, matmul_dtype=matmul_dtype)
         for k in range(2 * nB - 1):
-            new_snap = H[:, :, -1].clone()
-            Js = torch.arange(max(0, k - nB + 1), min(k, nB - 1) + 1, device=dev)
-            Is = k - Js
-            W = len(Js)
-            top = torch.where((Is == 0)[None, :, None], INF, H[:, Js])
-            left = torch.where((Js == 0)[None, :, None], INF, V[:, Is])
-            corner = torch.where(Js == 0, torch.where(Is == 0, 0.0, INF)[None, :],
-                                 snap[:, (Js - 1).clamp(min=0)])
-            bottom, right, hit_val, has_hit = dtw_block_kernel(
-                ab[:, Is], bb[:, Js], top, left, corner,
-                (Is * BLK)[None, :].expand(P, W), (Js * BLK)[None, :].expand(P, W),
-                la[:, None].expand(P, W), lb[:, None].expand(P, W), metric=metric, band=band,
-                band_width=None if bw is None else bw[:, None].expand(P, W),
-                band_mode=band_mode, matmul_dtype=matmul_dtype,
-            )
-            H[:, Js], V[:, Is] = bottom, right
-            res = torch.where(has_hit.any(1), torch.where(has_hit, hit_val, 0.0).sum(1), res)
-            snap = new_snap
-        out[p0 : p0 + P] = res
+            twin.step(k)
     return _normalized(out, len_a, len_b, normalize)
 
 
@@ -445,44 +486,76 @@ def _check_gram_layout(frames, feats, metric) -> tuple[torch.Tensor, torch.Tenso
     return layout, norms
 
 
+class LongJob:
+    """A K8 plan on the card (``_long_plan``) with its boundaries H, V and
+    the corner slots allocated once and kept across calls, so that the plan
+    can be advanced a range of block anti-diagonals at a time (``advance``):
+    consecutive ranges give what one call over all of them gives.  ``fa`` /
+    ``fb`` are the frame layouts (``fb`` holds frames ``b_off`` on of each B
+    sequence), ``out`` [P] receives the terminal cells; ``norms`` (the A and
+    B corpora's squared norms from ``gram_layout``, whose rounded frames are
+    then ``fa`` and ``fb``) selects the Gram instantiation; ``config``
+    overrides ``_long_config``'s (warps, stage_b) (a timing comparison's)."""
+
+    def __init__(self, fa, fb, plan: dict, out, *, BLK: int, J0: int, halo, metric, band,
+                 auto_widen, band_mode, b_off: int = 0, config: tuple[int, bool] | None = None,
+                 norms: tuple[torch.Tensor, torch.Tensor] | None = None):
+        dev = fa.device
+        self.fa, self.fb, self.plan, self.out = fa, fb, plan, out
+        self.halo, self.norms = halo, norms
+        self.nc4 = fa.shape[2] // 4
+        self.R = _long_rows(BLK, self.nc4)
+        self.warps, self.stage_b = config or _long_config(self.R, self.nc4, BLK)
+        self.BLK, self.J0, self.b_off = BLK, J0, b_off
+        self.mode = 0 if band is None else BAND_MODES[band_mode]
+        self.band = 0 if band is None else int(band)
+        self.auto_widen, self.metric = auto_widen, metric
+        # Boundaries: every entry is written before it is read.
+        self.H = torch.empty(max(plan["n_h"], 1), dtype=torch.float32, device=dev)
+        self.V = torch.empty(max(plan["n_v"], 1), dtype=torch.float32, device=dev)
+        self.C = torch.empty(2 * max(plan["n_c"], 1), dtype=torch.float32, device=dev)
+        self.meta = torch.from_numpy(plan["meta"]).to(dev)
+        self.items = torch.from_numpy(plan["items"]).to(dev)
+
+    def advance(self, k_begin: int, k_end: int, events=None) -> int:
+        """Launch block diagonals k_begin <= k < k_end on the current stream
+        of the layouts' device; ``events`` (two CUDA events, or None) are
+        recorded around the launches alone.  Returns the launches made."""
+        plan, nK = self.plan, self.plan["nK"]
+        k_begin, k_end = max(0, k_begin), min(k_end, nK)
+        n = int((plan["totals"][k_begin:k_end] > 0).sum()) if k_end > k_begin else 0
+        if events:
+            events[0].record()
+        if n:
+            norms, halo = self.norms, self.halo
+            _launch(
+                "dtw_long_block", 12, 18,
+                self.fa.data_ptr(), self.fb.data_ptr(), 0 if norms is None else norms[0].data_ptr(),
+                0 if norms is None else norms[1].data_ptr(), self.meta.data_ptr(),
+                self.items.data_ptr(), plan["totals"].ctypes.data, self.H.data_ptr(),
+                self.V.data_ptr(), self.C.data_ptr(), 0 if halo is None else halo.data_ptr(),
+                self.out.data_ptr(), len(plan["meta"]), self.fa.shape[1], self.fb.shape[1],
+                self.b_off, self.nc4, self.BLK, k_begin, k_end, self.J0, plan["n_c"], self.mode,
+                self.band, int(bool(self.auto_widen)), METRICS[self.metric], self.warps, self.R,
+                int(self.stage_b), int(norms is not None),
+                device=self.fa.device,
+            )
+        if events:
+            events[1].record()
+        return n
+
+
 def _launch_plan(fa, fb, plan: dict, out, *, BLK: int, J0: int, halo, metric, band, auto_widen,
                  band_mode, events=None, config: tuple[int, bool] | None = None,
                  norms: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
-    """Run a plan of K8 on the card on the current stream: one launch per
-    block anti-diagonal with blocks (``plan["launches"]``).  ``norms`` (the
-    A and B corpora's squared norms from ``gram_layout``, whose rounded
-    frames are then ``fa`` and ``fb``) selects the Gram instantiation.  ``events``
-    (two CUDA events, or None) are recorded around the launches alone;
-    ``config`` overrides ``_long_config``'s (warps, stage_b) (a timing
-    comparison's).  Returns V, the right columns of every pair's last block
-    column."""
-    dev = fa.device
-    nc4 = fa.shape[2] // 4
-    R = _long_rows(BLK, nc4)
-    warps, stage_b = config or _long_config(R, nc4, BLK)
-    # Boundaries: every entry is written before it is read.
-    H = torch.empty(max(plan["n_h"], 1), dtype=torch.float32, device=dev)
-    V = torch.empty(max(plan["n_v"], 1), dtype=torch.float32, device=dev)
-    C = torch.empty(2 * max(plan["n_c"], 1), dtype=torch.float32, device=dev)
-    meta = torch.from_numpy(plan["meta"]).to(dev)
-    items = torch.from_numpy(plan["items"]).to(dev)
-    if events:
-        events[0].record()
-    if plan["launches"]:
-        _launch(
-            "dtw_long_block", 12, 16,
-            fa.data_ptr(), fb.data_ptr(), 0 if norms is None else norms[0].data_ptr(),
-            0 if norms is None else norms[1].data_ptr(), meta.data_ptr(), items.data_ptr(),
-            plan["totals"].ctypes.data, H.data_ptr(), V.data_ptr(), C.data_ptr(),
-            0 if halo is None else halo.data_ptr(), out.data_ptr(), len(plan["meta"]),
-            fa.shape[1], fb.shape[1], nc4, BLK, plan["nK"], J0, plan["n_c"],
-            0 if band is None else BAND_MODES[band_mode], 0 if band is None else int(band),
-            int(bool(auto_widen)), METRICS[metric], warps, R, int(stage_b), int(norms is not None),
-            stream=torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if events:
-        events[1].record()
-    return V
+    """Run a whole plan of K8 on the card on the current stream, one launch
+    per block anti-diagonal with blocks (``plan["launches"]``): the one-call
+    case of ``LongJob``.  Returns V, the right columns of every pair's last
+    block column."""
+    job = LongJob(fa, fb, plan, out, BLK=BLK, J0=J0, halo=halo, metric=metric, band=band,
+                  auto_widen=auto_widen, band_mode=band_mode, config=config, norms=norms)
+    job.advance(0, plan["nK"], events)
+    return job.V
 
 
 def _check_corpus(feats, lengths, name: str) -> tuple[int, int, int]:
@@ -645,11 +718,86 @@ def dtw_long_batch(
                           band_mode=band_mode, matmul_dtype=matmul_dtype)
 
 
+class LongStripe:
+    """K8 on block columns [J0, J0 + nJ) of every pair's nB x nB grid (a
+    stripe), advanced a range of block anti-diagonals at a time: the
+    multi-device wavefront's unit (``parallel/wavefront.py``), one stripe a
+    device.  CUDA tensors run a ``LongJob`` (launches counted in
+    ``dtw_long_batch.launches``), CPU tensors the plain twin ``_StripeRef``,
+    the one that ``dtw_long_batch_ref`` steps over the whole grid.
+
+    ``a`` [B, S, d] holds the A sides whole, ``b`` [B, Sb, d] the B sides'
+    frames from ``b_off`` on (whole: b_off = 0, Sb = S; the stripe's own:
+    b_off = J0 * block, Sb = nJ * block).  ``halo``: None (+inf, the grid's
+    left edge) or a contiguous [B, nB, BLK] tensor on the device of ``a``
+    whose block row I holds the right columns of block (I, J0 - 1) by the
+    time diagonal J0 + I runs (and row I - 1 the corner).  The stripe's
+    blocks that hold a pair's terminal cell write it, unnormalized, into
+    ``out`` [B] (given, or made here at +inf); ``V`` [B, nB, BLK] is the
+    right columns of the stripe's last block column, the next stripe's
+    halo.  ``matmul_dtype="bfloat16"``: the bf16 Gram costs (on the card
+    K8's Gram instantiation on ``gram_layout``)."""
+
+    def __init__(self, a, b, len_a, len_b, *, block: int, J0: int, nJ: int, b_off: int = 0,
+                 halo: torch.Tensor | None = None, out: torch.Tensor | None = None,
+                 metric: str = "euclidean", band: int | None = None, auto_widen: bool = True,
+                 band_mode: str = "widen", matmul_dtype: str | None = None):
+        B, S, d = a.shape
+        BLK = int(block)
+        nB = S // BLK
+        if not (0 <= J0 and 1 <= nJ and J0 + nJ <= nB):
+            raise ValueError(f"block columns [{J0}, {J0 + nJ}) outside the grid's {nB}")
+        if halo is not None and (halo.shape != (B, nB, BLK) or not halo.is_contiguous()
+                                 or halo.data_ptr() % 16):
+            raise ValueError(
+                f"halo must be a contiguous, 16-byte aligned [{B}, {nB}, {BLK}] tensor")
+        if S % BLK or b.shape[0] != B or b.shape[2] != d or b_off < 0 or b_off > J0 * BLK or (
+                b_off + b.shape[1] < min(J0 + nJ, nB) * BLK):
+            raise ValueError(f"b {tuple(b.shape)} from frame {b_off} does not hold block columns "
+                             f"[{J0}, {J0 + nJ}) of blocks of {BLK}")
+        if band_mode not in BAND_MODES:
+            raise ValueError(f"unknown band_mode {band_mode!r}")
+        self.n_diag = nB + nJ - 1 + J0            # diagonals 0 .. J0 + nJ + nB - 2
+        dev = a.device
+        self.out = torch.full((B,), INF, dtype=torch.float32, device=dev) if out is None else out
+        kw = dict(metric=metric, band=band, auto_widen=auto_widen, band_mode=band_mode)
+        if dev.type == "cuda":
+            idx = np.arange(B, dtype=np.int64)
+            plan = _long_plan(idx, idx, len_a.cpu().numpy(), len_b.cpu().numpy(), S, S, BLK,
+                              nB=nB, J0=J0, nJ=nJ)
+            norms = None
+            if matmul_dtype == "bfloat16":
+                (fa, na), (fb, nb) = gram_layout(a, metric), gram_layout(b, metric)
+                norms = (na, nb)
+            else:
+                fa, fb = frame_layout(a, metric), frame_layout(b, metric)
+            self._job = LongJob(fa, fb, plan, self.out, BLK=BLK, J0=J0, b_off=b_off, halo=halo,
+                                norms=norms, **kw)
+            self.V = self._job.V[: B * nB * BLK].view(B, nB, BLK)
+        elif dev.type == "cpu":
+            self._job = _StripeRef(a, b, len_a, len_b, self.out, BLK=BLK, J0=J0, nJ=nJ,
+                                   b_off=b_off, halo=halo, matmul_dtype=matmul_dtype, **kw)
+            self.V = self._job.V
+        else:
+            raise ValueError(f"unsupported device {dev}")
+
+    def advance(self, k_begin: int, k_end: int) -> int:
+        """Run block diagonals k_begin <= k < k_end of the stripe; returns the
+        launches made (diagonals with a block of the stripe, on the card)."""
+        if isinstance(self._job, LongJob):
+            n = self._job.advance(k_begin, k_end)
+            dtw_long_batch.launches += n
+            return n
+        for k in range(max(0, k_begin), min(k_end, self.n_diag)):
+            self._job.step(k)
+        return 0
+
+
 def long_block_columns(
-    xa: torch.Tensor,          # [B, S, 4 nc4] f32: frame_layout of the padded A sides
-    xb: torch.Tensor,          # [B, S, 4 nc4] f32: of the B sides
-    len_a: torch.Tensor,       # [B] i32 contiguous
-    len_b: torch.Tensor,       # [B] i32 contiguous
+    a: torch.Tensor,           # [B, S, d] f32: the padded A sides
+    b: torch.Tensor,           # [B, S, d] f32: the B sides
+    len_a: torch.Tensor,       # [B] i32
+    len_b: torch.Tensor,       # [B] i32
     out: torch.Tensor,         # [B] f32: the terminal cells land here
     *,
     block: int,
@@ -661,30 +809,19 @@ def long_block_columns(
     auto_widen: bool = True,
     band_mode: str = "widen",
 ) -> torch.Tensor:
-    """K8 on block columns [J0, J0 + nJ) of every pair's nB x nB grid, on
-    the card: the block anti-diagonals in order on the current stream, one
-    launch each (not counted: the stripe interface of the multi-device
-    wavefront).  ``halo`` [B, nB, BLK] holds the right columns of block
-    column J0 - 1 (None: +inf, the grid's left edge); the stripe's blocks
-    that hold a pair's terminal cell write it (unnormalized) into ``out``.
-    Returns the right columns of block column J0 + nJ - 1, [B, nB, BLK]:
-    the next stripe's halo.  The whole grid is J0 = 0, nJ = nB; a stripe of
-    block columns on each device with its left neighbour's returned columns
-    as ``halo`` gives the same distances."""
-    B, S, c4 = xa.shape
-    BLK = int(block)
-    nB = S // BLK
-    if not (0 <= J0 and 1 <= nJ and J0 + nJ <= nB):
-        raise ValueError(f"block columns [{J0}, {J0 + nJ}) outside the grid's {nB}")
-    if halo is not None and (halo.shape != (B, nB, BLK) or not halo.is_contiguous()
-                             or halo.data_ptr() % 16):
-        raise ValueError(f"halo must be a contiguous, 16-byte aligned [{B}, {nB}, {BLK}] tensor")
-    idx = np.arange(B, dtype=np.int64)
-    plan = _long_plan(idx, idx, len_a.cpu().numpy(), len_b.cpu().numpy(), S, S, BLK, nB=nB,
-                      J0=J0, nJ=nJ)
-    V = _launch_plan(xa, xb, plan, out, BLK=BLK, J0=J0, halo=halo, metric=metric, band=band,
-                     auto_widen=auto_widen, band_mode=band_mode)
-    return V[: B * nB * BLK].view(B, nB, BLK)
+    """K8 on block columns [J0, J0 + nJ) of every pair's nB x nB grid in one
+    call: ``LongStripe`` advanced over all its diagonals.  ``halo``
+    [B, nB, BLK] holds the right columns of block column J0 - 1 (None: +inf,
+    the grid's left edge); the stripe's terminal cells (unnormalized) are
+    written into ``out`` where it holds them.  Returns the right columns of
+    block column J0 + nJ - 1, [B, nB, BLK]: the next stripe's halo.  The
+    whole grid is J0 = 0, nJ = nB; a stripe of block columns on each device
+    with its left neighbour's returned columns as ``halo`` gives the same
+    distances."""
+    stripe = LongStripe(a, b, len_a, len_b, block=block, J0=J0, nJ=nJ, halo=halo, out=out,
+                        metric=metric, band=band, auto_widen=auto_widen, band_mode=band_mode)
+    stripe.advance(0, stripe.n_diag)
+    return stripe.V
 
 
 dtw_long_batch.launches = 0

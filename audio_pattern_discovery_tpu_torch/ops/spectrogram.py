@@ -24,7 +24,11 @@ import numpy as np
 import torch
 
 from audio_pattern_discovery_tpu_torch.config import SpectrogramConfig
-from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
+from audio_pattern_discovery_tpu_torch.utils.device import (
+    on_device,
+    resolve_device,
+    resolve_devices,
+)
 
 
 def window_array(name: str, win_length: int) -> np.ndarray:
@@ -305,6 +309,7 @@ def spectrogram_corpus(
     return_device: bool = False,
     scales=None,
     sig_lengths: np.ndarray | None = None,
+    devices: list | None = None,
 ) -> tuple[np.ndarray | torch.Tensor, np.ndarray, np.ndarray]:
     """Ragged clips -> ([B, F_max, feat] features, [B] frame counts,
     [B, F_max] frame energies).
@@ -315,10 +320,16 @@ def spectrogram_corpus(
     come back as a tensor on ``device`` with ``return_device``, else as a
     host array; energies always on the host (segmentation is host code).
     ``device`` is the card unless the caller asks for the CPU; no card
-    raises."""
+    raises.  ``devices``: a list of devices (it may repeat one) that the
+    clip groups round-robin over, group gi on ``devices[gi % n]``, in place
+    of ``device``; the groups' features are collected on ``devices[0]``
+    (where ``return_device`` leaves them), bit for bit what one device
+    gives.  The energies come to the host once every group is queued, so
+    no group's launch waits for another group's download."""
     if not len(sigs):
         raise ValueError("empty corpus")
-    device = resolve_device(device)
+    devs = resolve_devices(devices) if devices is not None else [resolve_device(device)]
+    device = devs[0]
     win, hop = cfg.win_length, cfg.hop_length
     B = len(sigs)
     if sig_lengths is None:
@@ -341,7 +352,9 @@ def spectrogram_corpus(
     specs = torch.full((B, F_max, cfg.feature_dim), fill, dtype=torch.float32, device=device)
     energies = np.full((B, F_max), np.log10(np.float32(1e-10)), dtype=np.float32)
     kw = _cfg_kwargs(cfg)
-    for g0 in range(0, B, clip_batch):
+    tile_energies = []
+    for gi, g0 in enumerate(range(0, B, clip_batch)):
+        dev = devs[gi % len(devs)]
         group = sigs[g0 : g0 + clip_batch]
         g = len(group)
         n_max = max(int(n) for n in sig_lengths[g0 : g0 + g])
@@ -350,22 +363,25 @@ def spectrogram_corpus(
         buf = np.zeros((g, n_pad), dtype=dtype)
         for k, s in enumerate(group):
             buf[k, : len(s)] = s
-        sig = torch.from_numpy(buf).to(device)
+        sig = torch.from_numpy(buf).to(dev)
         g_scales = None
         if scales is not None:
             g_scales = torch.from_numpy(
                 np.asarray(scales[g0 : g0 + g], np.float32).copy()
-            ).to(device)
+            ).to(dev)
         sig = decode_signals(sig, g_scales)
-        lens = torch.from_numpy(np.asarray(sig_lengths[g0 : g0 + g], np.int64)).to(device)
+        lens = torch.from_numpy(np.asarray(sig_lengths[g0 : g0 + g], np.int64)).to(dev)
         g_frames = int(frames_per_clip[g0 : g0 + g].max())
         for f0 in range(0, g_frames, CF):
             f1 = min(f0 + CF, g_frames)
-            out, _, en = batched_spectrogram(
-                sig, lens, return_energy=True, frame_range=(f0, f1), **kw
-            )
-            specs[g0 : g0 + g, f0:f1] = out
-            energies[g0 : g0 + g, f0:f1] = en.cpu().numpy()
+            with on_device(dev):
+                out, _, en = batched_spectrogram(
+                    sig, lens, return_energy=True, frame_range=(f0, f1), **kw
+                )
+            specs[g0 : g0 + g, f0:f1] = out.to(device)
+            tile_energies.append((g0, g, f0, f1, en))
+    for g0, g, f0, f1, en in tile_energies:
+        energies[g0 : g0 + g, f0:f1] = en.cpu().numpy()
     # Energies of frames past each clip's end keep the floor value.
     fi = np.arange(F_max)[None, :]
     energies[fi >= frames_per_clip[:, None]] = np.log10(np.float32(1e-10))

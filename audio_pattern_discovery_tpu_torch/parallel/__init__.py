@@ -1,1 +1,3 @@
-"""All-pairs DTW scheduling over the device (``pair_scheduler``)."""
+"""Multi-device execution over a list of devices: the mesh and placement
+descriptors (``mesh``), all-pairs DTW scheduling (``pair_scheduler``) and
+the sharded long-pair wavefront (``wavefront``)."""

@@ -1,4 +1,6 @@
-"""All-pairs DTW: tiled and per-pair scheduling over one device.
+"""All-pairs DTW: tiled and per-pair scheduling over one device or a list of
+devices (``devices=``: chunks or blocks round-robin over them, the
+reference's data axis; D bit for bit the one-device D).
 
 Port of ``audio_pattern_discovery_tpu/parallel/pair_scheduler.py``.
 ``all_pairs_distances`` sends a job to the tiled scheduler
@@ -97,7 +99,11 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
     long_block_shape,
     long_boundary_bytes,
 )
-from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
+from audio_pattern_discovery_tpu_torch.utils.device import (
+    on_device,
+    resolve_device,
+    resolve_devices,
+)
 
 # The per-pair kernels' wrappers of a block's call (K6, K7): a block's device
 # time goes to the one whose launch counter its call moved.  K8's merged
@@ -516,6 +522,7 @@ def all_pairs_distances_tiled(
     known: tuple[int, np.ndarray] | None = None,
     block_dir: str | Path | None = None,
     max_retries: int = 1,
+    devices: list | None = None,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW matrix through the tile-pair kernels of the
     job's route (``route_for``).  On the widen route ``widen_kernel`` picks
@@ -544,14 +551,23 @@ def all_pairs_distances_tiled(
     raises is launched again from its inputs up to this many times (0: the
     first exception propagates).
 
+    ``devices``: a list of devices (it may repeat one) that the chunks
+    round-robin over, chunk ci on ``devices[ci % n]`` (a retried chunk on
+    the same one), the reference's data axis; each distinct device gets its
+    own copy of the corpus and of its layouts, built once a job, and
+    ``device`` is then ignored.  Up to max(8, 4n) chunks are in flight.
+
     ``stats`` receives the route, host seconds per activity (dispatch,
     collect: waiting for a chunk's copy, scatter, persist, upload), the
-    chunks read back (``blocks_resumed``), whether the native scatter ran
-    and with OpenMP, and, on a CUDA device, ``kernel_s``: the kernel
-    launches' device time from CUDA events around each launch, and
-    ``kernel_s_by``: that time per kernel entry name.
-    The default device is the card; without one, pass ``device="cpu"``."""
-    device = resolve_device(device)
+    chunks read back (``blocks_resumed``), the chunks dispatched to each
+    device (``device_blocks``, a list in the order of ``devices``), whether
+    the native scatter ran and with OpenMP, and, on CUDA devices,
+    ``kernel_s``: the kernel launches' device time from CUDA events around
+    each launch on its device's current stream, and ``kernel_s_by``: that
+    time per kernel entry name.  The default device is the card; without
+    one, pass ``device="cpu"``."""
+    devs = resolve_devices(devices) if devices is not None else [resolve_device(device)]
+    device = devs[0]
     K, L, d = features.shape
     route = route_for(L, cfg)
     if route == "per_pair":
@@ -599,19 +615,7 @@ def all_pairs_distances_tiled(
         fp = np.zeros((Kp, Lp, d), np.float32)
         fp[:K, :L] = features[perm]
         feats_p = torch.from_numpy(fp).to(device)
-    lens_dev = torch.from_numpy(lens_p).to(device)
-    rep_dev = None
-    if route == "diag":
-        rep_dev = torch.from_numpy(tile_rep_lengths(lens_p, nT, ti, K)).to(device)
-    # K1 and K2 read the corpus in their strip layout, K3 in the frame layout,
-    # each built once a job (the CPU twins read the corpus as it is).
-    frames = None
-    if device.type == "cuda":
-        if route == "full":
-            frames = frame_layout(feats_p, cfg.metric)
-        elif route in ("diag", "tile"):
-            frames = strip_layout(feats_p, ti, cfg.metric)
-        torch.cuda.synchronize(device)
+    rep = tile_rep_lengths(lens_p, nT, ti, K) if route == "diag" else None
     upload_s = time.perf_counter() - t_up
 
     n_pairs = K * (K - 1) // 2
@@ -625,27 +629,30 @@ def all_pairs_distances_tiled(
             return forced or widen_kernel(cls[1])
         return dtw_tile_pairs if route == "tile" else dtw_tile_lane_full_pairs
 
-    def launch(ii: torch.Tensor, jj: torch.Tensor, cls: tuple[int, ...]) -> torch.Tensor:
+    def launch(st: dict, ii: torch.Tensor, jj: torch.Tensor,
+               cls: tuple[int, ...]) -> torch.Tensor:
+        """One chunk on the device of ``st`` (its inputs, ``inputs_on``)."""
+        feats_d, lens_d, frames = st["feats"], st["lens"], st["frames"]
         if route == "diag":
             return dtw_tile_lane_diag_pairs(
-                feats_p, lens_dev, rep_dev, ii, jj, ti=ti, band=int(cfg.band),
+                feats_d, lens_d, st["rep"], ii, jj, ti=ti, band=int(cfg.band),
                 wv_max=cls[1], metric=cfg.metric, rows=cls[0], frames=frames,
             )
         if route == "widen":
             kernel = kernel_of(cls)
             return kernel(
-                feats_p, lens_dev, ii, jj, ti=ti, band=int(cfg.band), wv_max=cls[1],
+                feats_d, lens_d, ii, jj, ti=ti, band=int(cfg.band), wv_max=cls[1],
                 auto_widen=cfg.auto_widen_band, metric=cfg.metric, rows=cls[0],
-                frames=widen_frames[kernel],
+                frames=st["widen"][kernel],
             )
         if route == "tile":
             return dtw_tile_pairs(
-                feats_p, lens_dev, ii, jj, ti=ti, band=cfg.band,
+                feats_d, lens_d, ii, jj, ti=ti, band=cfg.band,
                 auto_widen=cfg.auto_widen_band, metric=cfg.metric, rows=cls[0],
                 scan_steps=cls[1], frames=frames,
             )
         return dtw_tile_lane_full_pairs(
-            feats_p, lens_dev, ii, jj, ti=ti, width=cls[1], metric=cfg.metric, rows=cls[0],
+            feats_d, lens_d, ii, jj, ti=ti, width=cls[1], metric=cfg.metric, rows=cls[0],
             frames=frames,
         )
 
@@ -663,18 +670,34 @@ def all_pairs_distances_tiled(
                 np.array([p[1] for p in part], np.int32),
                 cls,
             ))
-    # The widen route's layouts, built once a job for the kernels its classes
-    # take: K4's strip layout, K5's frame layout (on the CPU too, where the
-    # wrappers check them and run the twin).
+    widen_kernels = {kernel_of(cls) for _, _, cls in chunks} if route == "widen" else set()
+
+    def inputs_on(dev: torch.device) -> dict:
+        """The job's inputs on ``dev``, built once a job: the corpus, its
+        lengths (and the diag route's tile lengths) and the layouts its
+        kernels read.  K1 and K2 read the corpus in their strip layout, K3 in
+        the frame layout, and on the widen route K4 the strip layout and K5
+        the frame layout (on the CPU too, where the wrappers check them and
+        run the twin); the other CPU twins read the corpus as it is."""
+        with on_device(dev):
+            st = {"feats": feats_p.to(dev), "lens": torch.from_numpy(lens_p).to(dev),
+                  "rep": None if rep is None else torch.from_numpy(rep).to(dev),
+                  "frames": None, "widen": {}}
+            if dev.type == "cuda":
+                if route == "full":
+                    st["frames"] = frame_layout(st["feats"], cfg.metric)
+                elif route in ("diag", "tile"):
+                    st["frames"] = strip_layout(st["feats"], ti, cfg.metric)
+            for kernel in widen_kernels:
+                st["widen"][kernel] = (strip_layout(st["feats"], ti, cfg.metric)
+                                       if kernel is dtw_tile_lane_pairs
+                                       else frame_layout(st["feats"], cfg.metric))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return st
+
     t_up = time.perf_counter()
-    widen_frames: dict[Callable, torch.Tensor] = {}
-    if route == "widen":
-        for kernel in {kernel_of(cls) for _, _, cls in chunks}:
-            widen_frames[kernel] = (strip_layout(feats_p, ti, cfg.metric)
-                                    if kernel is dtw_tile_lane_pairs
-                                    else frame_layout(feats_p, cfg.metric))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    inputs = {dev: inputs_on(dev) for dev in dict.fromkeys(devs)}
     upload_s += time.perf_counter() - t_up
     if stats is None:
         stats = {}
@@ -682,6 +705,7 @@ def all_pairs_distances_tiled(
         route=route, dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, persist_s=0.0, kernel_s=0.0,
         kernel_s_by={}, upload_s=upload_s, blocks=len(chunks), blocks_resumed=0, pairs=n_pairs,
         tiled=True, tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
+        device_blocks=[0] * len(devs),
     )
     if block_dir is not None:
         block_dir = Path(block_dir)
@@ -761,7 +785,7 @@ def all_pairs_distances_tiled(
                     _strip_buf(J)[:, r0 : r0 + nr] = blk.T
                     _strip_dec(J)
 
-    scatter_q: queue.Queue = queue.Queue(maxsize=8)
+    scatter_q: queue.Queue = queue.Queue(maxsize=max(8, 4 * len(devs)))
     scatter_err: list[BaseException] = []
 
     def scatter_worker():
@@ -799,7 +823,7 @@ def all_pairs_distances_tiled(
     worker.start()
     on_cuda = device.type == "cuda"
     try:
-        for ii, jj, cls in chunks:
+        for ci, (ii, jj, cls) in enumerate(chunks):
             if scatter_err:
                 raise scatter_err[0]
             name = kernel_of(cls).__name__
@@ -814,30 +838,36 @@ def all_pairs_distances_tiled(
                     scatter_q.put((*resumed, None, name, None, None))
                     continue
 
-            def dispatch(ii=ii, jj=jj, cls=cls) -> torch.Tensor:
-                return launch(torch.from_numpy(ii).to(device), torch.from_numpy(jj).to(device),
-                              cls)
+            di = ci % len(devs)
+            dev = devs[di]
+            stats["device_blocks"][di] += 1
+
+            def dispatch(ii=ii, jj=jj, cls=cls, dev=dev) -> torch.Tensor:
+                with on_device(dev):
+                    return launch(inputs[dev], torch.from_numpy(ii).to(dev),
+                                  torch.from_numpy(jj).to(dev), cls)
 
             t0 = time.perf_counter()
             events = None
-            if on_cuda:
-                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                events[0].record()
-            try:
-                blocks = dispatch()
-            except Exception as exc:
-                blocks = _with_retries(dispatch, max_retries, exc)
-            if on_cuda:
-                events[1].record()
-                host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
-                host.copy_(blocks, non_blocking=True)
-                events.append(torch.cuda.Event())
-                events[2].record()
-            else:
-                host = blocks
+            with on_device(dev):
+                if on_cuda:
+                    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    events[0].record()
+                try:
+                    blocks = dispatch()
+                except Exception as exc:
+                    blocks = _with_retries(dispatch, max_retries, exc)
+                if on_cuda:
+                    events[1].record()
+                    host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
+                    host.copy_(blocks, non_blocking=True)
+                    events.append(torch.cuda.Event())
+                    events[2].record()
+                else:
+                    host = blocks
             stats["dispatch_s"] += time.perf_counter() - t0
-            # The bounded queue keeps at most 8 chunks between launch and
-            # scatter, so pinned buffers stay bounded.
+            # The bounded queue keeps at most max(8, 4n) chunks between
+            # launch and scatter, so pinned buffers stay bounded.
             scatter_q.put((ii, jj, host, events, name, dispatch, path))
     finally:
         scatter_q.put(None)
@@ -861,6 +891,7 @@ def all_pairs_distances(
     block_dir: str | Path | None = None,
     known: tuple[int, np.ndarray] | None = None,
     max_retries: int = 1,
+    devices: list | None = None,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW distance matrix over all segment pairs.
 
@@ -878,10 +909,12 @@ def all_pairs_distances(
     many times before the error propagates.  ``known=(k_old, D_old)``: the
     first k_old sequences' pairwise distances come from D_old (a prior run
     over the same features); only pairs touching a new sequence are
-    computed.  The default device is the card; without one, pass
-    ``device="cpu"``."""
+    computed.  ``devices``: a list of devices (it may repeat one) that the
+    scheduler's chunks or blocks round-robin over, in place of ``device``
+    (the reference's data axis; D is the same bit for bit).  The default
+    device is the card; without one, pass ``device="cpu"``."""
     kw = dict(device=device, stats=stats, block_dir=block_dir, known=known,
-              max_retries=max_retries)
+              max_retries=max_retries, devices=devices)
     if tiled is None:
         tiled = cfg.dtype != "bfloat16" and route_for(features.shape[1], cfg) != "per_pair"
     if tiled is False:
@@ -976,6 +1009,7 @@ def all_pairs_distances_per_pair(
     known: tuple[int, np.ndarray] | None = None,
     block_dir: str | Path | None = None,
     max_retries: int = 1,
+    devices: list | None = None,
 ) -> np.ndarray:
     """Symmetric [K, K] DTW matrix through the per-pair scheduler (port of
     the reference's legacy loop in ``all_pairs_distances``).
@@ -999,9 +1033,17 @@ def all_pairs_distances_per_pair(
     each call's boundaries under ``LONG_BOUNDARY_BUDGET`` bytes, and each
     call's distances split back per block.  Other blocks are padded to a
     power of two with self-pairs of sequence 0 (discarded).  Up to ten
-    blocks are in flight, each pair lands in one triangle, and ``D += D.T``
-    closes the matrix.  The kernels normalize inside, so the scatter does
-    not.
+    blocks a device are in flight, each pair lands in one triangle, and
+    ``D += D.T`` closes the matrix.  The kernels normalize inside, so the
+    scatter does not.
+
+    ``devices``: a list of devices (it may repeat one) that the blocks
+    round-robin over, block bi (in enumeration order, resumed blocks
+    counted) on ``devices[bi % n]`` (a retried block on the same one), the
+    reference's data axis.  Each distinct device gets its own copy of the
+    corpus and of K8's layout; the K8 blocks of each slot of the list run
+    as merged calls of their own, one call a slot in flight.  ``device`` is
+    then ignored.
 
     ``known=(k_old, D_old)``: only pairs touching a sequence >= k_old are
     enumerated (``new_from``), and D_old fills the old block after the
@@ -1012,17 +1054,20 @@ def all_pairs_distances_per_pair(
     times.
 
     ``stats`` receives the block, resumed-block, pad-pair and merged K8 call
-    (``long_calls``) counts, host seconds per activity (enumerate, dispatch,
-    collect: waiting for a block's values, scatter, persist) and, on a CUDA
-    device, from CUDA events around each block and around each merged
-    call's launches: ``gather_s``, the device time of the blocks' gathers
-    (K8 gathers nothing), ``kernel_s``, that of the DTW calls, and
+    (``long_calls``) counts, the blocks dispatched to each device
+    (``device_blocks``, a list in the order of ``devices``), host seconds
+    per activity (enumerate, dispatch, collect: waiting for a block's
+    values, scatter, persist) and, on a CUDA device, from CUDA events
+    around each block and around each merged call's launches on its
+    device's current stream: ``gather_s``, the device time of the blocks'
+    gathers (K8 gathers nothing), ``kernel_s``, that of the DTW calls, and
     ``kernel_s_by``, the latter per entry name: the wrapper whose launch
     counter the call moved (``dtw_batch_pallas`` for K6,
     ``_dtw_batch_stripe`` for K7), ``dtw_long_batch`` for K8's merged
-    calls.  The
-    default device is the card; without one, pass ``device="cpu"``."""
-    device = resolve_device(device)
+    calls.  The default device is the card; without one, pass
+    ``device="cpu"``."""
+    devs = resolve_devices(devices) if devices is not None else [resolve_device(device)]
+    device = devs[0]
     K, L, d = features.shape
     lengths = np.asarray(lengths, dtype=np.int32)
     if known is not None:
@@ -1034,10 +1079,12 @@ def all_pairs_distances_per_pair(
     mm_dtype = "bfloat16" if cfg.dtype == "bfloat16" else None
     step = min(bucket_step, L) if cfg.length_bucketing else L
     if isinstance(features, torch.Tensor):
-        feats_dev = features.to(device=device, dtype=torch.float32)
+        feats0 = features.to(device=device, dtype=torch.float32)
     else:
-        feats_dev = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(device)
-    lens_dev = torch.from_numpy(lengths).to(device)
+        feats0 = torch.from_numpy(np.ascontiguousarray(features, dtype=np.float32)).to(device)
+    # The corpus and its lengths on each distinct device, copied once a job.
+    corpus = {dev: (feats0.to(dev), torch.from_numpy(lengths).to(dev))
+              for dev in dict.fromkeys(devs)}
     if block_dir is not None:
         block_dir = Path(block_dir)
         block_dir.mkdir(parents=True, exist_ok=True)
@@ -1059,6 +1106,7 @@ def all_pairs_distances_per_pair(
         route="per_pair", dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, persist_s=0.0,
         enumerate_s=0.0, gather_s=0.0, kernel_s=0.0, kernel_s_by={}, blocks=0,
         blocks_resumed=0, pad_pairs=0, pairs=n_all_pairs, tiled=False, long_calls=0,
+        device_blocks=[0] * len(devs),
     )
     on_cuda = device.type == "cuda"
 
@@ -1066,10 +1114,11 @@ def all_pairs_distances_per_pair(
         """Whether K6 or K7 takes the bucket (the reference's predicate)."""
         return not diag and pallas_supported(bucket, cfg.band, cfg.auto_widen_band, mld)
 
-    def run_block(row_cap, bucket, mld, ii, jj):
-        """(the block's distances, the entry that computed them, and on a
-        CUDA device events before the gather and before and after the DTW
-        call)."""
+    def run_block(dev, row_cap, bucket, mld, ii, jj):
+        """(the block's distances on ``dev``, the entry that computed them,
+        and on a CUDA device events before the gather and before and after
+        the DTW call)."""
+        feats_dev, lens_dev = corpus[dev]
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if on_cuda else []
         if events:
             events[0].record()
@@ -1091,70 +1140,91 @@ def all_pairs_distances_per_pair(
         return vals, (moved[0] if moved else fn).__name__, events
 
     pending: list[tuple] = []
-    # K8's blocks, not dispatched one by one: (ii, jj, persist path, block).
+    # K8's blocks, not dispatched one by one: (ii, jj, persist path, block,
+    # slot of the device list).
     long_blocks: list[tuple] = []
 
-    def run_long(group, frames):
-        """One merged K8 call over the pairs of ``group``'s blocks: (the
-        distances, and on a CUDA device events around its launches alone)."""
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_cuda else []
-        ia = np.concatenate([g[0] for g in group])
-        ib = np.concatenate([g[1] for g in group])
-        vals = dtw_long_pairs(feats_dev, lens_dev, ia, ib, frames=frames, metric=cfg.metric,
-                              band=cfg.band, auto_widen=cfg.auto_widen_band,
-                              normalize=cfg.normalize, block=group[0][3], band_mode=cfg.band_mode,
-                              events=events or None, matmul_dtype=mm_dtype)
+    def run_long(dev, group, frames):
+        """One merged K8 call on ``dev`` over the pairs of ``group``'s blocks:
+        (the distances, and on a CUDA device events around its launches
+        alone)."""
+        feats_dev, lens_dev = corpus[dev]
+        with on_device(dev):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_cuda else []
+            ia = np.concatenate([g[0] for g in group])
+            ib = np.concatenate([g[1] for g in group])
+            vals = dtw_long_pairs(feats_dev, lens_dev, ia, ib, frames=frames, metric=cfg.metric,
+                                  band=cfg.band, auto_widen=cfg.auto_widen_band,
+                                  normalize=cfg.normalize, block=group[0][3],
+                                  band_mode=cfg.band_mode, events=events or None,
+                                  matmul_dtype=mm_dtype)
         return vals, events
 
     def run_long_blocks():
-        """All K8 blocks as merged calls, each under ``LONG_BOUNDARY_BUDGET``
-        bytes of boundaries (a block is never split), the distances split
-        back per block for the scatter and ``block_dir``."""
-        groups: list[list] = []
-        used = 0
+        """All K8 blocks as merged calls, each slot's blocks in calls of their
+        own under ``LONG_BOUNDARY_BUDGET`` bytes of boundaries (a block is
+        never split), the calls dispatched a round at a time (one call a
+        slot, then their collection), the distances split back per block for
+        the scatter and ``block_dir``."""
+        by_slot: list[list[list]] = [[] for _ in devs]
+        used = [0] * len(devs)
         for blk_args in long_blocks:
-            ii, jj, _, blk = blk_args
+            ii, jj, _, blk, di = blk_args
+            groups = by_slot[di]
             need = int(long_boundary_bytes(lengths[ii], lengths[jj], blk).sum())
-            if not groups or blk != groups[-1][0][3] or used + need > LONG_BOUNDARY_BUDGET:
+            if not groups or blk != groups[-1][0][3] or used[di] + need > LONG_BOUNDARY_BUDGET:
                 groups.append([])
-                used = 0
+                used[di] = 0
             groups[-1].append(blk_args)
-            used += need
-        # The corpus as K8 reads it, built once a job (the twin takes feats).
-        frames = None
+            used[di] += need
+        # The corpus as K8 reads it on each device, built once a job (the
+        # twin takes feats).
+        frames = dict.fromkeys(devs)
         if on_cuda:
-            frames = (gram_layout(feats_dev, cfg.metric) if mm_dtype
-                      else frame_layout(feats_dev, cfg.metric))
-        for group in groups:
-            t0 = time.perf_counter()
-            try:
-                vals, events = run_long(group, frames)
-            except Exception as exc:
-                vals, events = _with_retries(lambda: run_long(group, frames), max_retries, exc)
-            stats["dispatch_s"] += time.perf_counter() - t0
-            stats["long_calls"] += 1
-            t0 = time.perf_counter()
-            try:
-                host = vals.cpu().numpy()
-                if events:
-                    secs = events[0].elapsed_time(events[1]) / 1e3
-                    stats["kernel_s"] += secs
-                    by = stats["kernel_s_by"]
-                    by["dtw_long_batch"] = by.get("dtw_long_batch", 0.0) + secs
-            except Exception as exc:
-                host = _with_retries(lambda: run_long(group, frames)[0].cpu().numpy(),
-                                     max_retries, exc)
-            stats["collect_s"] += time.perf_counter() - t0
-            s0 = 0
-            for ii, jj, path, _ in group:
+            for dev in frames:
+                with on_device(dev):
+                    feats_dev = corpus[dev][0]
+                    frames[dev] = (gram_layout(feats_dev, cfg.metric) if mm_dtype
+                                   else frame_layout(feats_dev, cfg.metric))
+        for r in range(max(len(g) for g in by_slot)):
+            flight = []
+            for di, groups in enumerate(by_slot):
+                if r >= len(groups):
+                    continue
+                dev, group = devs[di], groups[r]
                 t0 = time.perf_counter()
-                D[ii, jj] = host[s0 : s0 + len(ii)]
-                stats["scatter_s"] += time.perf_counter() - t0
-                if path is not None:
+                try:
+                    vals, events = run_long(dev, group, frames[dev])
+                except Exception as exc:
+                    vals, events = _with_retries(lambda: run_long(dev, group, frames[dev]),
+                                                 max_retries, exc)
+                stats["dispatch_s"] += time.perf_counter() - t0
+                stats["long_calls"] += 1
+                flight.append((dev, group, vals, events))
+            for dev, group, vals, events in flight:
+                t0 = time.perf_counter()
+                try:
+                    host = vals.cpu().numpy()
+                    if events:
+                        secs = events[0].elapsed_time(events[1]) / 1e3
+                        stats["kernel_s"] += secs
+                        by = stats["kernel_s_by"]
+                        by["dtw_long_batch"] = by.get("dtw_long_batch", 0.0) + secs
+                except Exception as exc:
+                    host = _with_retries(
+                        lambda: run_long(dev, group, frames[dev])[0].cpu().numpy(), max_retries,
+                        exc)
+                stats["collect_s"] += time.perf_counter() - t0
+                s0 = 0
+                for ii, jj, path, _, _ in group:
                     t0 = time.perf_counter()
-                    np.savez(path, ii=ii, jj=jj, d=host[s0 : s0 + len(ii)])
-                    stats["persist_s"] += time.perf_counter() - t0
-                s0 += len(ii)
+                    D[ii, jj] = host[s0 : s0 + len(ii)]
+                    stats["scatter_s"] += time.perf_counter() - t0
+                    if path is not None:
+                        t0 = time.perf_counter()
+                        np.savez(path, ii=ii, jj=jj, d=host[s0 : s0 + len(ii)])
+                        stats["persist_s"] += time.perf_counter() - t0
+                    s0 += len(ii)
 
     def collect_one():
         ii, jj, vals, name, events, dispatch, path = pending.pop(0)
@@ -1198,6 +1268,7 @@ def all_pairs_distances_per_pair(
         for s in range(0, len(ii_all), cap):
             ii, jj = ii_all[s : s + cap], jj_all[s : s + cap]
             stats["enumerate_s"] += time.perf_counter() - t_enum
+            di = stats["blocks"] % len(devs)
             stats["blocks"] += 1
             path = None
             if block_dir is not None:
@@ -1208,8 +1279,9 @@ def all_pairs_distances_per_pair(
                     stats["blocks_resumed"] += 1
                     t_enum = time.perf_counter()
                     continue
+            stats["device_blocks"][di] += 1
             if to_k8:
-                long_blocks.append((ii, jj, path, max(32, long_block_shape(bucket)[0])))
+                long_blocks.append((ii, jj, path, max(32, long_block_shape(bucket)[0]), di))
                 t_enum = time.perf_counter()
                 continue
             B_blk = min(B, max(8, 1 << (len(ii) - 1).bit_length()))
@@ -1218,9 +1290,11 @@ def all_pairs_distances_per_pair(
             ii_pad[: len(ii)], jj_pad[: len(jj)] = ii, jj
             stats["pad_pairs"] += B_blk - len(ii)
 
-            def dispatch(row_cap=row_cap, bucket=bucket, mld=mld, ii_pad=ii_pad, jj_pad=jj_pad):
-                return run_block(row_cap, bucket, mld, torch.from_numpy(ii_pad).to(device),
-                                 torch.from_numpy(jj_pad).to(device))
+            def dispatch(row_cap=row_cap, bucket=bucket, mld=mld, ii_pad=ii_pad, jj_pad=jj_pad,
+                         dev=devs[di]):
+                with on_device(dev):
+                    return run_block(dev, row_cap, bucket, mld, torch.from_numpy(ii_pad).to(dev),
+                                     torch.from_numpy(jj_pad).to(dev))
 
             t0 = time.perf_counter()
             try:
@@ -1229,7 +1303,7 @@ def all_pairs_distances_per_pair(
                 vals, name, events = _with_retries(dispatch, max_retries, exc)
             stats["dispatch_s"] += time.perf_counter() - t0
             pending.append((ii, jj, vals, name, events, dispatch, path))
-            if len(pending) >= 10:
+            if len(pending) >= 10 * len(devs):
                 collect_one()
             t_enum = time.perf_counter()
     if long_blocks:

@@ -3,8 +3,13 @@
 Port of ``audio_pattern_discovery_tpu/pipeline.py`` for both embedders (the
 trained autoencoder, the default, and PCA) with diag-banded, widen-banded or
 unbanded DTW.  A directory of WAV files in, pattern clusters + DTW
-alignments out, on one torch ``device`` (default: the card; without one,
-``discover()`` raises unless the caller passes ``device="cpu"``):
+alignments out, on a torch ``device`` or a list of them (default: every
+card; without one, ``discover()`` raises unless the caller passes
+``device="cpu"``).  Over several devices the reference's mesh
+(``parallel.data_axis`` x ``parallel.model_axis``, ``parallel/mesh.py``)
+splits the spectrogram's clip groups, the AE's minibatches (and, with a
+model axis, its layers' outputs) and the DTW's chunks or blocks over the
+data-axis devices; the first device holds the corpus and the embedder:
 
 1. WAV header probe and streaming ingest (host);
 2. spectrogram (device) and energy segmentation (host);
@@ -82,7 +87,7 @@ from audio_pattern_discovery_tpu_torch.ops.spectrogram import (
 )
 from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 from audio_pattern_discovery_tpu_torch.utils import checkpoint as ckpt
-from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
+from audio_pattern_discovery_tpu_torch.utils.device import resolve_devices
 from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
 
 # The all-pairs DTW kernels whose launches discover() counts (K1-K8).
@@ -371,12 +376,14 @@ def _prepare_corpus(
     counters: StageCounters,
     log,
     device: torch.device,
+    devices: list | None = None,
 ):
     """Codec selection -> spectrogram -> energy segmentation -> segment
     frames: the one derivation that ``discover()`` and ``query.py`` share,
     since index reuse rests on fresh features reproducing the stored ones.
-    Returns (clips, frame_counts, segments, seg_frames, seg_frames_dev,
-    seg_lengths); seg_frames_dev is the device copy."""
+    ``devices`` (first ``device``): the spectrogram's clip groups round-robin
+    over them.  Returns (clips, frame_counts, segments, seg_frames,
+    seg_frames_dev, seg_lengths); seg_frames_dev is the device copy."""
     if cfg.spectrogram.upload_codec == "mulaw8":
         codec = "mulaw8"
     elif stream.all_pcm16:
@@ -437,6 +444,7 @@ def _prepare_corpus(
             return_device=on_device,
             scales=scales,
             sig_lengths=stream.sample_lengths,
+            devices=devices,
         )
     clips = stream.materialize()
 
@@ -463,11 +471,15 @@ def discover(
     out_dir: str | Path | None = None,
     logger=None,
     update_from: str | Path | None = None,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | list = "cuda",
 ) -> DiscoveryResult:
     """Run the discovery pipeline over a directory of WAV files on
-    ``device``: the card by default; without one this raises unless the
-    caller passes ``device="cpu"``.
+    ``device``: every card by default (``"cuda"``; ``"cuda:1"`` one card);
+    without one this raises unless the caller passes ``device="cpu"``.  A
+    list of devices (it may repeat one) is the reference's device list: the
+    first ``n_data`` of them (all with ``parallel.data_axis`` < 0, else
+    ``data_axis * model_axis``) form the mesh, and with ``n_data`` of 1
+    the run is the one-device run.
 
     ``update_from``: a prior run's out_dir (state.json,
     distance_matrix.npy and, with the embedder on, its checkpoint).  Only
@@ -477,11 +489,37 @@ def discover(
     requires the feature-affecting config unchanged, every prior WAV still
     present, and a saved checkpoint when the embedder is on."""
     cfg = (config or PipelineConfig()).validate()
-    device = resolve_device(device)
+    devices = resolve_devices(device)
+    device = devices[0]
     log = logger or get_logger()
     counters = StageCounters()
     log.info(f"device {device}")
     ae = cfg.autoencoder
+
+    # The mesh (the reference's): DTW chunks or blocks and spectrogram clip
+    # groups round-robin over the data-axis devices, AE minibatches split
+    # over the data axis (and its layers over the model axis).  One device
+    # runs unchanged.
+    par = cfg.parallel
+    n_data = (len(devices) if par.data_axis < 0
+              else min(par.data_axis * max(par.model_axis, 1), len(devices)))
+    data_devices = devices[:n_data] if n_data > 1 else None
+    ae_mesh: dict = {}
+    if n_data > 1:
+        from audio_pattern_discovery_tpu_torch.parallel.mesh import (
+            ae_param_sharding,
+            data_sharding,
+            make_mesh,
+        )
+
+        mesh = make_mesh(par, devices=devices)
+        ae_mesh["data_sharding"] = data_sharding(mesh)
+        if par.model_axis > 1:
+            ae_mesh["param_shardings"] = lambda p: ae_param_sharding(mesh, p)
+            log.info(f"mesh {mesh.shape}: DP over data axis, AE TP over model axis "
+                     f"({[str(d) for d in mesh.device_list]})")
+        else:
+            log.info(f"data-parallel over {n_data} devices ({[str(d) for d in data_devices]})")
 
     update_state: dict | None = None
     D_old: np.ndarray | None = None
@@ -565,13 +603,14 @@ def discover(
     if two_phase:
         m = max(1, min(len(stream) - 1, int(np.ceil(frac * len(stream)))))
         c1, fc1, segs1, sf1, sfd1, sl1 = _prepare_corpus(
-            cfg, stream.view(0, m), counters, log, device
+            cfg, stream.view(0, m), counters, log, device, data_devices
         )
         if len(segs1) >= 2:
             flat1 = _flat_frames(sf1, sl1, len(segs1), ctx)
             scaler1 = FeatureScaler.fit(flat1)
             pre_train = (
-                _train_in_background(scaler1.transform(flat1).astype(np.float32), ae, device),
+                _train_in_background(scaler1.transform(flat1).astype(np.float32), ae, device,
+                                     ae_mesh),
                 scaler1,
             )
             counters.add("ae_train_frames", len(flat1))
@@ -586,7 +625,7 @@ def discover(
                 f"{m} clips — training deferred to the full corpus"
             )
         c2, fc2, segs2, sf2, sfd2, sl2 = _prepare_corpus(
-            cfg, stream.view(m, len(stream)), counters, log, device
+            cfg, stream.view(m, len(stream)), counters, log, device, data_devices
         )
         clips = c1 + c2
         frame_counts = np.concatenate([fc1, fc2])
@@ -601,7 +640,7 @@ def discover(
         del sf1, sf2, sfd1, sfd2, halves
     else:
         clips, frame_counts, segments, seg_frames, seg_frames_dev, seg_lengths = (
-            _prepare_corpus(cfg, stream, counters, log, device)
+            _prepare_corpus(cfg, stream, counters, log, device, data_devices)
         )
     counters.add("frames", float(frame_counts.sum()))
     counters.add("segments", len(segments))
@@ -686,7 +725,7 @@ def discover(
                     counters.add("ae_train_frames", len(flat))
                     model, state, ae_losses = train_autoencoder(
                         scaler.transform(flat).astype(np.float32), ae, logger=log,
-                        device=device,
+                        device=device, **ae_mesh,
                     )
                 if ckpt_dir is not None:
                     ckpt.save_ae_checkpoint(ckpt_dir, state, scaler)
@@ -716,6 +755,7 @@ def discover(
         D = all_pairs_distances(
             features_dev, seg_lengths, cfg.dtw, device=device, block_dir=block_dir,
             known=None if update_state is None else (k_old, D_old), stats=dtw_stats,
+            devices=data_devices,
         )
     features_dev = None
     launched = [k.launches - n0 for k, n0 in zip(DTW_KERNELS, launches0)]
@@ -793,9 +833,9 @@ def discover(
     return result
 
 
-def _train_in_background(frames: np.ndarray, cfg, device: torch.device):
-    """Start ``train_autoencoder(frames, cfg, sync_losses=False)`` on a
-    worker thread and return its future.  On the card the thread queues its
+def _train_in_background(frames: np.ndarray, cfg, device: torch.device, ae_mesh: dict):
+    """Start ``train_autoencoder(frames, cfg, sync_losses=False, **ae_mesh)``
+    on a worker thread and return its future.  On the card the thread queues its
     work on a stream of its own and waits for that stream before it
     returns, so once the future is done its tensors are ready on every
     stream."""
@@ -803,7 +843,7 @@ def _train_in_background(frames: np.ndarray, cfg, device: torch.device):
 
     def run():
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            out = train_autoencoder(frames, cfg, sync_losses=False, device=device)
+            out = train_autoencoder(frames, cfg, sync_losses=False, device=device, **ae_mesh)
         if stream is not None:
             stream.synchronize()
         return out

@@ -71,23 +71,25 @@ def time_fn(fn, *args, warmup: int = 1, iters: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def cuda_ms(fn, reps: int, warm: bool = True, per_call: list | None = None) -> float:
-    """Mean device ms of ``reps`` calls of fn on the current CUDA device
-    (after a warm call unless ``warm`` is false), from CUDA events between
-    the calls.  The device first sleeps (~50 ms) while the host queues the
-    calls, so no call waits on the host's work for the next one: the time is
-    the device's even where that work outlasts the kernel.  ``per_call``
-    receives each call's ms."""
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(100_000_000)
-    ev[0].record()
-    for e in ev[1:]:
-        fn()
-        e.record()
-    torch.cuda.synchronize()
+def cuda_ms(fn, reps: int, warm: bool = True, per_call: list | None = None,
+            device: torch.device | str | None = None) -> float:
+    """Mean device ms of ``reps`` calls of fn on ``device`` (None: the current
+    CUDA device), after a warm call unless ``warm`` is false, from CUDA
+    events between the calls on that device's current stream.  The device
+    first sleeps (~50 ms) while the host queues the calls, so no call waits
+    on the host's work for the next one: the time is the device's even where
+    that work outlasts the kernel.  ``per_call`` receives each call's ms."""
+    with torch.cuda.device(device):
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda._sleep(100_000_000)
+        ev[0].record()
+        for e in ev[1:]:
+            fn()
+            e.record()
+        torch.cuda.synchronize()
     times = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
     if per_call is not None:
         per_call.extend(times)

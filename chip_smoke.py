@@ -193,14 +193,28 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    ``dtw_tile_programs`` 0, the card's D within each pair's derived bound
    (``bf16_pair_bound``) of the plain ``dtw_batch`` on the CPU on the card
    run's own features, and the same job in the process, counted and timed,
-   bitwise the CLI's D.
+   bitwise the CLI's D;
+32. multi-device execution over a device list: every card where the host
+   has more than one, else the one card four times (printed, with which):
+   config 4 diag, unbanded and widen through ``all_pairs_distances(devices=)``
+   (D bitwise one device's, ``device_blocks`` and both walls printed);
+   phase 28's features per pair over the list (K8, D bitwise); the
+   wavefront (``parallel/wavefront.py``) on 8 pairs of S=8192 (d=16, block
+   256, 4 stripes of 8 block columns), unbanded and widen 16, bitwise
+   ``dtw_long_batch`` on one device, with its K8 launches (4 x 39 a call)
+   and walls beside the one-device call's; K8 advanced a range of
+   diagonals at a time bitwise one call, and two stripes on K8's Gram
+   instantiation bitwise its one call; config 2's corpus through
+   ``discover()`` at the default config on a 2x2 mesh (the AE over the data
+   and model axes) against one device: the same partition, the last
+   epoch's loss within ``MESH_LOSS_RTOL`` and D within ``MESH_D_ATOL``.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
 (the K4/K5 gate, ``pair_scheduler.LANE_MAX_W``); ``--against TREE`` runs
-K1, K3-K7 (and K8 where a checkout has it) from this checkout and from
-another (its parent, unpacked with ``git archive``) in turns, checks K1's,
-K3's, K4's, K6's and K7's outputs bitwise, K8's and phase 28's unbanded D
+K1-K7 (and K8 where a checkout has it) from this checkout and from
+another (its parent, unpacked with ``git archive``) in turns, checks K1's to
+K7's outputs bitwise, K8's and phase 28's unbanded D
 (its features from this checkout's front end) bitwise across the runs, and
 reports their times and phase 28's per-pair wall and K8 time.
 
@@ -220,6 +234,7 @@ earlier lines.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import multiprocessing
 import re
@@ -1671,6 +1686,11 @@ AE_LATENT_REL, AE_PARAM_REL = 0.1, 0.5
 # misses the JAX golden by 0.097 in D, the JAX package's own 1-device run by
 # 0.079 (tests/test_torch_pipeline.py holds the golden to 0.3).
 AE_D_ATOL = 0.3
+# The default config on a 2x2 mesh against one device on the card (phase
+# 32): the gradients sum in another order, nothing else differs.  Set from
+# the readings (H100, seed-7 corpus of config 2): the last epoch's loss
+# 2.5e-5 apart relatively, D at most 0.0437 apart.
+MESH_LOSS_RTOL, MESH_D_ATOL = 1e-4, 0.1
 
 
 def ae_pool(seed: int) -> np.ndarray:
@@ -2448,19 +2468,17 @@ def k8_stripes(tag: str, args, **kw) -> None:
     [nB/2, nB) with the first stripe's right columns as its halo (the
     interface the multi-GPU wavefront launches per device), bit for bit
     against the whole grid in one stripe."""
-    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import INF, frame_layout
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import INF
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import long_block_columns
 
     a, b, la, lb = args
     blk = kw.pop("block", 256)
     nB = a.shape[1] // blk
-    metric = kw.get("metric", "euclidean")
-    xa, xb = frame_layout(a, metric), frame_layout(b, metric)
     whole = torch.full((len(la),), INF, device=a.device)
-    V = long_block_columns(xa, xb, la, lb, whole, block=blk, J0=0, nJ=nB, **kw)
+    V = long_block_columns(a, b, la, lb, whole, block=blk, J0=0, nJ=nB, **kw)
     split = torch.full((len(la),), INF, device=a.device)
-    halo = long_block_columns(xa, xb, la, lb, split, block=blk, J0=0, nJ=nB // 2, **kw)
-    V2 = long_block_columns(xa, xb, la, lb, split, block=blk, J0=nB // 2, nJ=nB - nB // 2,
+    halo = long_block_columns(a, b, la, lb, split, block=blk, J0=0, nJ=nB // 2, **kw)
+    V2 = long_block_columns(a, b, la, lb, split, block=blk, J0=nB // 2, nJ=nB - nB // 2,
                             halo=halo, **kw)
     if not (torch.equal(whole, split) and torch.equal(V, V2)):
         fail(f"{tag}: two stripes of block columns with a halo differ from the whole grid "
@@ -3282,6 +3300,204 @@ def phase31(dev, tmp: Path, keep: dict) -> dict:
     return res
 
 
+def device_list(dev) -> tuple[list, str]:
+    """Phase 32's device list: every card where the host has more than one,
+    else the one card four times (a list may repeat a device)."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)], f"all {n} cards"
+    return [dev] * 4, "the host's one card, four times"
+
+
+def sync_all(devices) -> None:
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def walled(fn, devices, reps: int = 1) -> tuple[object, list[float]]:
+    """fn's last result and each call's wall in seconds, every device of the
+    list synchronized before and after each call."""
+    walls = []
+    out = None
+    for _ in range(reps):
+        sync_all(devices)
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(devices)
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def phase32(dev, tmp: Path, keep: dict) -> dict:
+    """Multi-device execution over a device list (``device_list``): config 4
+    diag, unbanded and widen through ``all_pairs_distances(devices=)`` (D
+    bitwise one device); phase 28's features per pair over the list (K8, D
+    bitwise); the wavefront on 8 pairs of S=8192 (d=16, block 256, 4 stripes
+    of 8 block columns), unbanded and widen 16, bitwise ``dtw_long_batch``
+    on one device, with its K8 launches and walls beside the one-device
+    call's, and K8 stepped a range of diagonals at a time bitwise one call;
+    config 2's corpus through ``discover()`` at the default config on a 2x2
+    mesh (the AE over the data and model axes): the one-device partition."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig, PipelineConfig
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import LongStripe, dtw_long_batch
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+    from audio_pattern_discovery_tpu_torch.parallel.mesh import Mesh, device_grid
+    from audio_pattern_discovery_tpu_torch.parallel.wavefront import (
+        dtw_wavefront_sharded,
+        shard_b_for_wavefront,
+    )
+    from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
+
+    devices, which = device_list(dev)
+    four = [devices[i % len(devices)] for i in range(4)]
+    log(f"phase 32: device list {[str(d) for d in devices]} ({which}); the wavefront and the "
+        f"2x2 mesh take {[str(d) for d in four]}")
+    res: dict = {}
+
+    def counted(fn):
+        for k in DTW_KERNELS:
+            k.launches = 0
+        out = fn()
+        return out, {k.__name__: k.launches for k in DTW_KERNELS if k.launches}
+
+    # Config 4 through the tiled routes, one device against the list.
+    K, S, d = 10_240, 128, 16
+    feats, lens = config4_corpus(K, S, d, seed=4, dev=dev)
+    lens_np = lens.cpu().numpy()
+    for mode, cfg in (("diag 16", DTWConfig(band=16, normalize="path_len")),
+                      ("unbanded", DTWConfig(band=None, normalize="path_len")),
+                      ("widen 16", DTWConfig(band=16, band_mode="widen", normalize="path_len"))):
+        s1, sn = {}, {}
+        (D1, w1), l1 = counted(lambda: walled(
+            lambda: ps.all_pairs_distances(feats, lens_np, cfg, device=dev, stats=s1), [dev]))
+        (Dn, wn), ln = counted(lambda: walled(
+            lambda: ps.all_pairs_distances(feats, lens_np, cfg, devices=devices, stats=sn),
+            devices))
+        if not np.array_equal(D1, Dn):
+            fail(f"phase 32 (config 4 {mode}): D over the list differs from one device's "
+                 f"(max abs {np.abs(D1 - Dn).max()})")
+        if l1 != ln or not ln or sum(sn["device_blocks"]) != sn["blocks"] - sn["blocks_resumed"]:
+            fail(f"phase 32 (config 4 {mode}): launches {ln} over the list against {l1} on one "
+                 f"device, device_blocks {sn['device_blocks']} of {sn['blocks']} chunks")
+        res[f"config4 {mode}"] = (w1[0], wn[0])
+        log(f"phase 32: config 4 {mode} (route {sn['route']}): D bitwise one device's; wall "
+            f"{w1[0]:.3f} s on one device, {wn[0]:.3f} s over the list; device_blocks "
+            f"{sn['device_blocks']}; launches {ln}; kernel_s {s1['kernel_s']:.3f} / "
+            f"{sn['kernel_s']:.3f} s; scatter_s {s1['scatter_s']:.3f} / {sn['scatter_s']:.3f} s")
+    del feats, lens
+
+    # Phase 28's features per pair (K8's merged calls, one chain a slot).
+    if "features" not in keep:
+        corpus28, _ = long_units_corpus_28(tmp)
+        res28 = discover(corpus28, phase28_config(), device=dev)
+        keep["features"] = (res28.seg_features, res28.seg_lengths)
+    f28, n28 = keep["features"]
+    cfg28 = phase28_config().dtw
+    s1, sn = {}, {}
+    (D1, w1), l1 = counted(lambda: walled(
+        lambda: ps.all_pairs_distances(f28, n28, cfg28, device=dev, stats=s1), [dev]))
+    (Dn, wn), ln = counted(lambda: walled(
+        lambda: ps.all_pairs_distances(f28, n28, cfg28, devices=devices, stats=sn), devices))
+    if not np.array_equal(D1, Dn) or set(ln) != {"dtw_long_batch"}:
+        fail(f"phase 32 (phase 28's features per pair): D equal {np.array_equal(D1, Dn)}, "
+             f"launches {ln}")
+    res["long units per pair"] = (w1[0], wn[0])
+    log(f"phase 32: phase 28's features ({len(n28)} segments of {int(n28.min())}-"
+        f"{int(n28.max())} frames) per pair: D bitwise one device's; wall {w1[0]:.3f} s on one "
+        f"device ({l1} launches, {s1['long_calls']} merged calls), {wn[0]:.3f} s over the list "
+        f"({ln} launches, {sn['long_calls']} merged calls, device_blocks {sn['device_blocks']})")
+
+    # The wavefront: 4 stripes of 8 block columns.
+    Sw, dw, blk = 8192, 16, 256
+    a, b, la, lb = long_pairs(dev, 8, Sw, dw, Sw // 2, seed=32, near=4)
+    mesh = Mesh(device_grid(four, (4,)), ("seq",))
+    for mode, kw in (("unbanded", {}), ("widen 16", dict(band=16))):
+        (one, w1), l1 = counted(lambda: walled(
+            lambda: dtw_long_batch(a, b, la, lb, block=blk, **kw), [dev], reps=3))
+        stripes = shard_b_for_wavefront(b, mesh)
+        (wave, wn), ln = counted(lambda: walled(
+            lambda: dtw_wavefront_sharded(a, stripes, la, lb, mesh, block=blk, **kw), four,
+            reps=3))
+        if not torch.equal(one, wave):
+            fail(f"phase 32 (wavefront, {mode}): {int((one != wave).sum())} of 8 distances "
+                 "differ from dtw_long_batch on one device")
+        nB = Sw // blk
+        want_launches = 4 * (nB // 4 + nB - 1)
+        if ln.get("dtw_long_batch") != 3 * want_launches:
+            fail(f"phase 32 (wavefront, {mode}): K8 launched {ln} in 3 calls; want "
+                 f"{want_launches} a call (4 stripes of {nB // 4 + nB - 1} diagonals)")
+        res[f"wavefront {mode}"] = (sorted(w1)[1], sorted(wn)[1])
+        log(f"phase 32: wavefront {mode} (8 pairs, S={Sw}, d={dw}, block {blk}, 4 stripes): "
+            f"bitwise dtw_long_batch; one device {l1['dtw_long_batch'] // 3} K8 launches a call, "
+            f"wall median {sorted(w1)[1] * 1e3:.2f} ms (calls {[round(w * 1e3, 2) for w in w1]}); "
+            f"the list {want_launches} K8 launches a call, wall median "
+            f"{sorted(wn)[1] * 1e3:.2f} ms (calls {[round(w * 1e3, 2) for w in wn]})")
+    # K8 stepped a range of diagonals at a time, and a stripe holding only
+    # its own frames of B, bitwise the whole grid in one call.
+    whole = LongStripe(a, b, la, lb, block=blk, J0=0, nJ=nB)
+    whole.advance(0, whole.n_diag)
+    stepped = LongStripe(a, b, la, lb, block=blk, J0=0, nJ=nB)
+    for k0, k1 in ((0, 5), (5, 6), (6, 40), (40, stepped.n_diag)):
+        stepped.advance(k0, k1)
+    if not (torch.equal(stepped.out, whole.out) and torch.equal(stepped.V, whole.V)
+            and torch.equal(whole.out, dtw_long_batch(a, b, la, lb, block=blk))):
+        fail("phase 32: K8 stepped in ranges of diagonals differs from one call")
+    log(f"phase 32: K8 stepped over diagonals [0, 5), [5, 6), [6, 40), [40, {stepped.n_diag}) "
+        "bitwise one call and dtw_long_batch")
+    # Two stripes on K8's Gram instantiation, the second holding only its
+    # frames of b (and of their norms), bitwise the whole grid.
+    gram = dtw_long_batch(a, b, la, lb, block=blk, matmul_dtype="bfloat16")
+    out = torch.full_like(gram, float("inf"))
+    left = LongStripe(a, b, la, lb, block=blk, J0=0, nJ=nB // 2, out=out,
+                      matmul_dtype="bfloat16")
+    left.advance(0, left.n_diag)
+    right = LongStripe(a, b[:, Sw // 2:].contiguous(), la, lb, block=blk, J0=nB // 2, nJ=nB // 2,
+                       b_off=Sw // 2, halo=left.V, out=out, matmul_dtype="bfloat16")
+    right.advance(0, right.n_diag)
+    if not torch.equal(out, gram):
+        fail("phase 32: two Gram stripes differ from dtw_long_batch(matmul_dtype=bfloat16)")
+    log("phase 32: two stripes on K8's Gram instantiation (the second with its own frames of b) "
+        "bitwise dtw_long_batch(matmul_dtype=bfloat16)")
+
+    # The default config on a 2x2 mesh (the AE's data and model axes).
+    corpus2, truth = config2_corpus(tmp)
+    cfg = PipelineConfig().override({"parallel.data_axis": 2, "parallel.model_axis": 2})
+    # In turns (one device, the mesh, the mesh, one device): the first
+    # discover() of a process pays torch.optim's first import.
+    turns = []
+    for devs in ([dev], four, four, [dev]):
+        turns.append(counted(lambda: walled(lambda: discover(corpus2, cfg, device=devs), devs)))
+    (r1, _), l1 = turns[3]
+    (rn, _), ln = turns[2]
+    w1 = [turns[0][0][1][0], turns[3][0][1][0]]
+    wn = [turns[1][0][1][0], turns[2][0][1][0]]
+    if partition(r1.labels) != partition(rn.labels):
+        fail("phase 32 (default config on a 2x2 mesh): the partition differs from one device's")
+    if not ln or ln != l1:
+        fail(f"phase 32 (default config on a 2x2 mesh): launches {ln} on the mesh, {l1} on one "
+             "device")
+    diff = float(np.abs(r1.distance_matrix - rn.distance_matrix).max())
+    if not diff <= MESH_D_ATOL:
+        fail(f"phase 32 (default config on a 2x2 mesh): D differs by {diff} (limit {MESH_D_ATOL})")
+    loss_rel = abs(rn.ae_losses[-1] - r1.ae_losses[-1]) / abs(r1.ae_losses[-1])
+    if not loss_rel <= MESH_LOSS_RTOL:
+        fail(f"phase 32 (default config on a 2x2 mesh): the last loss {rn.ae_losses[-1]} is "
+             f"{loss_rel:.3g} from one device's {r1.ae_losses[-1]} (rtol {MESH_LOSS_RTOL})")
+    res["default config 2x2"] = (w1[1], wn[1])
+    t1 = {k: round(v, 3) for k, v in r1.counters.timings_s.items()}
+    tn = {k: round(v, 3) for k, v in rn.counters.timings_s.items()}
+    log(f"phase 32: config 2 at the default config ({len(r1.labels)} segments, "
+        f"{len(r1.clusters)} clusters): the 2x2 mesh gives the one-device partition, D within "
+        f"{diff:.3g} (atol {MESH_D_ATOL}); last loss {r1.ae_losses[-1]:.7f} one device, "
+        f"{rn.ae_losses[-1]:.7f} the mesh, relative {loss_rel:.3g} (rtol {MESH_LOSS_RTOL}); "
+        f"walls in turns: one device {w1[0]:.2f} s, the mesh {wn[0]:.2f} / {wn[1]:.2f} s, one "
+        f"device {w1[1]:.2f} s; the last of each: one device stages {t1}, launches {l1}; the "
+        f"mesh stages {tn}, launches {ln}")
+    log(f"phase 32: walls (one device, the list) in s: "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in res.items()})}")
+    return res
+
+
 def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> tuple[np.ndarray, int]:
     """The per-pair route (``all_pairs_distances(tiled=False)``) on a job of
     K8's buckets: its D (bit for bit ``want`` where given) and K8's
@@ -3413,8 +3629,13 @@ wv1 = max(tk.diag_class_bounds(16, t_lo[j], t_hi[j], t_lo[i], t_hi[i])[0] for i,
 f1 = prebuilt(tk.dtw_tile_lane_diag_pairs, lambda: tk.strip_layout(feats, 128))
 k1 = tk.dtw_tile_lane_diag_pairs(feats, lens, rep, jj, ii, ti=128, band=16, wv_max=wv1,
                                  rows=128, **f1).cpu().numpy()
+k5 = tk.dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw, **f5).cpu().numpy()
+# K2 unbanded on the same tile-pairs.
+f2 = prebuilt(tk.dtw_tile_pairs, lambda: tk.strip_layout(feats, 128))
+k2 = tk.dtw_tile_pairs(feats, lens, ii, jj, ti=128, rows=128, **f2).cpu().numpy()
 res = {"k4_ms": ms(lambda: tk.dtw_tile_lane_pairs(feats, lens, ii, jj, **kw, **f4)),
-       "k5_ms": ms(lambda: tk.dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw, **f5))}
+       "k5_ms": ms(lambda: tk.dtw_tile_stripe_pairs(feats, lens, ii, jj, **kw, **f5)),
+       "k2_ms": ms(lambda: tk.dtw_tile_pairs(feats, lens, ii, jj, ti=128, rows=128, **f2))}
 f4k, l4k = corpus(10240, 128, 16, 64, 128, 4, False)
 cfg = DTWConfig(band=16, band_mode="widen", normalize="path_len")
 D = all_pairs_distances_tiled(f4k, l4k.cpu().numpy(), cfg, device=dev, lane=True)
@@ -3471,24 +3692,66 @@ if (Path(tree) / "audio_pattern_discovery_tpu_torch" / "ops" / "dtw_long.py").ex
     k8["d28"] = all_pairs_distances(job["f"], job["n"], cfg28, device=dev, stats=st, tiled=False)
     res["d28_wall_s"] = time.perf_counter() - t0
     res["d28_k8_s"] = st["kernel_s_by"].get("dtw_long_batch", 0.0)
-np.savez(out, k1=k1, k4=k4, D=D, k3=k3, k7=k7, **k6, **k8)
+np.savez(out, k1=k1, k2=k2, k4=k4, k5=k5, D=D, k3=k3, k7=k7, **k6, **k8)
 print(json.dumps(res))
 """
 
 
+def k8_build(tree: Path, tmp: Path) -> dict:
+    """K8 built from ``tree``'s source with the port's nvcc flags, as a cubin:
+    per instantiation (R, D4, stage_b, gram), ptxas's registers and spill
+    bytes, and its SASS instructions' opcodes (predicates and operands
+    dropped, so a parameter's constant-bank offset does not count)."""
+    from audio_pattern_discovery_tpu_torch.ops import _build
+
+    src = tree / "audio_pattern_discovery_tpu_torch" / "csrc" / "dtw_long_block.cu"
+    cubin = tmp / f"k8_{len(list(tmp.glob('k8_*.cubin')))}.cubin"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    nvcc = _build._nvcc()
+    proc = subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(src)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"--against: nvcc -cubin of {src} exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    inst = re.compile(r"long_block_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)E")
+    out: dict = {}
+    key = None
+    for line in proc.stdout.splitlines() + proc.stderr.splitlines():
+        m = inst.search(line)
+        if m and "Compiling entry function" in line:
+            key = tuple(int(g) for g in m.groups())
+            out[key] = {"regs": None, "spill": 0, "sass": []}
+        elif key and "Used" in line and "registers" in line:
+            out[key]["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif key and "spill stores" in line:
+            out[key]["spill"] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, timeout=300).stdout
+    key = None
+    for line in sass.splitlines():
+        m = inst.search(line)
+        if "Function :" in line:
+            key = tuple(int(g) for g in m.groups()) if m else None
+        elif key in out and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            toks = re.sub(r"/\*[0-9a-f]+\*/|;.*$", "", line).split()
+            out[key]["sass"].append(next((t for t in toks if not t.startswith("@")), ""))
+    return out
+
+
 def against(other: Path) -> None:
-    """K1, K3-K8 of this checkout against another's (its parent), each run
-    in its own process in turns other, this, this, other: K5's and K4's
-    times at a config-4 wide class, K6's at phase 16's 4,096 pairs and at
-    131,072 in the per-pair route's order (widen band 16), K3's at phase 7's
-    shape, K7's at phase 16's and K8's at 64 pairs of S=2048 where the
-    checkout has it; outputs bitwise: K1's on phase 12's tiles (diag band
-    16), K4's on phase 12's tile-pairs and as the config-4 widen D with K4
-    forced, K3's on phase 7's tile-pairs, K6's, K7's on phase 16's pairs,
+    """K1-K8 of this checkout against another's (its parent), each run in
+    its own process in turns other, this, this, other: K2's time unbanded
+    on phase 12's tile-pairs, K5's and K4's at a config-4 wide class, K6's
+    at phase 16's 4,096 pairs and at 131,072 in the per-pair route's order
+    (widen band 16), K3's at phase 7's shape, K7's at phase 16's and K8's at
+    64 pairs of S=2048 where the checkout has it; outputs bitwise: K1's on
+    phase 12's tiles (diag band 16), K2's, K4's and K5's on phase 12's
+    tile-pairs, K4's as the config-4 widen D with K4 forced, K3's on phase
+    7's tile-pairs, K6's, K7's on phase 16's pairs,
     and K8's across the runs that have it, at 64 pairs of S=2048 (d=16, 64
     and 128, each timed) and as phase 28's unbanded D through the per-pair
     route (phase 28's features from this checkout's front end), with that
-    job's wall and K8 time."""
+    job's wall and K8 time; then K8's registers, spills and SASS per
+    instantiation, each checkout's source built as a cubin (``k8_build``)."""
     if not (other / "audio_pattern_discovery_tpu_torch").is_dir():
         fail(f"--against {other}: no audio_pattern_discovery_tpu_torch there")
     dev = torch.device("cuda", 0)
@@ -3518,8 +3781,8 @@ def against(other: Path) -> None:
                 fail(f"--against: the run in {tree} exited {proc.returncode}:\n"
                      f"{proc.stderr[-3000:]}")
             runs.append((json.loads(proc.stdout.strip().splitlines()[-1]), np.load(out)))
-        for key, name in (("k1", "K1"), ("k4", "K4"), ("D", "K4"), ("k3", "K3"), ("k7", "K7"),
-                          ("k6_4096", "K6"), ("k6_131072", "K6")):
+        for key, name in (("k1", "K1"), ("k2", "K2"), ("k4", "K4"), ("k5", "K5"), ("D", "K4"),
+                          ("k3", "K3"), ("k7", "K7"), ("k6_4096", "K6"), ("k6_131072", "K6")):
             if not all(np.array_equal(runs[0][1][key], r[1][key]) for r in runs[1:]):
                 fail(f"--against: {name}'s {key} differs from the other checkout's")
         # K8 in the checkouts that have it: bitwise across their runs.
@@ -3527,13 +3790,14 @@ def against(other: Path) -> None:
         for key in ("k8", "k8_d64", "k8_d128", "d28"):
             if not all(np.array_equal(k8_runs[0][1][key], r[1][key]) for r in k8_runs[1:]):
                 fail(f"--against: K8's {key} differs between runs")
-        log("against: K1 on phase 12's tiles (diag band 16), K4 on phase 12's tile-pairs, the "
-            "config-4 widen D with K4 forced, K3 on phase 7's tile-pairs, K6 (widen band 16) at "
-            "4,096 and 131,072 pairs and K7 on phase 16's pairs are bitwise equal to the other "
+        log("against: K1 on phase 12's tiles (diag band 16), K2 (unbanded), K4 and K5 on phase "
+            "12's tile-pairs, the config-4 widen D with K4 forced, K3 on phase 7's tile-pairs, "
+            "K6 (widen band 16) at 4,096 and 131,072 pairs and K7 on phase 16's pairs are bitwise equal to the other "
             f"checkout's; K8 is in {len(k8_runs)} of the 4 runs, bitwise equal across them (64 "
             f"pairs at S=2048 at d=16, 64 and 128, and phase 28's unbanded D of "
             f"{len(res28.seg_lengths)} segments)")
-        shapes = {"k4_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
+        shapes = {"k2_ms": "unbanded on phase 12's tile-pairs (S=128)",
+                  "k4_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k5_ms": "at a config-4 wide class (10 tile-pairs, S=128, W=130)",
                   "k6_4096_ms": "at phase 16's 4,096 pairs (S=128, widen band 16)",
                   "k6_131072_ms": "at 131,072 pairs in the route's order",
@@ -3550,6 +3814,20 @@ def against(other: Path) -> None:
             got = [f"{r[0][key]:.4f}" if key in r[0] else "absent" for r in runs]
             log(f"against: phase 28's unbanded job per pair, {what}: other {got[0]} / {got[3]} s, "
                 f"this {got[1]} / {got[2]} s")
+        # K8's code, instantiation by instantiation (phase 28's d=16 job runs
+        # R=4, D4=4, B staged, fp32).
+        builds = [k8_build(tree, Path(tmp_dir)) for tree in (other, REPO)]
+        for key in sorted(set(builds[0]) | set(builds[1])):
+            o, t = (b.get(key) for b in builds)
+            if o is None or t is None:
+                log(f"against: K8 {key} only in {'this' if o is None else 'the other'} checkout")
+                continue
+            sm = difflib.SequenceMatcher(None, o["sass"], t["sass"], autojunk=False)
+            moved = sum(max(i2 - i1, j2 - j1) for op, i1, i2, j1, j2 in sm.get_opcodes()
+                        if op != "equal")
+            log(f"against: K8 (R, D4, stage_b, gram)={key}: registers {o['regs']} / {t['regs']}, "
+                f"spill bytes {o['spill']} / {t['spill']}, SASS instructions {len(o['sass'])} / "
+                f"{len(t['sass'])} (other / this), {moved} opcodes differ")
 
 
 def main() -> int:
@@ -3559,8 +3837,8 @@ def main() -> int:
     parser.add_argument("--crossover", action="store_true",
                         help="after phase 1, time K4 against K5 per class stripe and stop")
     parser.add_argument("--against", metavar="TREE",
-                        help="after phase 1, compare K1, K3-K8 with those of another checkout "
-                             "of the repo (in turns, bitwise for K1, K3, K4, K6 and K7) and stop")
+                        help="after phase 1, compare K1-K8 with those of another checkout "
+                             "of the repo (in turns, bitwise for K1-K7) and stop")
     args = parser.parse_args()
     only = {int(p) for p in args.phases.split(",") if p}
     if not torch.cuda.is_available():
@@ -3643,6 +3921,7 @@ def main() -> int:
             lambda: phase29(dev, tmp),
             lambda: phase30(dev, tmp),
             lambda: k8_bf16.update(phase31(dev, tmp, long_units)),
+            lambda: phase32(dev, tmp, long_units),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):
