@@ -45,7 +45,8 @@ and their sqrt), not the reference's Gram expansion.  Under
 instead (``ops/dtw.pairwise_cost``): the dot product of the frames rounded
 to bf16, summed in fp32, and for the Euclidean metrics
 max(|a|^2 + |b|^2 - 2 a.b, 0) with the squared norms of the unrounded
-frames (``gram_layout``; K8's Gram instantiation on the card).  The diag corridor is
+frames (``gram_layout``: the frames as bf16; K8's Gram instantiation on the
+card, its dot products on the tensor cores).  The diag corridor is
 the reference's |j(la-1) - i(lb-1)| <= max(band, 1) max(la-1, lb-1), in
 64-bit products: equal to the reference's int32 ones below 2^15 frames a
 side, and exact past them.
@@ -402,6 +403,57 @@ def _long_config(R: int, nc4: int, BLK: int) -> tuple[int, bool]:
     return warps, False
 
 
+# B frames a warp of K8's Gram instantiation holds (csrc/dtw_long_block.cu:
+# kGramRingFrames), with their norms.
+_GRAM_RING = 64
+
+
+def _gram_rows(BLK: int) -> int:
+    """Rows a lane (R) of K8's Gram instantiation: 4 (a [128 x 32] ring of
+    costs a warp), or the most a block of 64 or 32 frames takes."""
+    for R in (4, 2, 1):
+        if BLK % (32 * R) == 0:
+            return R
+    raise ValueError(f"K8 takes blocks of a multiple of 32 frames, got {BLK}")
+
+
+def _gram_smem(BLK: int, nc4: int, R: int, warps: int, stage_b: bool) -> int:
+    """Shared memory of one CUDA block of K8's Gram instantiation, in bytes
+    (``smem_bytes`` of ``csrc/dtw_long_block.cu`` under gram): per warp its
+    pass's bf16 A frames and, with ``stage_b``, B's ring of 64 frames and
+    their fp32 norms, each frame nc4 + 1 units of 16 bytes, and a [32R x 32]
+    ring of fp32 costs; then the row buffers and counters of
+    ``_long_smem``."""
+    n_pass = BLK // (32 * R)
+    own = 32 * R * (nc4 + 1) + ((_GRAM_RING * (nc4 + 1) + _GRAM_RING // 4) if stage_b else 0) \
+        + 32 * R * 32 // 4
+    words = (warps + 2) * BLK + 3 * (n_pass + 1) + n_pass
+    return 16 * warps * own + -(-words * 4 // 16) * 16
+
+
+def _gram_config(nc4: int, BLK: int) -> tuple[int, int, bool]:
+    """(R, warps, stage_b) of a CUDA block of K8's Gram instantiation, for
+    frames of nc4 16-byte units (d16 / 8): ``_gram_rows`` rows a lane, a
+    warp per pass, at most 8, with B's frames staged where that keeps
+    ``_LONG_MIN_RESIDENT`` warps resident on an SM; otherwise B through the
+    read-only cache and the warps dropped until the block fits.  Raises
+    where one warp does not: a bf16 job is never run on another
+    instantiation."""
+    R = _gram_rows(BLK)
+    warps = min(BLK // (32 * R), 8)
+    smem = _gram_smem(BLK, nc4, R, warps, True)
+    resident = warps * min(32, _SM_SMEM // (smem + _BLOCK_RESERVED))
+    if smem <= _LONG_SMEM_BUDGET and resident >= _LONG_MIN_RESIDENT:
+        return R, warps, True
+    while warps > 1 and _gram_smem(BLK, nc4, R, warps, False) > _LONG_SMEM_BUDGET:
+        warps -= 1
+    smem = _gram_smem(BLK, nc4, R, warps, False)
+    if smem > _LONG_SMEM_BUDGET:
+        raise ValueError(f"a K8 Gram pass of {32 * R} rows of {8 * nc4} bf16 channels needs "
+                         f"{smem} bytes of shared memory (budget {_LONG_SMEM_BUDGET})")
+    return R, warps, False
+
+
 def _long_plan(ia, ib, la, lb, Sa: int, Sb: int, BLK: int, *, nB: int | None = None,
                J0: int = 0, nJ: int | None = None) -> dict:
     """K8's launch plan for P pairs (host arrays): each pair's grid, its
@@ -461,23 +513,42 @@ def long_boundary_bytes(la, lb, BLK: int) -> np.ndarray:
     return 4 * (BLK * (nBa + nBb) + 2 * (nBb + 1))
 
 
+def gram_channels(d: int) -> int:
+    """Channels of a bf16 frame in ``gram_layout``: d rounded up to a
+    multiple of 16, the k of one tensor-core step (m16n8k16)."""
+    return -(-d // 16) * 16
+
+
 def gram_layout(feats: torch.Tensor, metric: str = "euclidean") -> tuple[torch.Tensor, torch.Tensor]:
-    """K8's inputs for the bf16 Gram costs of a corpus [K, S, d]: the
-    ``frame_layout`` of its frames (cosine's unit frames, normalized in
-    fp32) rounded to bf16 and held as fp32, and [K, S] fp32 the squared
+    """K8's inputs for the bf16 Gram costs of a corpus [K, S, d]: its frames
+    (cosine's unit frames, normalized in fp32) rounded to bf16 (to nearest
+    even, ``round_bf16``) as a contiguous [K, S, d16] bfloat16 tensor, the
+    channels past d zero (``gram_channels``), and [K, S] fp32 the squared
     norms of the unrounded frames.  The per-pair scheduler builds it once a
     job, beside where the fp32 path builds ``frame_layout``."""
+    K, S, d = feats.shape
     x = _unit_frames(feats.float(), metric)
-    return frame_layout(round_bf16(x)), torch.sum(x * x, dim=-1).contiguous()
+    out = torch.zeros((K, S, gram_channels(d)), dtype=torch.bfloat16, device=feats.device)
+    out[..., :d] = x.to(torch.bfloat16)
+    return out, torch.sum(x * x, dim=-1).contiguous()
 
 
 def _check_gram_layout(frames, feats, metric) -> tuple[torch.Tensor, torch.Tensor]:
     """``frames`` (a prebuilt ``gram_layout``) after checking it against the
-    corpus, or the layout built here."""
+    corpus (dtype, shape, zero padding, the norms' shape), or the layout
+    built here."""
     if frames is None:
         return gram_layout(feats, metric)
     layout, norms = frames
-    layout = _check_frame_layout(layout, feats, metric)
+    K, S, d = feats.shape
+    want = (K, S, gram_channels(d))
+    if (tuple(layout.shape) != want or layout.dtype != torch.bfloat16
+            or layout.device != feats.device or not layout.is_contiguous()):
+        raise ValueError(f"frames must be a contiguous bfloat16 gram_layout {want} on "
+                         f"{feats.device}, got {tuple(layout.shape)} {layout.dtype} on "
+                         f"{layout.device}")
+    if bool((layout[..., d:] != 0).any()):
+        raise ValueError("gram_layout's channels past the frame width must be zero")
     if (norms.shape != feats.shape[:2] or norms.dtype != torch.float32
             or norms.device != feats.device or not norms.is_contiguous()):
         raise ValueError(f"gram_layout norms must be a contiguous {tuple(feats.shape[:2])} "
@@ -493,9 +564,10 @@ class LongJob:
     consecutive ranges give what one call over all of them gives.  ``fa`` /
     ``fb`` are the frame layouts (``fb`` holds frames ``b_off`` on of each B
     sequence), ``out`` [P] receives the terminal cells; ``norms`` (the A and
-    B corpora's squared norms from ``gram_layout``, whose rounded frames are
+    B corpora's squared norms from ``gram_layout``, whose bf16 frames are
     then ``fa`` and ``fb``) selects the Gram instantiation; ``config``
-    overrides ``_long_config``'s (warps, stage_b) (a timing comparison's)."""
+    overrides ``_long_config``'s (warps, stage_b), or under ``norms``
+    ``_gram_config``'s (R, warps, stage_b) (a timing comparison's)."""
 
     def __init__(self, fa, fb, plan: dict, out, *, BLK: int, J0: int, halo, metric, band,
                  auto_widen, band_mode, b_off: int = 0, config: tuple[int, bool] | None = None,
@@ -503,9 +575,13 @@ class LongJob:
         dev = fa.device
         self.fa, self.fb, self.plan, self.out = fa, fb, plan, out
         self.halo, self.norms = halo, norms
-        self.nc4 = fa.shape[2] // 4
-        self.R = _long_rows(BLK, self.nc4)
-        self.warps, self.stage_b = config or _long_config(self.R, self.nc4, BLK)
+        # 16-byte units a frame: 4 fp32 channels, or 8 bf16 ones.
+        self.nc4 = fa.shape[2] // (4 if norms is None else 8)
+        if norms is None:
+            self.R = _long_rows(BLK, self.nc4)
+            self.warps, self.stage_b = config or _long_config(self.R, self.nc4, BLK)
+        else:
+            self.R, self.warps, self.stage_b = config or _gram_config(self.nc4, BLK)
         self.BLK, self.J0, self.b_off = BLK, J0, b_off
         self.mode = 0 if band is None else BAND_MODES[band_mode]
         self.band = 0 if band is None else int(band)
@@ -578,7 +654,7 @@ def dtw_long_pairs(
     *,
     feats_b: torch.Tensor | None = None,     # [Kb, Lb, d]; None: feats
     lengths_b: torch.Tensor | None = None,   # [Kb] i32; None: lengths
-    frames=None,                             # frame_layout(feats) (gram_layout), prebuilt
+    frames=None,                             # frame_layout(feats) (gram_layout under bf16)
     metric: str = "euclidean",
     band: int | None = None,
     auto_widen: bool = True,
@@ -598,8 +674,8 @@ def dtw_long_pairs(
     ``matmul_dtype="bfloat16"``: the bf16 Gram costs (the module docstring).
 
     CUDA tensors launch K8 on the frame layouts (``frames``, the layout of
-    ``feats`` built once a job by the caller, or built here: its
-    ``frame_layout``, or under bf16 its ``gram_layout``), count the
+    ``feats`` built once a job by the caller and checked on any device, or
+    built here: its ``frame_layout``, or under bf16 its ``gram_layout``), count the
     launches in ``dtw_long_batch.launches`` and record ``events``, where
     given, before the first launch and after the last, so that they time
     the kernel alone; the block must be a multiple of 32 frames there.  CPU tensors take the
@@ -631,13 +707,15 @@ def dtw_long_pairs(
         raise ValueError(f"pair indices outside the corpora ({Ka}, {Kb} sequences)")
     kw = dict(metric=metric, band=band, auto_widen=auto_widen, band_mode=band_mode)
     dev = feats.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     gram = matmul_dtype == "bfloat16"
+    if frames is not None:
+        frames = (_check_gram_layout if gram else _check_frame_layout)(frames, feats, metric)
     if dev.type == "cpu":
         return dtw_long_pairs_ref(feats, lengths, ia_np, ib_np, feats_b=feats_b,
                                   lengths_b=lengths_b, normalize=normalize, block=BLK,
                                   matmul_dtype=matmul_dtype, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     ia_t, ib_t = torch.from_numpy(ia_np).to(dev), torch.from_numpy(ib_np).to(dev)
     la, lb = lengths[ia_t], lengths_b[ib_t]
     out = torch.full((len(ia_np),), INF, dtype=torch.float32, device=dev)
@@ -645,12 +723,12 @@ def dtw_long_pairs(
         return out
     norms = None
     if gram:
-        fa, na = _check_gram_layout(frames, feats, metric)
+        fa, na = gram_layout(feats, metric) if frames is None else frames
         fb, nb = (fa, na) if feats_b is feats else gram_layout(feats_b, metric)
         norms = (na, nb)
     else:
-        fa = _check_frame_layout(frames, feats, metric)
-        fb = fa if feats_b is feats else _check_frame_layout(None, feats_b, metric)
+        fa = frame_layout(feats, metric) if frames is None else frames
+        fb = fa if feats_b is feats else frame_layout(feats_b, metric)
     plan = _long_plan(ia_np, ib_np, la.cpu().numpy(), lb.cpu().numpy(), La, Lb, BLK)
     _launch_plan(fa, fb, plan, out, BLK=BLK, J0=0, halo=None, events=events, norms=norms, **kw)
     dtw_long_batch.launches += plan["launches"]
@@ -698,6 +776,7 @@ def dtw_long_batch(
     block: int = 256,
     band_mode: str = "widen",
     matmul_dtype: str | None = None,
+    frames=None,               # frame_layout(a) (gram_layout under bf16), prebuilt
 ) -> torch.Tensor:
     """Batched DTW over long padded sequences with boundary-only memory ->
     [B] f32, normalized as ``normalize`` says (the reference's drop-in for
@@ -709,13 +788,13 @@ def dtw_long_batch(
     of the largest pair grid (``launches`` counts the launches of both
     entries, of either instantiation; ``matmul_dtype="bfloat16"`` selects
     the Gram one; the block must be a multiple of 32 frames there), CPU
-    tensors take the plain twin.  Any other device
-    raises."""
+    tensors take the plain twin; ``frames`` is checked on either.  Any
+    other device raises."""
     B, _, _, BLK, _ = _check_long(a, b, len_a, len_b, metric, normalize, block, band_mode)
     idx = np.arange(B, dtype=np.int64)
     return dtw_long_pairs(a, len_a, idx, idx, feats_b=b, lengths_b=len_b, metric=metric,
                           band=band, auto_widen=auto_widen, normalize=normalize, block=BLK,
-                          band_mode=band_mode, matmul_dtype=matmul_dtype)
+                          band_mode=band_mode, matmul_dtype=matmul_dtype, frames=frames)
 
 
 class LongStripe:
@@ -736,12 +815,14 @@ class LongStripe:
     ``out`` [B] (given, or made here at +inf); ``V`` [B, nB, BLK] is the
     right columns of the stripe's last block column, the next stripe's
     halo.  ``matmul_dtype="bfloat16"``: the bf16 Gram costs (on the card
-    K8's Gram instantiation on ``gram_layout``)."""
+    K8's Gram instantiation on ``gram_layout``).  ``frames``: the layouts
+    of ``a`` and ``b`` prebuilt (``frame_layout``, or ``gram_layout`` under
+    bf16), checked on either device; None builds them on the card."""
 
     def __init__(self, a, b, len_a, len_b, *, block: int, J0: int, nJ: int, b_off: int = 0,
                  halo: torch.Tensor | None = None, out: torch.Tensor | None = None,
                  metric: str = "euclidean", band: int | None = None, auto_widen: bool = True,
-                 band_mode: str = "widen", matmul_dtype: str | None = None):
+                 band_mode: str = "widen", matmul_dtype: str | None = None, frames=None):
         B, S, d = a.shape
         BLK = int(block)
         nB = S // BLK
@@ -761,16 +842,19 @@ class LongStripe:
         dev = a.device
         self.out = torch.full((B,), INF, dtype=torch.float32, device=dev) if out is None else out
         kw = dict(metric=metric, band=band, auto_widen=auto_widen, band_mode=band_mode)
+        gram = matmul_dtype == "bfloat16"
+        check = _check_gram_layout if gram else _check_frame_layout
+        if frames is not None:
+            frames = check(frames[0], a, metric), check(frames[1], b, metric)
         if dev.type == "cuda":
             idx = np.arange(B, dtype=np.int64)
             plan = _long_plan(idx, idx, len_a.cpu().numpy(), len_b.cpu().numpy(), S, S, BLK,
                               nB=nB, J0=J0, nJ=nJ)
+            fa, fb = frames or (check(None, a, metric), check(None, b, metric))
             norms = None
-            if matmul_dtype == "bfloat16":
-                (fa, na), (fb, nb) = gram_layout(a, metric), gram_layout(b, metric)
+            if gram:
+                (fa, na), (fb, nb) = fa, fb
                 norms = (na, nb)
-            else:
-                fa, fb = frame_layout(a, metric), frame_layout(b, metric)
             self._job = LongJob(fa, fb, plan, self.out, BLK=BLK, J0=J0, b_off=b_off, halo=halo,
                                 norms=norms, **kw)
             self.V = self._job.V[: B * nB * BLK].view(B, nB, BLK)

@@ -179,19 +179,26 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    at the golden config with ``--trace DIR``: the trace's CUDA kernel
    events of K1's kernel number the run's K1 launches; ``time_fn`` beside
    ``cuda_ms`` on one K1 call;
-31. ``dtw.dtype=bfloat16``: K8's Gram instantiation against its twin
-   (``K8_BF16_RTOL``) on 64 pairs at S=8192 unbanded, widen 16 and diag 16,
-   and at S=2048 at d=64 and cosine, never equal to the fp32 distances; it
-   and the fp32 instantiation timed in turns at 512 pairs of bucket 8192
+31. ``dtw.dtype=bfloat16``: K8's Gram instantiation (its dot products by
+   ``mma.sync`` on the tensor cores) against its twin pair by pair within
+   the derived bound at 2^-23 an addition (``gram_agree``,
+   ``bf16_pair_bounds``) on 64 pairs at S=8192 unbanded, widen 16 and diag
+   16, and at S=2048 for the three metrics, d=20, 64 and 128 (past the
+   staged rings), blocks of 64, lengths off every multiple of 16 and
+   out-of-frame pairs, never equal to the fp32 distances, each check's
+   largest reading printed; its candidate tile configurations
+   (``gram_configs``) timed at the 64 pairs and at 512 pairs of bucket
+   8192, and the chosen one and the fp32 instantiation in turns at both,
    with their bounds (``bound_gram``: the dot product at the bf16
-   tensor-core rate, the rest at the fp32 rate); ``all_pairs_distances`` on
+   tensor-core rate, the rest at the fp32 rate, the frames at 2 bytes a
+   channel of d16); ``all_pairs_distances`` on
    phase 28's features in bfloat16 (per pair, K8's Gram instantiation
    alone, its launches counted from 0), 8 pairs against the twin and the 3
    shortest segments' pairs against the CPU port; the seed-7 CLI with
    ``-s dtw.dtype=bfloat16 -s dtw.band=16`` on the card (its diag buckets
    of at most 1024 frames on K8 alone) and on the CPU: partition exact,
    ``dtw_tile_programs`` 0, the card's D within each pair's derived bound
-   (``bf16_pair_bound``) of the plain ``dtw_batch`` on the CPU on the card
+   (``bf16_pair_bounds``) of the plain ``dtw_batch`` on the CPU on the card
    run's own features, and the same job in the process, counted and timed,
    bitwise the CLI's D;
 32. multi-device execution over a device list: every card where the host
@@ -216,7 +223,9 @@ K1-K7 (and K8 where a checkout has it) from this checkout and from
 another (its parent, unpacked with ``git archive``) in turns, checks K1's to
 K7's outputs bitwise, K8's and phase 28's unbanded D
 (its features from this checkout's front end) bitwise across the runs, and
-reports their times and phase 28's per-pair wall and K8 time.
+reports their times, phase 28's per-pair wall and K8 time, and K8's Gram
+instantiation's time at 512 pairs of bucket 8192 and at 64 pairs of
+S=8192 (its distances bitwise across this checkout's two runs).
 
 Phases 5, 11 and 14 print the kernels' cells/s and share of the bound
 beside their device time.  Kernel times are device times
@@ -224,7 +233,9 @@ beside their device time.  Kernel times are device times
 sleep, so the host's work per call does not show).  A bound is the larger
 of the call's fp32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s
 (the H100's published peaks): ``3d + 4`` operations for each DP cell the
-distances need (``pair_cells``), ``2d + 8`` in K8's Gram instantiation.
+distances need (``pair_cells``); in K8's Gram instantiation 7 fp32
+operations a cell and the dot product's 2d at the bf16 tensor-core rate,
+989 TFLOP/s (``bound_gram``).
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Everything else goes to
@@ -236,6 +247,7 @@ from __future__ import annotations
 import argparse
 import difflib
 import json
+import math
 import multiprocessing
 import re
 import subprocess
@@ -2724,10 +2736,18 @@ def k8_merged(dev) -> str:
 
 def k8_smem() -> str:
     """K8's shared memory per CUDA block: the static bytes ptxas reports and
-    the dynamic bytes the wrapper asks for at blocks of 256 frames."""
+    the dynamic bytes the wrapper asks for at blocks of 256 frames, fp32 and
+    Gram."""
     from audio_pattern_discovery_tpu_torch.ops import _build
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import strip_channels
-    from audio_pattern_discovery_tpu_torch.ops.dtw_long import _long_config, _long_rows, _long_smem
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
+        _gram_config,
+        _gram_smem,
+        _long_config,
+        _long_rows,
+        _long_smem,
+        gram_channels,
+    )
 
     ptxas = _build.build_info.get("dtw_long_block", (0.0, ""))[1]
     static = max((int(m) for m in re.findall(r"(\d+) bytes smem", ptxas)), default=0)
@@ -2738,6 +2758,10 @@ def k8_smem() -> str:
         warps, stage_b = _long_config(R, nc4, 256)
         dyn[f"d={dd}"] = (f"{_long_smem(256, nc4, R, warps, stage_b)} bytes, {warps} warps, B "
                           f"{'staged' if stage_b else 'cached'}")
+        nc8 = gram_channels(dd) // 8
+        R, warps, stage_b = _gram_config(nc8, 256)
+        dyn[f"Gram d={dd}"] = (f"{_gram_smem(256, nc8, R, warps, stage_b)} bytes, R={R}, {warps} "
+                               f"warps, B {'staged' if stage_b else 'cached'}")
     return f"ptxas static {static} bytes; dynamic at blocks of 256 frames {json.dumps(dyn)}"
 
 
@@ -2996,18 +3020,10 @@ def phase30(dev, tmp: Path) -> None:
         f"(median host wall to the synchronization), cuda_ms {dev_ms:.3f} ms (device)")
 
 
-# K8's Gram instantiation against its twin: both take the same rounded
-# frames, so every product is exact and a cell differs only in the order
-# of its fp32 sums (the d-term dot product, the squared norms), amplified
-# by the cancellation in |a|^2 + |b|^2 - 2 a.b (tests/test_torch_bf16.py
-# derives the bound, d 2^-24 (|a|^2 + |b|^2) relative to the squared cost:
-# ~4e-6 a cell at d=16 on unit-variance frames, half that after the sqrt),
-# and the errors cancel along a path.  The largest reading over phase 31 on
-# the H100 80GB HBM3 at 700 W was 1.16e-7 relative (most checks bitwise);
-# the limit is K8_RTOL's, over 10x that.
-K8_BF16_RTOL = K8_RTOL
-K8_BF16_ATOL = K8_ATOL
-
+# An fp32 addition's error on the tensor cores, whose accumulation NVIDIA
+# does not document as rounded to nearest: one ulp, carried per addition
+# through the derived bound (``bf16_pair_bounds``).
+TC_UNIT = 2.0 ** -23
 
 # bf16 products with fp32 sums on the tensor cores, dense (the H100 SXM's
 # published peak at 700 W).
@@ -3032,60 +3048,125 @@ def bound_gram(cells: float, d: int, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def bf16_pair_bound(a: np.ndarray, b: np.ndarray, metric: str, band, band_mode: str,
-                    normalize: str, want: float) -> float:
-    """How far two bf16 Gram DTW runs on the same frames a [la, d] and
-    b [lb, d] may differ (tests/test_torch_bf16.py derives it): both round
-    the same fp32 operands to bf16, so every product is exact and a cell's
-    cost differs only by the order of its fp32 sums (eps per squared cost,
-    amplified by the sqrt near 0); a distance by the largest sum of that
-    over a monotone path through the band (a max-plus DTW), plus each
-    side's fp32 rounding of the path's sum."""
-    U = 2.0 ** -24
-    la, lb, d = len(a), len(b), a.shape[1]
+def gram_pair_bytes(la, lb, d: int) -> float:
+    """``pair_bytes`` for K8's Gram instantiation: each live frame as bf16 at
+    2 bytes a channel of d16 (``gram_channels``) and its fp32 squared norm,
+    the lengths and the output."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import gram_channels
+
+    return float((la.long() + lb.long()).sum()) * (2 * gram_channels(d) + 4) + len(la) * 12.0
+
+
+def bf16_pair_bounds(a, b, la, lb, *, metric: str, band, band_mode: str, normalize: str,
+                     want, unit: float = TC_UNIT) -> torch.Tensor:
+    """[P] float64, on the device of ``a``: how far two bf16 Gram DTW runs on
+    the same frames, a [P, S, d] and b [P, M, d] with lengths la, lb, may
+    differ on each pair (``tests/test_torch_bf16.py`` derives it; widen with
+    auto_widen).  Both round the same fp32 operands to bf16, so every
+    product is exact and a cell's cost differs only by the order of its fp32
+    sums: eps = 2 (d+2) unit (|a|^2 + |b|^2 + 2 sum_c |a_c b_c|) per squared
+    cost (2 (d-1) unit sum_c |a_c b_c| + 2 unit per cosine cost), amplified
+    by the sqrt near 0; a distance by the largest sum of that over a
+    monotone path through the band (a max-plus DTW, one row of every pair a
+    step: M[i, j] = S_j + max_{k <= j} (U_k - S_{k-1}) over the row's run,
+    S its prefix sums of e, U_k the better of the two cells above), plus
+    each side's rounding of the path's sum, 2 (la + lb) unit |want|.
+    ``unit`` is one addition's error: ``TC_UNIT`` (2^-23) where one side
+    sums on the tensor cores."""
+    dev = a.device
+    P, _, d = a.shape
+    M = b.shape[1]
+    a, b = a.float(), b.float()
     if metric == "cosine":
-        a = a / np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
-        b = b / np.maximum(np.linalg.norm(b, axis=1, keepdims=True), 1e-12)
-    ar = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).double().numpy()
-    br = torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(torch.bfloat16).double().numpy()
-    absdot = np.abs(ar) @ np.abs(br).T
-    if metric == "cosine":
-        e = 2 * (d - 1) * U * absdot + 2 * U
-    else:
-        na = np.sum(a.astype(np.float64) ** 2, axis=1)[:, None]
-        nb = np.sum(b.astype(np.float64) ** 2, axis=1)[None, :]
-        e = 2 * (d + 2) * U * (na + nb + 2 * absdot)
-        if metric == "euclidean":
-            sq = np.maximum(na + nb - 2 * ar @ br.T, 0.0)
-            e = 2 * e / np.sqrt(np.maximum(sq, e)) + 2 * U * np.sqrt(sq)
-    i, j = np.arange(la)[:, None], np.arange(lb)[None, :]
-    if band is None:
-        valid = np.ones((la, lb), bool)
-    elif band_mode == "diag":
-        valid = np.abs(j * (la - 1) - i * (lb - 1)) <= max(band, 1) * max(la - 1, lb - 1)
-    else:
-        valid = np.abs(i - j) <= max(band, abs(la - lb))
-    prev = np.full(lb + 1, -np.inf)          # prev[j + 1]: the row above; prev[0] the origin's
-    prev[0] = 0.0
-    for r in range(la):
-        cols = np.nonzero(valid[r])[0]
-        cur = np.full(lb + 1, -np.inf)
-        if len(cols):
-            lo, hi = cols[0], cols[-1]
-            up = np.maximum(prev[lo:hi + 1], prev[lo + 1:hi + 2])
-            run = np.cumsum(e[r, lo:hi + 1])
-            cur[lo + 1:hi + 2] = run + np.maximum.accumulate(up - np.concatenate([[0.0], run[:-1]]))
-        prev = cur
-        prev[0] = -np.inf
-    tol = float(prev[lb])
+        a = a / torch.clamp(torch.linalg.vector_norm(a, dim=-1, keepdim=True), min=1e-12)
+        b = b / torch.clamp(torch.linalg.vector_norm(b, dim=-1, keepdim=True), min=1e-12)
+    na, nb = torch.sum(a.double() ** 2, dim=-1), torch.sum(b.double() ** 2, dim=-1)
+    ar, br = a.to(torch.bfloat16).double(), b.to(torch.bfloat16).double()
+    abs_bt, bt = br.abs().transpose(1, 2), br.transpose(1, 2)
+    la, lb = la.long().to(dev), lb.long().to(dev)
+    pw = torch.clamp((la - lb).abs(), min=0 if band is None else int(band))
+    den, num = la - 1, lb - 1
+    thresh = max(int(band or 0), 1) * torch.maximum(den, num)
+    cols = torch.arange(M, device=dev)
+    ninf = torch.full((P, 1), -math.inf, dtype=torch.float64, device=dev)
+    prev = torch.cat([torch.zeros_like(ninf), ninf.expand(P, M)], dim=1)
+    path = torch.zeros(P, dtype=torch.float64, device=dev)
+    n_rows = int(la.max())
+    for r0 in range(0, n_rows, 32):
+        # A chunk of rows at once: each row's cell bounds e, zero outside
+        # its run, their prefix sums along the row and the run itself.
+        r = torch.arange(r0, min(r0 + 32, n_rows), device=dev)
+        absdot = torch.bmm(ar[:, r].abs(), abs_bt)
+        if metric == "cosine":
+            e = 2 * (d - 1) * unit * absdot + 2 * unit
+        else:
+            e = 2 * (d + 2) * unit * (na[:, r, None] + nb[:, None] + 2 * absdot)
+            if metric == "euclidean":
+                sq = torch.clamp(na[:, r, None] + nb[:, None] - 2 * torch.bmm(ar[:, r], bt),
+                                 min=0.0)
+                e = 2 * e / torch.sqrt(torch.maximum(sq, e)) + 2 * unit * torch.sqrt(sq)
+        ri = r[None, :]
+        lo, hi = torch.zeros_like(ri).expand(P, -1), (lb - 1)[:, None].expand(-1, len(r))
+        if band is not None and band_mode == "diag":
+            d1 = den.clamp(min=1)[:, None]
+            lo = torch.where(den[:, None] > 0,
+                             -torch.div(thresh[:, None] - ri * num[:, None], d1,
+                                        rounding_mode="floor"), lo)
+            hi = torch.where(den[:, None] > 0,
+                             torch.div(ri * num[:, None] + thresh[:, None], d1,
+                                       rounding_mode="floor"), hi)
+        elif band is not None:
+            lo, hi = ri - pw[:, None], ri + pw[:, None]
+        lo, hi = lo.clamp(min=0)[..., None], torch.minimum(hi, (lb - 1)[:, None])[..., None]
+        runs = (cols >= lo) & (cols <= hi) & (ri < la[:, None])[..., None]
+        e = torch.where(runs, e, 0.0)
+        s_full = torch.cumsum(e, dim=2)
+        s_prev = s_full - e
+        for i in range(len(r)):
+            run = runs[:, i]
+            up = torch.maximum(prev[:, :-1], prev[:, 1:])
+            best = torch.cummax(torch.where(run, up - s_prev[:, i], -math.inf), dim=1).values
+            prev = torch.cat([ninf, torch.where(run, s_full[:, i] + best, -math.inf)], dim=1)
+            path = torch.where(la - 1 == r0 + i, prev.gather(1, lb[:, None])[:, 0], path)
     if normalize == "path_len":
-        tol /= la + lb
-    return tol + 2 * (la + lb) * U * abs(want)
+        path = path / (la + lb)
+    return path + 2 * (la + lb) * unit * torch.as_tensor(want, device=dev).double().abs()
+
+
+# Each Gram check's readings this run: tag -> (the largest absolute
+# difference from the twin, the largest share of a pair's derived bound).
+GRAM_READINGS: dict[str, tuple[float, float]] = {}
+
+
+def gram_agree(tag: str, got, want, a, b, la, lb, **kw) -> float:
+    """K8's Gram instantiation against its twin pair by pair within the
+    derived bound (``bf16_pair_bounds``, 2^-23 an addition): fails unless
+    +inf sits in the same places, no entry is NaN and every finite pair is
+    within its bound.  Records the reading; returns the max abs error."""
+    got, want = got.to(a.device), want.to(a.device)
+    inf_g, inf_w = torch.isinf(got), torch.isinf(want)
+    if not bool((inf_g == inf_w).all()) or bool(torch.isnan(got).any()):
+        fail(f"{tag}: +inf in {int(inf_g.sum())} kernel entries, {int(inf_w.sum())} twin "
+             f"entries, NaN in {int(torch.isnan(got).sum())}")
+    fin = ~inf_w
+    if not bool(fin.any()):
+        GRAM_READINGS[tag] = (0.0, 0.0)
+        return 0.0
+    tol = bf16_pair_bounds(a[fin], b[fin], la[fin], lb[fin], want=want[fin], **kw)
+    err = (got[fin].double() - want[fin].double()).abs()
+    share = err / tol
+    if bool((err > tol).any()):
+        worst = int(torch.argmax(share))
+        fail(f"{tag}: kernel and twin differ by {float(err[worst]):.4g} on a pair whose derived "
+             f"bound is {float(tol[worst]):.4g} ({int((err > tol).sum())} pairs past theirs)")
+    GRAM_READINGS[tag] = (float(err.max()), float(share.max()))
+    return float(err.max())
 
 
 def k8_bf16_check(tag: str, args, **kw) -> tuple[float, float]:
-    """K8's Gram instantiation against its twin on the card: the max abs
-    error and the twin's ms."""
+    """K8's Gram instantiation against its twin on the card, pair by pair
+    within the derived bound (``gram_agree``): the max abs error and the
+    twin's ms."""
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
 
     n0 = dtw_long_batch.launches
@@ -3098,28 +3179,67 @@ def k8_bf16_check(tag: str, args, **kw) -> tuple[float, float]:
     want = dtw_long_batch_ref(*args, matmul_dtype="bfloat16", **kw)
     ev[1].record()
     torch.cuda.synchronize()
-    k8_reading(tag, got, want)
     f32 = dtw_long_batch(*args, **kw)
     fin = torch.isfinite(f32)
     if bool(fin.any()) and bool((got[fin] == f32[fin]).all()):
         fail(f"{tag}: the Gram instantiation gave the fp32 distances")
-    return agree(tag, got, want, K8_BF16_RTOL, K8_BF16_ATOL), ev[0].elapsed_time(ev[1])
+    bkw = {k: kw.get(k, dflt) for k, dflt in (("metric", "euclidean"), ("band", None),
+                                              ("band_mode", "widen"))}
+    return gram_agree(tag, got, want, *args, normalize="none", **bkw), ev[0].elapsed_time(ev[1])
+
+
+def gram_configs(tag: str, args, configs) -> dict:
+    """K8's Gram instantiation unbanded on the same pairs (blocks of 256)
+    under each (R, warps, stage_b) of ``configs``, in turns (in order, then
+    back, 3 calls each time): each one's ms per call, the distances bitwise
+    equal (each dot product is the same k-steps in the same order, whichever
+    tile holds it)."""
+    from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import INF
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import _launch_plan, _long_plan, gram_layout
+
+    a, b, la, lb = args
+    (xa, na), (xb, nb) = gram_layout(a), gram_layout(b)
+    idx = np.arange(len(la))
+    plan = _long_plan(idx, idx, la.cpu().numpy(), lb.cpu().numpy(), a.shape[1], b.shape[1], 256)
+    outs, times = {}, {}
+
+    def run(cfg):
+        out = torch.full((len(la),), INF, device=a.device)
+        _launch_plan(xa, xb, plan, out, BLK=256, J0=0, halo=None, metric="euclidean", band=None,
+                     auto_widen=True, band_mode="widen", config=cfg, norms=(na, nb))
+        return out
+
+    for cfg in (*configs, *configs[::-1]):
+        outs[cfg] = run(cfg)
+        cuda_ms(lambda: run(cfg), 3, per_call=times.setdefault(cfg, []))
+    if not all(torch.equal(outs[configs[0]], o) for o in outs.values()):
+        fail(f"{tag}: K8's Gram configurations {list(outs)} give different distances")
+    return times
 
 
 def phase31(dev, tmp: Path, keep: dict) -> dict:
-    """dtw.dtype=bfloat16 on the card: K8's Gram instantiation against its
-    twin (64 pairs at S=8192 unbanded, widen 16 and diag 16 at d=16; d=64
-    and cosine at S=2048), timed beside the fp32 instantiation at 512 pairs
-    of bucket 8192; ``all_pairs_distances`` on phase 28's features with
-    dtype bfloat16 (the main path of the Gram instantiation: its launches
-    counted from 0), 8 pairs against the twin on the card and the 3 shortest
-    segments' pairs against the CPU port; the seed-7 CLI with
+    """dtw.dtype=bfloat16 on the card: K8's Gram instantiation (its dot
+    products on the tensor cores) against its twin pair by pair within the
+    derived bound (``gram_agree``): 64 pairs at S=8192 unbanded, widen 16
+    and diag 16 at d=16; at S=2048 the three metrics, d=20 (padded to 32
+    channels), 64 and 128 (B through the cache), blocks of 64, lengths off
+    every multiple of 16, and pairs out of frame; the candidate tile configurations timed at the 64 pairs and at
+    512 pairs of bucket 8192, and the chosen one in turns with the fp32
+    instantiation at both; ``all_pairs_distances`` on phase 28's features
+    with dtype bfloat16 (the main path of the Gram instantiation: its
+    launches counted from 0), 8 pairs against the twin on the card and the
+    3 shortest segments' pairs against the CPU port; the seed-7 CLI with
     ``-s dtw.dtype=bfloat16 -s dtw.band=16`` (diag buckets of at most 1024
-    frames: K8's Gram instantiation on the card) on the card and on the
-    CPU, and that job again in this process."""
+    frames: K8's Gram instantiation on the card, blocks of 32 frames) on the
+    card and on the CPU, and that job again in this process."""
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
-    from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
+    from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
+        _gram_config,
+        dtw_long_batch,
+        dtw_long_batch_ref,
+        gram_channels,
+    )
     from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
     from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
 
@@ -3130,44 +3250,78 @@ def phase31(dev, tmp: Path, keep: dict) -> dict:
                      ("diag 16", dict(band=16, band_mode="diag"))):
         errs[mode], plain[mode] = k8_bf16_check(f"phase 31 (S={S}, {mode})", args, **kw)
     Sw = K8_SWEEP_S
-    errs["d=64"], _ = k8_bf16_check("phase 31 (d=64)", long_pairs(dev, 8, Sw, 64, Sw // 2,
-                                                                    seed=311))
-    errs["cosine"], _ = k8_bf16_check("phase 31 (cosine)", long_pairs(dev, 8, Sw, d, Sw // 2,
-                                                                       seed=312), metric="cosine")
+    done = []
+    for metric in ("euclidean", "sqeuclidean", "cosine"):
+        errs[metric], _ = k8_bf16_check(f"phase 31 ({metric})",
+                                        long_pairs(dev, 8, Sw, d, Sw // 2, seed=312), metric=metric)
+    for dd in (20, 64, 128):
+        nc4 = gram_channels(dd) // 8
+        R, warps, staged = _gram_config(nc4, 256)
+        errs[f"d={dd}"], _ = k8_bf16_check(f"phase 31 (d={dd})",
+                                           long_pairs(dev, 4, Sw, dd, Sw // 2, seed=311 + dd))
+        done.append(f"d={dd} ({gram_channels(dd)} channels, R={R}, {warps} warps, B "
+                    f"{'staged' if staged else 'cached'})")
+    # Blocks of 64 frames: the instantiation of two rows a lane.
+    errs["block 64"], _ = k8_bf16_check("phase 31 (block 64)",
+                                        long_pairs(dev, 8, Sw, d, Sw // 2, seed=377), block=64,
+                                        band=16, band_mode="diag")
+    # Lengths off every multiple of 16 (so no chunk, tile or block is
+    # whole), and out of frame: an empty side or a side past S (+inf).
+    a, b, _, _ = long_pairs(dev, 8, Sw, d, 1, seed=314)
+    odd = (a, b, torch.tensor([2047, 1041, 1509, 1999, 0, 1000, Sw + 1, 77], dtype=torch.int32,
+                              device=dev),
+           torch.tensor([1025, 2033, 1777, 1283, 1000, 0, 1000, 1235], dtype=torch.int32,
+                        device=dev))
+    errs["odd lengths, out of frame"], _ = k8_bf16_check("phase 31 (odd lengths, out of frame)",
+                                                         odd)
+    if not bool(torch.isinf(dtw_long_batch(*odd, matmul_dtype="bfloat16")[4:7]).all()):
+        fail("phase 31: pairs with an empty side or a side past S did not come back +inf")
     res = {"max_abs_err": max(errs.values()), "plain_ms": plain["unbanded"]}
-    res["ms"] = cuda_ms(lambda: dtw_long_batch(*args, matmul_dtype="bfloat16"), 3)
     cells = float(pair_cells(args[2], args[3], "full").sum())
-    nbytes = pair_bytes(args[2], args[3], d + 1)        # frames and their norms
-    res["bound_ms"], res["bound_by"] = bound_gram(cells, d, nbytes)
-    readings = {k: v for k, v in K8_READINGS.items() if k.startswith("phase 31")}
-    log(f"phase 31: K8 (Gram) vs its twin: max abs err "
-        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (rtol {K8_BF16_RTOL:.3g}, "
-        f"atol {K8_BF16_ATOL}); largest relative difference per check (distances past 1): "
-        f"{json.dumps({k: float(f'{v:.3g}') for k, v in readings.items()})}")
-    log(f"phase 31: K8 (Gram) {res['ms']:.3f} ms/call on the 64 pairs ({cells:.4g} cells, "
-        f"{rate_line(res['ms'], cells, res['bound_ms'])} at {cell_ops_gram(d)} (fp32, "
-        f"bf16 tensor-core) ops a cell), "
-        f"plain {res['plain_ms']:.3f} ms/call")
-    del args
-    # 512 pairs of bucket 8192 (phase 27's launch size), unbanded: the Gram
-    # and the fp32 instantiations in turns.
+    res["bound_ms"], res["bound_by"] = bound_gram(cells, d, gram_pair_bytes(args[2], args[3], d))
+    log(f"phase 31: K8 (Gram, tensor cores) vs its twin pair by pair within the derived bound "
+        f"(2^-23 an addition): at S={Sw} {done}, blocks of 64 (diag 16), odd lengths and "
+        f"out-of-frame pairs (+inf) agree; per check (max abs err, largest share of a pair's "
+        f"bound): " + json.dumps({k[len("phase 31 ("):-1]: [float(f"{e:.3g}"), float(f"{f:.3g}")]
+                                  for k, (e, f) in GRAM_READINGS.items()}))
+    # The candidate tiles (R rows a lane: a [32R x 32] tile of dot products;
+    # B staged or cached) on the 64 pairs and on 512 pairs of bucket 8192
+    # (phase 27's launch size), unbanded, in turns.
     g = torch.Generator(device=dev).manual_seed(277)
     la = torch.randint(4097, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
     lb = torch.randint(S - 31, S + 1, (512,), generator=g, device=dev, dtype=torch.int32)
     big = (torch.randn((512, S, d), generator=g, device=dev),
            torch.randn((512, S, d), generator=g, device=dev), la, lb)
-    times: dict[str, list[float]] = {"bf16": [], "fp32": []}
-    for name in ("bf16", "fp32", "fp32", "bf16"):
-        mm = "bfloat16" if name == "bf16" else None
-        cuda_ms(lambda: dtw_long_batch(*big, matmul_dtype=mm), 3, per_call=times[name])
+    chosen = _gram_config(gram_channels(d) // 8, 256)
+    cands = (chosen, *(c for c in ((4, 2, True), (4, 2, False), (2, 4, True), (2, 4, False),
+                                   (1, 8, True)) if c != chosen))
     c512 = float(pair_cells(la, lb, "full").sum())
-    b16_ms, _ = bound_gram(c512, d, pair_bytes(la, lb, d + 1))
-    f32_ms, _ = bound(c512, d, pair_bytes(la, lb, d))
-    med = {k: sorted(t)[len(t) // 2] for k, t in times.items()}
-    log(f"phase 31: 512 pairs of bucket {S} (unbanded, in turns): K8 Gram {spread(times['bf16'])}, "
-        f"{b16_ms / med['bf16']:.1%} of its bound {b16_ms:.3f} ms; K8 fp32 "
-        f"{spread(times['fp32'])}, {f32_ms / med['fp32']:.1%} of its bound {f32_ms:.3f} ms")
-    del big
+    for name, pairs, c in (("the 64 pairs", args, cells), ("512 pairs of bucket 8192", big, c512)):
+        b_ms, _ = bound_gram(c, d, gram_pair_bytes(pairs[2], pairs[3], d))
+        ms = gram_configs(f"phase 31 ({name})", pairs, cands)
+        log(f"phase 31: K8 Gram candidates on {name}: " + "; ".join(
+            f"R={R} ({32 * R}-row tiles), {w} warps, B {'staged' if st else 'cached'}"
+            f"{' (chosen)' if (R, w, st) == chosen else ''} {spread(t)}, "
+            f"{b_ms / sorted(t)[len(t) // 2]:.1%} of the bound {b_ms:.3f} ms"
+            for (R, w, st), t in ms.items()))
+    # The chosen Gram instantiation and the fp32 one in turns, at both sizes.
+    for name, pairs, c in (("the 64 pairs", args, cells), ("512 pairs of bucket 8192", big, c512)):
+        times: dict[str, list[float]] = {"bf16": [], "fp32": []}
+        for kind in ("bf16", "fp32", "fp32", "bf16"):
+            mm = "bfloat16" if kind == "bf16" else None
+            cuda_ms(lambda: dtw_long_batch(*pairs, matmul_dtype=mm), 3, per_call=times[kind])
+        b16_ms, _ = bound_gram(c, d, gram_pair_bytes(pairs[2], pairs[3], d))
+        f32_ms, _ = bound(c, d, pair_bytes(pairs[2], pairs[3], d))
+        med = {k: sorted(t)[len(t) // 2] for k, t in times.items()}
+        if pairs is args:
+            res["ms"] = med["bf16"]
+        log(f"phase 31: {name} (unbanded, in turns): K8 Gram {spread(times['bf16'])}, "
+            f"{b16_ms / med['bf16']:.1%} of its bound {b16_ms:.3f} ms; K8 fp32 "
+            f"{spread(times['fp32'])}, {f32_ms / med['fp32']:.1%} of its bound {f32_ms:.3f} ms")
+    log(f"phase 31: K8 (Gram) {res['ms']:.3f} ms/call on the 64 pairs ({cells:.4g} cells, "
+        f"{rate_line(res['ms'], cells, res['bound_ms'])} at {cell_ops_gram(d)} (fp32, "
+        f"bf16 tensor-core) ops a cell), plain {res['plain_ms']:.3f} ms/call")
+    del args, big
     # The main path: all_pairs_distances on phase 28's features, bfloat16.
     if "features" not in keep:
         res28 = discover(long_units_corpus_28(tmp)[0], phase28_config(),
@@ -3196,25 +3350,27 @@ def phase31(dev, tmp: Path, keep: dict) -> dict:
     want = dtw_long_batch_ref(fd[ia], fd[ib], nd[ia], nd[ib], normalize="path_len",
                               matmul_dtype="bfloat16")
     got = torch.from_numpy(D[ia, ib]).to(dev)
-    k8_reading(tag, got, want)
-    err8 = agree(tag, got, want, K8_BF16_RTOL, K8_BF16_ATOL)
+    bkw = dict(metric="euclidean", band=None, band_mode="widen", normalize="path_len")
+    err8 = gram_agree(tag, got, want, fd[ia], fd[ib], nd[ia], nd[ib], **bkw)
     short = np.argsort(n, kind="stable")[:3]
     t0 = time.perf_counter()
     D_cpu = ps.all_pairs_distances(f[short], n[short], cfg, device="cpu")
     cpu_wall = time.perf_counter() - t0
     tag_cpu = "phase 31 (3 pairs vs the CPU port)"
-    k8_reading(tag_cpu, torch.from_numpy(D[np.ix_(short, short)]), torch.from_numpy(D_cpu))
-    err_cpu = agree(tag_cpu, torch.from_numpy(D[np.ix_(short, short)]), torch.from_numpy(D_cpu),
-                    K8_BF16_RTOL, K8_BF16_ATOL)
+    si, sj = (torch.from_numpy(short[x]).to(dev) for x in np.triu_indices(3, 1))
+    err_cpu = gram_agree(tag_cpu, torch.from_numpy(D[short[:, None], short][np.triu_indices(3, 1)]),
+                         torch.from_numpy(D_cpu[np.triu_indices(3, 1)]), fd[si], fd[sj], nd[si],
+                         nd[sj], **bkw)
     D32 = ps.all_pairs_distances(f, n, DTWConfig(band=None, max_seq_len=8192), device=dev)
     off = ~np.eye(len(n), dtype=bool)
     log(f"phase 31: all_pairs_distances on phase 28's features ({len(n)} segments of "
         f"{int(n.min())}-{int(n.max())} frames), dtype bfloat16: route {st['route']}, K8 Gram "
         f"{res['launches']} launches in {st['long_calls']} merged calls, "
         f"{st['kernel_s_by'].get('dtw_long_batch', 0.0):.4f} s of device time, wall {wall:.3f} s; "
-        f"8 distances vs the twin max abs err {err8:.3g} (relative {K8_READINGS[tag]:.3g}); the 3 "
-        f"shortest segments' pairs vs the CPU port ({cpu_wall:.1f} s) {err_cpu:.3g} (relative "
-        f"{K8_READINGS[tag_cpu]:.3g}); against the fp32 D: max relative difference "
+        f"8 distances vs the twin max abs err {err8:.3g} ({GRAM_READINGS[tag][1]:.3g} of its "
+        f"pair's bound at most); the 3 shortest segments' pairs vs the CPU port "
+        f"({cpu_wall:.1f} s) {err_cpu:.3g} ({GRAM_READINGS[tag_cpu][1]:.3g} of the bound); "
+        f"against the fp32 D: max relative difference "
         f"{float(np.max(np.abs(D - D32)[off] / D32[off])):.3g}")
     # The seed-7 CLI in bf16 with band 16: every bucket is a diag bucket of at
     # most 1024 frames, which K8's Gram instantiation takes on the card
@@ -3257,9 +3413,10 @@ def phase31(dev, tmp: Path, keep: dict) -> dict:
         dtw_batch(torch.from_numpy(f7[ii[s:s + 512]]), torch.from_numpy(f7[jj[s:s + 512]]),
                   torch.from_numpy(n7[ii[s:s + 512]]), torch.from_numpy(n7[jj[s:s + 512]]),
                   matmul_dtype="bfloat16", **kw7).numpy() for s in range(0, len(ii), 512)])
-    tol = np.array([bf16_pair_bound(f7[i, :n7[i]], f7[j, :n7[j]], dcfg.metric, 16,
-                                    dcfg.band_mode, dcfg.normalize, r)
-                    for i, j, r in zip(ii, jj, ref)])
+    f7d, n7d = torch.from_numpy(f7), torch.from_numpy(n7)
+    tol = bf16_pair_bounds(f7d[ii], f7d[jj], n7d[ii], n7d[jj], metric=dcfg.metric, band=16,
+                           band_mode=dcfg.band_mode, normalize=dcfg.normalize,
+                           want=torch.from_numpy(ref)).numpy()
     err7 = np.abs(Dc[ii, jj].astype(np.float64) - ref)
     if Dc.shape != (len(n7),) * 2 or not (err7 <= tol).all():
         worst = int(np.argmax(err7 - tol))
@@ -3692,6 +3849,21 @@ if (Path(tree) / "audio_pattern_discovery_tpu_torch" / "ops" / "dtw_long.py").ex
     k8["d28"] = all_pairs_distances(job["f"], job["n"], cfg28, device=dev, stats=st, tiled=False)
     res["d28_wall_s"] = time.perf_counter() - t0
     res["d28_k8_s"] = st["kernel_s_by"].get("dtw_long_batch", 0.0)
+    # K8's Gram instantiation where the tree has it, unbanded at d=16: 512
+    # pairs of bucket 8192 (phase 31's) and 64 pairs of S=8192; its
+    # distances on the 64 pairs.
+    if "matmul_dtype" in inspect.signature(dtw_long_batch).parameters:
+        gg = torch.Generator(device=dev).manual_seed(277)
+        la = torch.randint(4097, 8193, (512,), generator=gg, device=dev, dtype=torch.int32)
+        lb = torch.randint(8192 - 31, 8193, (512,), generator=gg, device=dev, dtype=torch.int32)
+        big = (torch.randn((512, 8192, 16), generator=gg, device=dev),
+               torch.randn((512, 8192, 16), generator=gg, device=dev), la, lb)
+        res["gram512_ms"] = ms(lambda: dtw_long_batch(*big, matmul_dtype="bfloat16"), 3)
+        res["fp32_512_ms"] = ms(lambda: dtw_long_batch(*big), 3)
+        small = tuple(x[:64] for x in big)
+        k8["gram64"] = dtw_long_batch(*small, matmul_dtype="bfloat16").cpu().numpy()
+        res["gram64_ms"] = ms(lambda: dtw_long_batch(*small, matmul_dtype="bfloat16"), 3)
+        del big, small
 np.savez(out, k1=k1, k2=k2, k4=k4, k5=k5, D=D, k3=k3, k7=k7, **k6, **k8)
 print(json.dumps(res))
 """
@@ -3810,6 +3982,16 @@ def against(other: Path) -> None:
             got = [f"{r[0][key]:.3f}" if key in r[0] else "absent" for r in runs]
             log(f"against: {key[:2].upper()} {shape}: other {got[0]} / {got[3]} ms, this "
                 f"{got[1]} / {got[2]} ms")
+        # The Gram instantiation changed in this checkout: its distances
+        # bitwise across this checkout's two runs only.
+        if "gram64" in runs[1][1] and not np.array_equal(runs[1][1]["gram64"],
+                                                         runs[2][1]["gram64"]):
+            fail("--against: K8's Gram distances differ between this checkout's runs")
+        for key, what in (("gram512_ms", "K8 Gram at 512 pairs of bucket 8192 (unbanded, d=16)"),
+                          ("fp32_512_ms", "K8 fp32 at the same 512 pairs"),
+                          ("gram64_ms", "K8 Gram at 64 of them")):
+            got = [f"{r[0][key]:.3f}" if key in r[0] else "absent" for r in runs]
+            log(f"against: {what}: other {got[0]} / {got[3]} ms, this {got[1]} / {got[2]} ms")
         for key, what in (("d28_wall_s", "wall"), ("d28_k8_s", "K8 device time")):
             got = [f"{r[0][key]:.4f}" if key in r[0] else "absent" for r in runs]
             log(f"against: phase 28's unbanded job per pair, {what}: other {got[0]} / {got[3]} s, "
