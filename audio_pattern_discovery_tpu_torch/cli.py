@@ -20,7 +20,7 @@ import sys
 from pathlib import Path
 
 from audio_pattern_discovery_tpu_torch.config import PipelineConfig
-from audio_pattern_discovery_tpu_torch.utils.logging import get_logger
+from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE, get_logger
 
 
 def _parse_override(kv: str):
@@ -189,6 +189,8 @@ def main(argv: list[str] | None = None) -> int:
                 "n_clusters": len(result.clusters),
                 "timings_s": result.counters.timings_s,
                 "counts": result.counters.counts,
+                "first_use_s": FIRST_USE.timings_s,
+                "first_use_counts": FIRST_USE.counts,
             },
             indent=2,
         )

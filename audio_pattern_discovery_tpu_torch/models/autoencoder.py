@@ -36,6 +36,7 @@ stores them under flax's leaf names and layout.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from functools import partial
 
@@ -46,6 +47,8 @@ from torch import nn
 
 from audio_pattern_discovery_tpu_torch.config import AutoencoderConfig
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
+from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE, StageCounters
+from audio_pattern_discovery_tpu_torch.utils.profiling import annotate
 
 _ACTS = {"relu": F.relu, "tanh": torch.tanh, "gelu": partial(F.gelu, approximate="tanh")}
 
@@ -187,8 +190,11 @@ def init_state(
     model = create_model(cfg, input_dim)
     model.load_state_dict(init_params(model, cfg.seed) if params is None else params)
     model.to(device)
-    tx = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate, betas=ADAM_BETAS,
-                          eps=ADAM_EPS)
+    # The process's first optimizer imports torch._dynamo (torch.optim's
+    # add_param_group is wrapped by torch._disable_dynamo): seconds, once.
+    with FIRST_USE.first_use("optimizer_first_use"):
+        tx = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate, betas=ADAM_BETAS,
+                              eps=ADAM_EPS)
     zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     load_adam_state(model, tx, {"count": 0, "mu": zeros, "nu": zeros})
     return model, state_of(model, tx, 0), tx
@@ -311,6 +317,7 @@ def train_autoencoder(
     device: torch.device | str = "cuda",
     data_sharding=None,
     param_shardings=None,
+    counters: StageCounters | None = None,
 ) -> tuple[AutoEncoder, TrainState, list]:
     """Train on spectrogram frames on ``device``; returns (model, state,
     per-epoch losses), each epoch's loss the mean of its steps' losses.
@@ -332,7 +339,14 @@ def train_autoencoder(
     device.  ``param_shardings``: a callable from the parameters to their
     layout (``parallel.mesh.ae_param_sharding``): each layer's output
     columns over the model axis.  The returned parameters are the whole
-    ones, on the first device."""
+    ones, on the first device.
+
+    ``counters``: the steps' host seconds go to
+    ``timings_s["autoencoder_train.steps"]``, from the first step's enqueue
+    to the losses on the host (with ``sync_losses=False``, to the last
+    enqueue: ``"autoencoder_train.steps_enqueued"``), and their number
+    (epochs x batches) to ``counts["ae_steps"]``.  Under a profiler each
+    step is a range ``apd.ae.step``."""
     rows = None
     if data_sharding is not None:
         grid = data_sharding.mesh.devices
@@ -361,26 +375,33 @@ def train_autoencoder(
 
     shuffle_rng = np.random.default_rng(cfg.seed)
     loss_futs: list[torch.Tensor] = []
-    for epoch in range(cfg.epochs):
-        perm = shuffle_rng.permutation(n)[: n_batches * bs].reshape(n_batches, bs)
-        step_losses = []
-        for idx in torch.from_numpy(perm).to(device):
-            batch = frames_dev[idx]
-            noise = None
-            if noise_gen is not None:
-                noise = cfg.denoising_std * torch.randn(
-                    batch.shape, generator=noise_gen, device=device)
-            if rows is None:
-                step_losses.append(train_step(model, tx, batch, noise))
-            else:
-                noisy = batch if noise is None else batch + noise
-                step_losses.append(_mesh_step(model, tx, rows, specs, batch, noisy))
-        epoch_loss = torch.stack(step_losses).mean()
-        if log_every and logger and (epoch + 1) % log_every == 0:
-            # Sync only when asked to log; otherwise epochs stay in flight.
-            logger.info(f"AE epoch {epoch + 1}/{cfg.epochs} loss={float(epoch_loss):.5f}")
-        loss_futs.append(epoch_loss)
-    losses = torch.stack(loss_futs).tolist() if sync_losses and loss_futs else loss_futs
+    steps = nullcontext()
+    if counters is not None:
+        counters.add("ae_steps", cfg.epochs * n_batches)
+        steps = counters.time_stage(
+            "autoencoder_train.steps" if sync_losses else "autoencoder_train.steps_enqueued")
+    with steps:
+        for epoch in range(cfg.epochs):
+            perm = shuffle_rng.permutation(n)[: n_batches * bs].reshape(n_batches, bs)
+            step_losses = []
+            for idx in torch.from_numpy(perm).to(device):
+                with annotate("apd.ae.step"):
+                    batch = frames_dev[idx]
+                    noise = None
+                    if noise_gen is not None:
+                        noise = cfg.denoising_std * torch.randn(
+                            batch.shape, generator=noise_gen, device=device)
+                    if rows is None:
+                        step_losses.append(train_step(model, tx, batch, noise))
+                    else:
+                        noisy = batch if noise is None else batch + noise
+                        step_losses.append(_mesh_step(model, tx, rows, specs, batch, noisy))
+            epoch_loss = torch.stack(step_losses).mean()
+            if log_every and logger and (epoch + 1) % log_every == 0:
+                # Sync only when asked to log; otherwise epochs stay in flight.
+                logger.info(f"AE epoch {epoch + 1}/{cfg.epochs} loss={float(epoch_loss):.5f}")
+            loss_futs.append(epoch_loss)
+        losses = torch.stack(loss_futs).tolist() if sync_losses and loss_futs else loss_futs
     return model, state_of(model, tx, cfg.epochs * n_batches), losses
 
 

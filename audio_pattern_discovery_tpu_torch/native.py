@@ -5,10 +5,11 @@ edited) into this package's own ``build/libapd_native.so`` at first use and
 loads it.  The build tries ``-fopenmp`` first and, where that fails (a
 compiler without libgomp), builds again without it: the source guards every
 OpenMP use with ``#ifdef _OPENMP``, so that library is the same code,
-single-threaded.  ``openmp`` records which library was loaded.  No
-``-march=native``, so a library built on one host runs on another.  Every
-binding has a pure-Python fallback elsewhere in the package, so the
-framework still runs without a compiler.
+single-threaded.  ``openmp`` records which library was loaded, and
+``utils/logging.FIRST_USE`` the seconds (``native_load``, with
+``native_load.build`` when it built).  No ``-march=native``, so a library
+built on one host runs on another.  Every binding has a pure-Python fallback
+elsewhere in the package, so the framework still runs without a compiler.
 
 The bindings are a copy of ``audio_pattern_discovery_tpu/native.py``.
 """
@@ -21,6 +22,8 @@ import subprocess
 from pathlib import Path
 
 import numpy as np
+
+from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE
 
 _SRC = Path(__file__).resolve().parent.parent / "native" / "apd_native.cc"
 LIB_PATH = Path(__file__).resolve().parent / "build" / "libapd_native.so"
@@ -69,12 +72,15 @@ def get_lib() -> ctypes.CDLL | None:
         except OSError:
             return None
 
-    fresh = LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime
-    lib = load() if fresh else None
-    # A library that is missing, stale or does not load here (built on
-    # another host) is built again.
-    if lib is None and (build_library(LIB_PATH) or build_library(LIB_PATH, use_openmp=False)):
-        lib = load()
+    with FIRST_USE.time_stage("native_load"):
+        fresh = LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime
+        lib = load() if fresh else None
+        # A library that is missing, stale or does not load here (built on
+        # another host) is built again.
+        if lib is None:
+            with FIRST_USE.time_stage("native_load.build"):
+                built = build_library(LIB_PATH) or build_library(LIB_PATH, use_openmp=False)
+            lib = load() if built else None
     if lib is None:
         _load_failed = True
         return None

@@ -5,6 +5,12 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point; it is compiled with
 listed in ``.gitignore``) and loaded with ctypes.  A library is rebuilt when
 its source, or any header ``csrc/*.cuh``, is newer than the built file.  Nothing here runs at import time:
 the CPU-only test host has no ``nvcc``.
+
+The process's record of what this cost is ``utils/logging.FIRST_USE``:
+``kernel_build`` (the wall of each batch of compilers), ``kernel_build.<name>``
+(from the batch's start until that library's compiler was collected), the
+count ``kernel_builds``, and ``kernel_load`` with ``kernel_load.<name>``
+(each library's ``dlopen``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -27,10 +35,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> (seconds, ptxas report) of the build this process ran, if any;
-# builds started together each report the seconds from their common start
-# until their compiler was collected.
-build_info: dict[str, tuple[float, str]] = {}
+# name -> ptxas report (registers, spills, shared memory) of the build this
+# process ran, if any; its seconds are FIRST_USE's "kernel_build.<name>".
+build_info: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -76,25 +83,31 @@ def load_all(names: list[str]) -> dict[str, ctypes.CDLL]:
         if stale:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
-            t0 = time.perf_counter()
-            procs = []
-            for name, src, so in stale:
-                tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-                procs.append((name, src, so, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-            failed = []
-            for name, src, so, tmp, proc in procs:
-                _, err = proc.communicate()
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed building {src.name} (exit "
-                                  f"{proc.returncode}):\n{err[-4000:]}")
-                    continue
-                os.replace(tmp, so)
-                build_info[name] = (time.perf_counter() - t0, err.strip())
+            with FIRST_USE.time_stage("kernel_build"):
+                t0 = time.perf_counter()
+                procs = []
+                for name, src, so in stale:
+                    tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
+                    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                    procs.append((name, src, so, tmp, subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+                failed = []
+                for name, src, so, tmp, proc in procs:
+                    _, err = proc.communicate()
+                    if proc.returncode != 0:
+                        failed.append(f"nvcc failed building {src.name} (exit "
+                                      f"{proc.returncode}):\n{err[-4000:]}")
+                        continue
+                    os.replace(tmp, so)
+                    build_info[name] = err.strip()
+                    FIRST_USE.timings_s[f"kernel_build.{name}"] = time.perf_counter() - t0
+                    FIRST_USE.add("kernel_builds")
             if failed:
                 raise RuntimeError("\n".join(failed))
-        for name in names:
-            if name not in _libs:
-                _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        unloaded = [name for name in names if name not in _libs]
+        if unloaded:
+            with FIRST_USE.time_stage("kernel_load"):
+                for name in unloaded:
+                    with FIRST_USE.time_stage(f"kernel_load.{name}"):
+                        _libs[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
         return {name: _libs[name] for name in names}

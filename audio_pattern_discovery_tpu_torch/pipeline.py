@@ -610,7 +610,7 @@ def discover(
             scaler1 = FeatureScaler.fit(flat1)
             pre_train = (
                 _train_in_background(scaler1.transform(flat1).astype(np.float32), ae, device,
-                                     ae_mesh),
+                                     ae_mesh, counters),
                 scaler1,
             )
             counters.add("ae_train_frames", len(flat1))
@@ -707,25 +707,28 @@ def discover(
                             "would shift every embedding — run a full "
                             "discovery instead"
                         )
-                    scaler = FeatureScaler.fit(
-                        _flat_frames(seg_frames, seg_lengths, len(segments), ctx))
+                    flat = _flat_frames(seg_frames, seg_lengths, len(segments), ctx)
+                    with counters.time_stage("autoencoder_train.scaler_fit"):
+                        scaler = FeatureScaler.fit(flat)
                 log.info(f"restored AE checkpoint from {restore_dir}")
                 if ckpt_dir is not None and ckpt_dir.resolve() != restore_dir.resolve():
                     ckpt.save_ae_checkpoint(ckpt_dir, state, scaler)
             else:
                 if pre_train is not None:
                     # Launched mid-corpus: this stage times only the drain;
-                    # epochs already done beside phase 2 cost nothing here.
+                    # epochs already done beside phase 2 cost nothing here
+                    # (their enqueue is "autoencoder_train.steps_enqueued").
                     future, scaler = pre_train
                     model, state, loss_futs = future.result()
                     ae_losses = torch.stack(loss_futs).tolist() if loss_futs else []
                 else:
                     flat = _flat_frames(seg_frames, seg_lengths, len(segments), ctx)
-                    scaler = FeatureScaler.fit(flat)
+                    with counters.time_stage("autoencoder_train.scaler_fit"):
+                        scaler = FeatureScaler.fit(flat)
                     counters.add("ae_train_frames", len(flat))
                     model, state, ae_losses = train_autoencoder(
                         scaler.transform(flat).astype(np.float32), ae, logger=log,
-                        device=device, **ae_mesh,
+                        device=device, counters=counters, **ae_mesh,
                     )
                 if ckpt_dir is not None:
                     ckpt.save_ae_checkpoint(ckpt_dir, state, scaler)
@@ -829,13 +832,17 @@ def discover(
         counters=counters,
     )
     if out_dir is not None:
-        write_artifacts(result, out_dir, log)
+        # The manifest is written inside this stage, so it cannot hold its
+        # seconds; the CLI's summary and the worker's reply do.
+        with counters.time_stage("write_artifacts"):
+            write_artifacts(result, out_dir, log)
     return result
 
 
-def _train_in_background(frames: np.ndarray, cfg, device: torch.device, ae_mesh: dict):
+def _train_in_background(frames: np.ndarray, cfg, device: torch.device, ae_mesh: dict,
+                         counters: StageCounters):
     """Start ``train_autoencoder(frames, cfg, sync_losses=False, **ae_mesh)``
-    on a worker thread and return its future.  On the card the thread queues its
+    on a worker thread, recording into ``counters``, and return its future.  On the card the thread queues its
     work on a stream of its own and waits for that stream before it
     returns, so once the future is done its tensors are ready on every
     stream."""
@@ -843,7 +850,8 @@ def _train_in_background(frames: np.ndarray, cfg, device: torch.device, ae_mesh:
 
     def run():
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            out = train_autoencoder(frames, cfg, sync_losses=False, device=device, **ae_mesh)
+            out = train_autoencoder(frames, cfg, sync_losses=False, device=device,
+                                    counters=counters, **ae_mesh)
         if stream is not None:
             stream.synchronize()
         return out

@@ -88,7 +88,9 @@ def query_corpus(
 ) -> dict:
     """Rank a prior run's corpus segments by DTW distance to each segment
     of the query WAV(s) on ``device`` (the card unless the caller asks for
-    the CPU).  Returns a JSON-serializable report."""
+    the CPU).  Returns a JSON-serializable report, with the query's stage
+    seconds and counts (``timings_s``: index_load, ingest, spectrogram,
+    segmentation, embedding, dtw; ``counts``)."""
     from audio_pattern_discovery_tpu_torch.models.autoencoder import encode_frames
     from audio_pattern_discovery_tpu_torch.models.pca import encode_pca
     from audio_pattern_discovery_tpu_torch.ops.context import stack_context_device
@@ -106,8 +108,10 @@ def query_corpus(
     cfg = (config or PipelineConfig()).validate()
     device = resolve_device(device)
     log = logger or get_logger()
+    counters = StageCounters()
     prior = Path(prior_out_dir)
-    state, D_old = _load_update_state(prior)
+    with counters.time_stage("index_load"):
+        state, D_old = _load_update_state(prior)
     _check_band_mode(state, cfg, "query")
     if state["feature_fingerprint"] != _feature_fingerprint(cfg):
         raise ValueError(
@@ -128,15 +132,17 @@ def query_corpus(
     for p in qpaths:
         if not p.exists():
             raise FileNotFoundError(f"query wav not found: {p}")
-    stream = StreamingCorpus(
-        stored[0].parent,
-        paths=stored + qpaths,
-        resample_to=(
-            cfg.spectrogram.sample_rate
-            if cfg.spectrogram.resample == "auto"
-            else None
-        ),
-    )
+    with counters.time_stage("ingest"):
+        stream = StreamingCorpus(
+            stored[0].parent,
+            paths=stored + qpaths,
+            resample_to=(
+                cfg.spectrogram.sample_rate
+                if cfg.spectrogram.resample == "auto"
+                else None
+            ),
+        )
+    counters.add("clips", len(stream))
 
     # win/hop are in samples: a query at another rate than the indexed
     # corpus lands on another time/frequency scale, so it is refused (with
@@ -159,7 +165,7 @@ def query_corpus(
 
     # The one linear-stage derivation shared with discover().
     _, _, segments, seg_frames, seg_frames_dev, seg_lengths = _prepare_corpus(
-        cfg, stream, StageCounters(), log, device
+        cfg, stream, counters, log, device
     )
     try:
         k_old = _validate_prior_segments(state, segments)
@@ -172,27 +178,34 @@ def query_corpus(
             "segmentation config or check the recording level"
         )
 
+    counters.add("segments", len(segments))
+    counters.add("query_segments", len(q_segments))
+
     # Context stacking as in discover(): the fingerprint carries
     # context_frames, so a context-built index is queried with the same k.
+    # The embedder is restored and run; on the card its kernels are only
+    # queued here and finish in "dtw", which ends in D on the host.
     ctx = ae.context_frames if ae.enabled else 0
-    src = stack_context_device(seg_frames_dev, seg_lengths, ctx)
-    if ae.enabled and ae.method == "pca":
-        pca_state, scaler = ckpt.restore_pca_checkpoint(ckpt_dir)
-        features = encode_pca(pca_state, scaler.transform(src))
-    elif ae.enabled:
-        model, ae_state, scaler = ckpt.restore_ae_checkpoint(
-            ckpt_dir, ae, seg_frames.shape[-1] * (2 * ctx + 1), device=device
-        )
-        if scaler is None:
-            raise ValueError("query: the indexed checkpoint has no saved feature scaler")
-        features = encode_frames(model, ae_state.params, scaler.transform(src))
-    else:
-        features = seg_frames_dev
-    del src, seg_frames_dev
+    with counters.time_stage("embedding"):
+        src = stack_context_device(seg_frames_dev, seg_lengths, ctx)
+        if ae.enabled and ae.method == "pca":
+            pca_state, scaler = ckpt.restore_pca_checkpoint(ckpt_dir)
+            features = encode_pca(pca_state, scaler.transform(src))
+        elif ae.enabled:
+            model, ae_state, scaler = ckpt.restore_ae_checkpoint(
+                ckpt_dir, ae, seg_frames.shape[-1] * (2 * ctx + 1), device=device
+            )
+            if scaler is None:
+                raise ValueError("query: the indexed checkpoint has no saved feature scaler")
+            features = encode_frames(model, ae_state.params, scaler.transform(src))
+        else:
+            features = seg_frames_dev
+        del src, seg_frames_dev
 
-    spot_check_prior_distances(features, seg_lengths, cfg.dtw, D_old, k_old)
-    D = all_pairs_distances(features, seg_lengths, cfg.dtw, known=(k_old, D_old),
-                            device=device)
+    with counters.time_stage("dtw"):
+        spot_check_prior_distances(features, seg_lengths, cfg.dtw, D_old, k_old)
+        D = all_pairs_distances(features, seg_lengths, cfg.dtw, known=(k_old, D_old),
+                                device=device)
     log.info(f"query: {len(q_segments)} query segment(s) against {k_old} corpus segments")
 
     # Cluster ids from the indexed manifest (segments the prior run dropped
@@ -240,4 +253,6 @@ def query_corpus(
         "n_corpus_segments": k_old,
         "n_query_segments": len(q_segments),
         "queries": queries,
+        "timings_s": counters.timings_s,
+        "counts": counters.counts,
     }

@@ -27,7 +27,8 @@ Requests (all fields beyond "cmd" optional unless noted):
 
 Responses: {"ok": true, "result": ...} or {"ok": false, "error": "...",
 "traceback": "..."}.  ``doctor`` answers ``utils/doctor.run_doctor``'s
-report (the device probes only with ``"probe_device": true``).  Requests
+report (the device probes only with ``"probe_device": true``), whose
+``first_use_s`` says what the worker has paid once.  Requests
 are served strictly one at a time on
 the device the server was started with, so two device jobs never run
 together.  A request that fails with a Python exception leaves the worker

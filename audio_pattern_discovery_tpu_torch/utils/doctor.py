@@ -4,9 +4,10 @@ Port of ``audio_pattern_discovery_tpu/utils/doctor.py``.  When a run is
 slow, the first question is whether the machine or the code changed; the
 doctor reads the quantities the port's performance depends on in one
 command: the versions, the host, the native library, the kernel build
-(``ops/_build.py``'s nvcc and the libraries it built) and, on the card, its
-properties and three probes: a launch's round trip, the device memory's
-copy bandwidth and the host-to-device upload rate.
+(``ops/_build.py``'s nvcc and the libraries it built), what this process
+has paid once (``first_use_s``, ``first_use_counts``: ``utils/logging.FIRST_USE``)
+and, on the card, its properties and three probes: a launch's round trip,
+the device memory's copy bandwidth and the host-to-device upload rate.
 
 Every probe is individually guarded: a missing card, compiler or native
 library degrades that one entry to an "error" string, never the whole
@@ -167,6 +168,13 @@ def run_doctor(probe_device: bool = True, hbm_mb: int = 64) -> dict:
             if k in os.environ
         },
     }
+    # What this process has paid once (kernel builds and loads, the native
+    # library, the optimizer's first use): why a worker's first request was
+    # slow, and whether a kernel was rebuilt.
+    from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE
+
+    report["first_use_s"] = dict(FIRST_USE.timings_s)
+    report["first_use_counts"] = dict(FIRST_USE.counts)
     if probe_device:
         report["device"] = _guard(lambda: _device_probes(hbm_mb))
     return report

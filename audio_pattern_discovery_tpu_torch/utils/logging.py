@@ -4,7 +4,19 @@ The reference logs via stdout prints; the rebuild emits JSON-lines records
 with per-stage counters (clips, frames, segments, pairs/sec, cluster count)
 suitable for machine scraping and the bench harness.
 
-Copy of ``audio_pattern_discovery_tpu/utils/logging.py``; only the import paths differ.
+Port of ``audio_pattern_discovery_tpu/utils/logging.py``.  Beyond the
+reference, a stage timer also opens a range ``apd.<key>`` on the timeline
+of an active ``torch.profiler`` (``utils/profiling.annotate``), and
+``FIRST_USE`` is the process's record of one-time costs: kernel builds and
+loads, the native library, the optimizer's first construction.
+
+Keys are dotted by nesting: ``a.b`` is timed inside ``a``, so a stage's
+self time is its seconds less its children's.  Children that run side by
+side (``kernel_build.<name>``, one compiler each) each stay within their
+parent, but their sum may exceed it.  One child runs before its parent:
+on the two-phase path ``autoencoder_train.steps_enqueued`` is timed on a
+worker thread beside the spectrograms, and ``autoencoder_train`` then
+times only the drain.
 """
 
 from __future__ import annotations
@@ -13,8 +25,11 @@ import json
 import logging
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any
+
+from audio_pattern_discovery_tpu_torch.utils.profiling import annotate
 
 
 class _JsonFormatter(logging.Formatter):
@@ -63,21 +78,30 @@ class StageCounters:
     def add(self, key: str, value: float = 1.0) -> None:
         self.counts[key] = self.counts.get(key, 0.0) + value
 
+    @contextmanager
     def time_stage(self, key: str):
-        counters = self
+        """Add the enclosed region's host seconds to ``timings_s[key]``; while
+        a profiler records, also a range ``apd.<key>`` around it."""
+        t0 = time.perf_counter()
+        try:
+            with annotate(f"apd.{key}"):
+                yield
+        finally:
+            self.timings_s[key] = self.timings_s.get(key, 0.0) + (time.perf_counter() - t0)
 
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
-
-            def __exit__(self, *exc):
-                counters.timings_s[key] = counters.timings_s.get(key, 0.0) + (
-                    time.perf_counter() - self.t0
-                )
-                return False
-
-        return _Ctx()
+    def first_use(self, key: str):
+        """``time_stage(key)`` the first time ``key`` is entered; a null
+        context once it has seconds."""
+        return nullcontext() if key in self.timings_s else self.time_stage(key)
 
     def to_dict(self) -> dict[str, Any]:
         return {"counts": dict(self.counts), "timings_s": dict(self.timings_s)}
+
+
+# The process's one-time costs: ``kernel_build`` (with ``kernel_build.<name>``
+# and the count ``kernel_builds``) and ``kernel_load`` (with
+# ``kernel_load.<name>``) in ``ops/_build.py``, ``native_load`` (with
+# ``native_load.build``) in ``native.py``, ``optimizer_first_use`` in
+# ``models/autoencoder.py``.  The CLI's summary and the doctor's report print
+# it as ``first_use_s`` and ``first_use_counts``.
+FIRST_USE = StageCounters()

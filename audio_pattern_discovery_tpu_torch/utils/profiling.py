@@ -13,26 +13,18 @@ Usage:
     with annotate("dtw_block"):                # named span inside a trace
         ...
 
-    prof = Profiler("/tmp/apd_trace"); prof.start(); ...; prof.stop()
+``annotate`` opens a range only while a profiler records on the calling
+thread; otherwise it returns a null context, so the program's stage timers
+(``utils/logging.StageCounters.time_stage``) cost nothing more untraced.
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity
-
-
-def _profile(log_dir: str) -> torch.profiler.profile:
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    return torch.profiler.profile(
-        activities=activities,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
-    )
 
 
 @contextmanager
@@ -41,28 +33,23 @@ def trace_to(log_dir: str | Path):
     written when the region ends)."""
     log_dir = str(log_dir)
     Path(log_dir).mkdir(parents=True, exist_ok=True)
-    with _profile(log_dir):
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ):
         yield log_dir
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records on this thread."""
+    return torch.autograd._profiler_enabled()
+
+
 def annotate(name: str):
-    """Named span that shows up on the trace timeline."""
-    return torch.profiler.record_function(name)
+    """Named range on the trace timeline, on the profiler's clock beside the
+    kernels; a null context when no profiler records (``profiling``)."""
+    return torch.profiler.record_function(name) if profiling() else nullcontext()
 
-
-class Profiler:
-    """Start/stop profiler for a region that spans multiple functions."""
-
-    def __init__(self, log_dir: str | Path):
-        self.log_dir = str(log_dir)
-        self._prof: torch.profiler.profile | None = None
-
-    def start(self) -> None:
-        Path(self.log_dir).mkdir(parents=True, exist_ok=True)
-        self._prof = _profile(self.log_dir)
-        self._prof.start()
-
-    def stop(self) -> None:
-        if self._prof is not None:
-            self._prof.stop()
-            self._prof = None

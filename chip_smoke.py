@@ -177,8 +177,9 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    power limit, ``dispatch_floor_ms``, ``hbm_gbps``, ``upload_mb_s``, and
    the eight kernel libraries current in ``compile_cache``); the seed-7 CLI
    at the golden config with ``--trace DIR``: the trace's CUDA kernel
-   events of K1's kernel number the run's K1 launches; ``time_fn`` beside
-   ``cuda_ms`` on one K1 call;
+   events of K1's kernel number the run's K1 launches and lie inside its
+   range ``apd.dtw``, and it holds one range ``apd.<stage>`` for each stage
+   of the run's ``timings_s``; ``time_fn`` beside ``cuda_ms`` on one K1 call;
 31. ``dtw.dtype=bfloat16``: K8's Gram instantiation (its dot products by
    ``mma.sync`` on the tensor cores) against its twin pair by pair within
    the derived bound at 2^-23 an addition (``gram_agree``,
@@ -439,6 +440,7 @@ def config4_corpus(K: int, S: int, d: int, seed: int, dev):
 
 def phase1(dev) -> dict:
     from audio_pattern_discovery_tpu_torch.ops import _build
+    from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -452,7 +454,8 @@ def phase1(dev) -> dict:
     _build.load_all(list(KERNELS))
     log(f"phase 1: K1-K8 loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
-        secs, ptxas = _build.build_info.get(name, (0.0, "(already built)"))
+        ptxas = _build.build_info.get(name, "(already built)")
+        secs = FIRST_USE.timings_s.get(f"kernel_build.{name}", 0.0)
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", ptxas)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas))
         log(f"  {name}.cu built in {secs:.2f} s: {len(regs)} kernel instantiations, "
@@ -2749,7 +2752,7 @@ def k8_smem() -> str:
         gram_channels,
     )
 
-    ptxas = _build.build_info.get("dtw_long_block", (0.0, ""))[1]
+    ptxas = _build.build_info.get("dtw_long_block", "")
     static = max((int(m) for m in re.findall(r"(\d+) bytes smem", ptxas)), default=0)
     dyn = {}
     for dd in (4, 8, 16, 20, 40, 64, 128, 396):
@@ -2960,8 +2963,10 @@ def phase30(dev, tmp: Path) -> None:
     every kernel library current in ``compile_cache`` after phase 1's
     build); the seed-7 CLI at the golden config (band 16: K1) with
     ``--trace DIR``, whose trace must hold a CUDA kernel event of K1's for
-    each of the run's K1 launches; ``time_fn`` (host wall to the
-    synchronization) beside ``cuda_ms`` (device time) on one K1 call."""
+    each of the run's K1 launches, inside the run's range ``apd.dtw``, and
+    one range ``apd.<stage>`` for each stage of its ``timings_s``;
+    ``time_fn`` (host wall to the synchronization) beside ``cuda_ms``
+    (device time) on one K1 call."""
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
     from audio_pattern_discovery_tpu_torch.utils.timer import time_fn
 
@@ -2971,7 +2976,8 @@ def phase30(dev, tmp: Path) -> None:
         fail(f"phase 30: --doctor exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     rep = json.loads(proc.stdout)
     probes, cache = rep["device"], rep["compile_cache"]
-    if set(rep) != {"versions", "host", "native_lib", "compile_cache", "env", "device"}:
+    if set(rep) != {"versions", "host", "native_lib", "compile_cache", "env", "first_use_s",
+                    "first_use_counts", "device"}:
         fail(f"phase 30: --doctor's report has the keys {sorted(rep)}")
     if "error" in probes or probes["platform"] != "gpu" or not all(
             isinstance(probes[k], (int, float)) and probes[k] > 0 for k in DOCTOR_PROBES[1:]):
@@ -3001,11 +3007,21 @@ def phase30(dev, tmp: Path) -> None:
     if len(k1_events) != launches:
         fail(f"phase 30: the trace holds {len(k1_events)} events of K1's kernel "
              f"({len(kernels)} kernel events) for {launches} launches")
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith("apd.")]
+    counted = {k: sum(e["name"] == f"apd.{k}" for e in ranges) for k in summary["timings_s"]}
+    if set(counted.values()) != {1}:
+        fail(f"phase 30: the trace's ranges a stage: {counted}")
+    (dtw,) = [e for e in ranges if e["name"] == "apd.dtw"]
+    outside = [e for e in k1_events if not dtw["ts"] <= e["ts"] <= dtw["ts"] + dtw["dur"]]
+    if outside:
+        fail(f"phase 30: {len(outside)} of K1's kernel events lie outside the range apd.dtw")
     k1_us = sum(float(e.get("dur", 0.0)) for e in k1_events)
     log(f"phase 30: --trace of the seed-7 CLI (wall {wall:.2f} s): {traces[0].name}, "
         f"{traces[0].stat().st_size} bytes, {len(events)} events, {len(kernels)} CUDA kernel "
         f"events, {len(k1_events)} of K1's ({k1_events[0]['name'][:60]}...) for {launches} "
-        f"launches, {k1_us / 1e3:.3f} ms of K1 on the trace")
+        f"launches, {k1_us / 1e3:.3f} ms of K1 on the trace, all inside apd.dtw; one range "
+        f"a stage: {sorted(counted)}")
     # time_fn and cuda_ms on one K1 call at phase 2's shape.
     (feats, lens, rep_t, ii, jj), kw = k1_inputs(dev, 4, 16, seed=1)
     n0 = dtw_tile_lane_diag_pairs.launches

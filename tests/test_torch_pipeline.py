@@ -279,7 +279,8 @@ def test_reference_only_flags_raise_naming_their_item(seed7, tmp_path, capsys, f
     assert cli_main(flags) == 0
     out = json.loads(capsys.readouterr().out)
     if flags[0] == "--doctor":
-        assert {"versions", "host", "native_lib", "compile_cache", "env", "device"} == set(out)
+        assert {"versions", "host", "native_lib", "compile_cache", "env", "first_use_s",
+                "first_use_counts", "device"} == set(out)
     else:
         assert out["n_clusters"] >= 1
         assert len(list((tmp_path / "trace_dir").glob("*.pt.trace.json"))) == 1

@@ -72,6 +72,11 @@ def test_query_report_matches_jax(indexed, embed):
     want = jquery(index, [qwav], _cfg(JCfg, embed), top_k=5)
     json.dumps(got)
     assert got["n_query_segments"] >= 1
+    # The port's reply carries the query's stage seconds and counts besides
+    # the reference's keys.
+    stages = {"index_load", "ingest", "spectrogram", "segmentation", "embedding", "dtw"}
+    assert set(got.pop("timings_s")) == stages
+    assert got.pop("counts")["query_segments"] == got["n_query_segments"]
     assert {k: v for k, v in got.items() if k != "queries"} == {
         k: v for k, v in want.items() if k != "queries"}
     for q, w in zip(got["queries"], want["queries"], strict=True):

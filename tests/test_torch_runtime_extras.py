@@ -19,12 +19,13 @@ from audio_pattern_discovery_tpu_torch.config import PipelineConfig
 from audio_pattern_discovery_tpu_torch.ops import _build
 from audio_pattern_discovery_tpu_torch.synthetic import make_corpus
 from audio_pattern_discovery_tpu_torch.utils import DeviceTimer, doctor
-from audio_pattern_discovery_tpu_torch.utils.profiling import Profiler, annotate, trace_to
+from audio_pattern_discovery_tpu_torch.utils.profiling import annotate, trace_to
 from audio_pattern_discovery_tpu_torch.utils.timer import materialize, time_fn
 
 torch.set_num_threads(1)
 
-KEYS = {"versions", "host", "native_lib", "compile_cache", "env"}
+KEYS = {"versions", "host", "native_lib", "compile_cache", "env", "first_use_s",
+        "first_use_counts"}
 
 
 def test_report_keys_without_device_probes():
@@ -128,15 +129,6 @@ def test_trace_to_writes_a_json_trace(tmp_path):
     assert "test_span" in names and any(str(n).startswith("aten::mm") for n in names)
 
 
-def test_profiler_start_stop(tmp_path):
-    prof = Profiler(tmp_path / "p")
-    prof.start()
-    torch.ones(8).add_(1)
-    prof.stop()
-    prof.stop()                       # a second stop is a no-op
-    assert len(list((tmp_path / "p").glob("*.json"))) == 1
-
-
 def test_device_timer_and_time_fn_on_the_cpu():
     calls = []
 
@@ -187,24 +179,34 @@ def test_cli_trace_fresh_and_update(seed7, tmp_path, capsys):
     # --trace DIR wraps discover() for a fresh run and for --update: each
     # writes a trace, and clusters.json keeps the partition of a run
     # without it.
+    # The trace holds one range apd.<stage> for each stage of the run's
+    # timings_s, on the same timeline as the operators.
     plain, traced = tmp_path / "plain", tmp_path / "traced"
     assert cli_main([str(seed7), "-o", str(plain), *_flags()]) == 0
+    capsys.readouterr()
     assert cli_main([str(seed7), "-o", str(traced), "--trace", str(tmp_path / "t1"),
                      *_flags()]) == 0
-    capsys.readouterr()
+    summary = json.loads(capsys.readouterr().out)
     assert _partition(traced) == _partition(plain)
     np.testing.assert_array_equal(np.load(traced / "distance_matrix.npy"),
                                   np.load(plain / "distance_matrix.npy"))
     (trace1,) = (tmp_path / "t1").glob("*.json")
-    names = {e.get("name") for e in json.loads(trace1.read_text())["traceEvents"]}
+    events = json.loads(trace1.read_text())["traceEvents"]
+    names = [e.get("name") for e in events]
     assert any(str(n).startswith("aten::") for n in names)
+    assert "write_artifacts" in summary["timings_s"]
+    for key in summary["timings_s"]:
+        assert names.count(f"apd.{key}") == 1, key
     # An update with nothing new: the same partition, and its own trace.
     assert cli_main([str(seed7), "-o", str(traced), "--update", "--trace",
                      str(tmp_path / "t2"), *_flags()]) == 0
     summary = json.loads(capsys.readouterr().out)
     assert summary["counts"]["dtw_pairs_reused"] > 0
     assert _partition(traced) == _partition(plain)
-    assert len(list((tmp_path / "t2").glob("*.json"))) == 1
+    (trace2,) = (tmp_path / "t2").glob("*.json")
+    names = [e.get("name") for e in json.loads(trace2.read_text())["traceEvents"]]
+    for key in summary["timings_s"]:
+        assert names.count(f"apd.{key}") == 1, key
 
 
 def test_worker_doctor_request():

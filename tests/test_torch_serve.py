@@ -84,12 +84,15 @@ def test_serve_end_to_end(tmp_path):
 
         # The same query twice on the warm worker, as the library answers it.
         qwav = sorted(corpus.glob("*.wav"))[0]
+        # Each reply carries its own stage seconds, under the same keys.
         want = query_corpus(out_srv, [qwav], PipelineConfig.from_dict(cfg_dict), top_k=3,
                             device="cpu")
+        stages = set(want.pop("timings_s"))
         for _ in range(2):
             r = request(sock, {"cmd": "query", "out_dir": str(out_srv), "wavs": [str(qwav)],
                                "top_k": 3, "config": cfg_dict}, timeout=300)
             assert r["ok"], r.get("traceback", r)
+            assert set(r["result"].pop("timings_s")) == stages
             assert r["result"] == json.loads(json.dumps(want))
 
         # Bad requests do not kill the worker; doctor answers the report.
@@ -101,7 +104,12 @@ def test_serve_end_to_end(tmp_path):
         assert not r["ok"]
         r = request(sock, {"cmd": "doctor"}, timeout=60)
         assert r["ok"], r.get("traceback", r)
-        assert set(r["result"]) == {"versions", "host", "native_lib", "compile_cache", "env"}
+        assert set(r["result"]) == {"versions", "host", "native_lib", "compile_cache", "env",
+                                    "first_use_s", "first_use_counts"}
+        # What the worker paid once: the native library, and no kernel
+        # build on the CPU.
+        assert "native_load" in r["result"]["first_use_s"]
+        assert "kernel_builds" not in r["result"]["first_use_counts"]
         assert request(sock, {"cmd": "ping"}, timeout=30)["ok"]
 
         r = request(sock, {"cmd": "shutdown"}, timeout=30)
