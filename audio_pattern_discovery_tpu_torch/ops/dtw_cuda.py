@@ -360,24 +360,26 @@ def dtw_tile_lane_diag_pairs(
 dtw_tile_lane_diag_pairs.launches = 0
 
 
-def _launch(name: str, n_ptrs: int, n_ints: int, *args, device: torch.device) -> None:
-    """Call ``apd_<name>`` of ``lib<name>.so`` (built at first use): n_ptrs
-    pointers, n_ints ints, then ``device``'s current stream, with ``device``
-    (that of the tensors launched on) the thread's current device, so that
-    the launch and any attribute the entry sets reach that card; raise on a
-    CUDA error."""
+def _launch(name: str, n_ptrs: int, n_ints: int, *args, device: torch.device,
+            entry: str | None = None) -> None:
+    """Call ``apd_<entry>`` (``entry`` defaults to ``name``) of
+    ``lib<name>.so`` (built at first use): n_ptrs pointers, n_ints ints, then
+    ``device``'s current stream, with ``device`` (that of the tensors
+    launched on) the thread's current device, so that the launch and any
+    attribute the entry sets reach that card; raise on a CUDA error."""
     from audio_pattern_discovery_tpu_torch.ops import _build
 
+    entry = entry or name
     if len(args) != n_ptrs + n_ints:
-        raise TypeError(f"apd_{name} takes {n_ptrs} pointers and {n_ints} ints, got {len(args)} arguments")
-    fn = getattr(_build.load(name), f"apd_{name}")
+        raise TypeError(f"apd_{entry} takes {n_ptrs} pointers and {n_ints} ints, got {len(args)} arguments")
+    fn = getattr(_build.load(name), f"apd_{entry}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
 def dtw_tile_lane_diag_pairs_ref(

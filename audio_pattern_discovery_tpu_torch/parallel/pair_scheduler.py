@@ -29,9 +29,12 @@ Kept from the reference: the length sort, the padding of the corpus to
 whole tiles and of the time axis to a multiple of 128, the per-tile-pair
 static classes with thin classes merged by ``_merge_thin_classes``,
 power-of-two chunking of each class, and the fused native scatter with
-``path_len`` normalization on a worker thread.  The TPU's VMEM/SMEM gates
-of the routes are not ported; the widen route's K4/K5 gate is the card's
-own, per class.
+``path_len`` normalization on a worker thread.  On one card a job that
+computes every tile-pair and persists none assembles D there instead
+(``_device_assembly``): each chunk's blocks are scattered by a kernel
+queued behind its launch (``ops/dtw_scatter.py``) into a device ``[K, K]``
+buffer, copied to the host once.  The TPU's VMEM/SMEM gates of the routes
+are not ported; the widen route's K4/K5 gate is the card's own, per class.
 
 The per-pair scheduler is the reference's legacy loop: pairs bucketed by
 length (``enumerate_pair_blocks``), gathered per block, K6
@@ -99,6 +102,10 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
     long_block_shape,
     long_boundary_bytes,
 )
+from audio_pattern_discovery_tpu_torch.ops.dtw_scatter import (
+    scatter_tile_blocks,
+    unpermute_columns,
+)
 from audio_pattern_discovery_tpu_torch.utils.device import (
     on_device,
     resolve_device,
@@ -117,6 +124,32 @@ LONG_BOUNDARY_BUDGET = 1 << 30
 # scattering straight into original-order D (reference: measured on the
 # host, per-block random-row writes degrade superlinearly past ~2 GB).
 _DIRECT_SCATTER_BYTES = 2 * 1024**3
+
+
+def _device_assembly(devs: list[torch.device], K: int, known, block_dir) -> bool:
+    """Whether the tiled scheduler assembles D on the card
+    (``ops/dtw_scatter.py``) and copies it to the host once: every chunk on
+    one CUDA device (a list may repeat it), every tile-pair computed (no
+    ``known=``), no block persisted (no ``block_dir``), and D within the
+    direct scatter's size.  Every other job scatters on the host."""
+    dev = devs[0]
+    return (dev.type == "cuda" and all(d == dev for d in devs) and known is None
+            and block_dir is None and K * K * 4 <= _DIRECT_SCATTER_BYTES)
+
+
+def _host_copy(D_dev: torch.Tensor) -> np.ndarray:
+    """D of the device path on the host, in one copy into page-locked memory
+    of torch's caching host allocator, returned as the array: the array
+    holds the buffer, so no later job reuses it while the array lives.  On
+    the H100, config 4's 0.42 GB take 7.7-8.3 ms this way, 160-235 ms into
+    a fresh ``np.empty`` (its page faults) and 160-330 ms through a pinned
+    staging buffer into one (``chip_smoke.py`` phase 33)."""
+    if D_dev.device.type == "cpu":
+        return D_dev.numpy()
+    host = torch.empty(tuple(D_dev.shape), dtype=torch.float32, pin_memory=True)
+    host.copy_(D_dev)
+    return host.numpy()
+
 
 # Tile size per device type.  On the card one tile row is one block of ti
 # threads; on the CPU the plain twin pays for every padded pair and for
@@ -534,8 +567,14 @@ def all_pairs_distances_tiled(
     Sequences are length-sorted and padded to whole tiles, uploaded once,
     and every upper-triangle tile-pair runs as one kernel tile-pair (ti*ti
     pairs).  Tile-pairs are grouped by static class and launched in chunks
-    of ``chunk_programs``; on a CUDA device up to eight chunks are in flight
-    while a worker thread scatters finished blocks into D.
+    of ``chunk_programs``.  Where ``_device_assembly`` takes the job (one
+    CUDA device, no ``known`` or ``block_dir``, D within the direct
+    scatter's 2 GiB), each chunk's blocks are scattered on the card by a
+    kernel queued behind its launch into a device ``[K, K]`` buffer, which
+    is copied to the host once the last chunk is done, bit for bit the host
+    scatter's D.  Otherwise, on a CUDA device up to eight chunks are in
+    flight while a worker thread scatters finished blocks into D on the
+    host.
 
     ``known=(k_old, D_old)``: the distances among the first k_old sequences
     come from D_old.  The sort groups old sequences before new ones (each
@@ -561,7 +600,11 @@ def all_pairs_distances_tiled(
     collect: waiting for a chunk's copy, scatter, persist, upload), the
     chunks read back (``blocks_resumed``), the chunks dispatched to each
     device (``device_blocks``, a list in the order of ``devices``), whether
-    the native scatter ran and with OpenMP, and, on CUDA devices,
+    the native scatter ran and with OpenMP, the tile-pair blocks the card's
+    scatter wrote (``device_scatter_blocks``, 0 on the host path; there
+    ``scatter_s`` is the host's time queueing the scatter kernels and
+    copying D back, and ``collect_s`` the wait for the last chunks), and, on
+    CUDA devices,
     ``kernel_s``: the kernel launches' device time from CUDA events around
     each launch on its device's current stream, and ``kernel_s_by``: that
     time per kernel entry name.  The default device is the card; without
@@ -598,7 +641,8 @@ def all_pairs_distances_tiled(
     # Updates scatter straight into D (the reference's rule): skipped
     # tile-pairs would leave row strips incomplete.
     direct = known is not None or K * K * 4 <= _DIRECT_SCATTER_BYTES
-    D = np.zeros((K, K), dtype=np.float32)
+    on_card = _device_assembly(devs, K, known, block_dir)
+    D = None if on_card else np.zeros((K, K), dtype=np.float32)
     if known is not None:
         k_old, D_old = known
         D[:k_old, :k_old] = D_old
@@ -698,6 +742,12 @@ def all_pairs_distances_tiled(
 
     t_up = time.perf_counter()
     inputs = {dev: inputs_on(dev) for dev in dict.fromkeys(devs)}
+    if on_card:
+        with on_device(device):
+            # Every entry is written: each tile-pair's block, both triangles.
+            D_dev = torch.empty((K, K), dtype=torch.float32, device=device)
+            perm_d = torch.from_numpy(perm).to(device)
+            inv_d = torch.from_numpy(np.argsort(perm)).to(device)
     upload_s += time.perf_counter() - t_up
     if stats is None:
         stats = {}
@@ -705,7 +755,7 @@ def all_pairs_distances_tiled(
         route=route, dispatch_s=0.0, collect_s=0.0, scatter_s=0.0, persist_s=0.0, kernel_s=0.0,
         kernel_s_by={}, upload_s=upload_s, blocks=len(chunks), blocks_resumed=0, pairs=n_pairs,
         tiled=True, tile_programs=len(pairs_list), tile_classes=len(by_class), ti=ti,
-        device_blocks=[0] * len(devs),
+        device_blocks=[0] * len(devs), device_scatter_blocks=0,
     )
     if block_dir is not None:
         block_dir = Path(block_dir)
@@ -714,7 +764,8 @@ def all_pairs_distances_tiled(
 
     norm = cfg.normalize == "path_len"
     ls_f = lens_p.astype(np.float32)
-    use_native = native.available() and os.environ.get("APD_NO_NATIVE_SCATTER", "") != "1"
+    use_native = (not on_card and native.available()
+                  and os.environ.get("APD_NO_NATIVE_SCATTER", "") != "1")
     stats["native_scatter"] = use_native
     stats["native_openmp"] = bool(use_native and native.openmp)
     inv = None if direct else np.argsort(perm)
@@ -785,6 +836,12 @@ def all_pairs_distances_tiled(
                     _strip_buf(J)[:, r0 : r0 + nr] = blk.T
                     _strip_dec(J)
 
+    def add_kernel_s(events, name) -> None:
+        secs = events[0].elapsed_time(events[1]) / 1e3
+        stats["kernel_s"] += secs
+        by = stats["kernel_s_by"]
+        by[name] = by.get(name, 0.0) + secs
+
     scatter_q: queue.Queue = queue.Queue(maxsize=max(8, 4 * len(devs)))
     scatter_err: list[BaseException] = []
 
@@ -801,10 +858,7 @@ def all_pairs_distances_tiled(
                 try:
                     if events is not None:
                         events[2].synchronize()
-                        secs = events[0].elapsed_time(events[1]) / 1e3
-                        stats["kernel_s"] += secs
-                        by = stats["kernel_s_by"]
-                        by[name] = by.get(name, 0.0) + secs
+                        add_kernel_s(events, name)
                     vals = host.numpy()
                 except Exception as exc:
                     vals = _with_retries(lambda: dispatch().cpu().numpy(), max_retries, exc)
@@ -819,9 +873,15 @@ def all_pairs_distances_tiled(
             except BaseException as exc:
                 scatter_err.append(exc)
 
-    worker = threading.Thread(target=scatter_worker, name="apd-scatter", daemon=True)
-    worker.start()
+    # The host path scatters on a worker thread; the device path queues each
+    # chunk's scatter behind its launch and reads the kernels' events once
+    # D is done.
+    worker = None
+    if not on_card:
+        worker = threading.Thread(target=scatter_worker, name="apd-scatter", daemon=True)
+        worker.start()
     on_cuda = device.type == "cuda"
+    timed: list[tuple[list | None, str]] = []
     try:
         for ci, (ii, jj, cls) in enumerate(chunks):
             if scatter_err:
@@ -842,12 +902,14 @@ def all_pairs_distances_tiled(
             dev = devs[di]
             stats["device_blocks"][di] += 1
 
-            def dispatch(ii=ii, jj=jj, cls=cls, dev=dev) -> torch.Tensor:
-                with on_device(dev):
-                    return launch(inputs[dev], torch.from_numpy(ii).to(dev),
-                                  torch.from_numpy(jj).to(dev), cls)
-
             t0 = time.perf_counter()
+            with on_device(dev):
+                ii_d, jj_d = torch.from_numpy(ii).to(dev), torch.from_numpy(jj).to(dev)
+
+            def dispatch(ii_d=ii_d, jj_d=jj_d, cls=cls, dev=dev) -> torch.Tensor:
+                with on_device(dev):
+                    return launch(inputs[dev], ii_d, jj_d, cls)
+
             events = None
             with on_device(dev):
                 if on_cuda:
@@ -859,6 +921,18 @@ def all_pairs_distances_tiled(
                     blocks = _with_retries(dispatch, max_retries, exc)
                 if on_cuda:
                     events[1].record()
+                if on_card:
+                    t1 = time.perf_counter()
+                    stats["dispatch_s"] += t1 - t0
+                    scatter_tile_blocks(blocks, ii_d, jj_d, inputs[dev]["lens"], perm_d, D_dev,
+                                        normalize=norm)
+                    stats["scatter_s"] += time.perf_counter() - t1
+                    # Padded repeats of the last tile-pair are skipped.
+                    stats["device_scatter_blocks"] += 1 + int(
+                        np.count_nonzero((ii[1:] != ii[:-1]) | (jj[1:] != jj[:-1])))
+                    timed.append((events, name))
+                    continue
+                if on_cuda:
                     host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
                     host.copy_(blocks, non_blocking=True)
                     events.append(torch.cuda.Event())
@@ -870,8 +944,26 @@ def all_pairs_distances_tiled(
             # launch and scatter, so pinned buffers stay bounded.
             scatter_q.put((ii, jj, host, events, name, dispatch, path))
     finally:
-        scatter_q.put(None)
-        worker.join()
+        if worker is not None:
+            scatter_q.put(None)
+            worker.join()
+    if on_card:
+        # D's columns back in the original order; then the wait for the last
+        # chunks (collect), the kernels' device time, and one copy of D.
+        t0 = time.perf_counter()
+        with on_device(device):
+            unpermute_columns(D_dev, inv_d)
+        t1 = time.perf_counter()
+        stats["scatter_s"] += t1 - t0
+        if on_cuda:
+            torch.cuda.synchronize(device)
+            for events, name in timed:
+                add_kernel_s(events, name)
+        t2 = time.perf_counter()
+        stats["collect_s"] += t2 - t1
+        D = _host_copy(D_dev)
+        stats["scatter_s"] += time.perf_counter() - t2
+        return D
     if scatter_err:
         raise scatter_err[0]
     if strip_bufs:

@@ -7,7 +7,7 @@ Phases (each one passes or the script exits non-zero, and prints its
 seconds; ``--phases`` runs a subset, phase 1 always):
 
 1. device: a CUDA card is required; prints its name and power limit and
-   builds the kernels K1-K8 (K8 with its Gram instantiations) from ``audio_pattern_discovery_tpu_torch/csrc``
+   builds the kernels K1-K8 (K8 with its Gram instantiations) and D's scatter from ``audio_pattern_discovery_tpu_torch/csrc``
    (one nvcc each, started together), with each source's registers and
    spill bytes from ``ptxas -v`` (a spill fails the phase);
 2. K1 against its plain PyTorch twin on the card at the config-4 tile shape
@@ -26,7 +26,8 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 5. config 4 through the scheduler: all pairs of K=10,240 sequences (S=128,
    d=16, band=16, lengths 64-128); prints pairs/s and launches, checks 64
    random pairs against the plain torch DTW on the card and 8 against the
-   NumPy oracle; the native scatter must have run;
+   NumPy oracle; D must have been assembled on the card (phase 33) or by
+   the native scatter;
 6. K2 against its twin on the card (S=256, d=16, ti=128, 4 tiles, lengths
    8-256): unbanded euclidean on all 10 tile-pairs, sqeuclidean, cosine and
    widen band 8 (auto_widen on and off) on 2, every strip height and frame
@@ -47,8 +48,8 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    scheduler (the same D) for K3's device time and bound at this cell;
 11. config 4 unbanded through the scheduler (K2); prints pairs/s, the
    kernel's device time and the scatter's seconds, checks 64 pairs against
-   the plain torch DTW and 8 against the oracle; the native scatter must
-   have run;
+   the plain torch DTW and 8 against the oracle; D must have been assembled
+   on the card or by the native scatter;
 12. K4 against its twin at the config-4 widen shape (S=128, d=16, band 16,
    lengths 64-128, ti=128, 10 tile-pairs; sqeuclidean, cosine and a hard
    band on 2), plus a ``rows`` and a ``wv_max`` shortfall that must be +inf
@@ -175,7 +176,7 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    K8's twin;
 30. the runtime extras: ``--doctor`` as a subprocess (the card's name and
    power limit, ``dispatch_floor_ms``, ``hbm_gbps``, ``upload_mb_s``, and
-   the eight kernel libraries current in ``compile_cache``); the seed-7 CLI
+   the nine kernel libraries current in ``compile_cache``); the seed-7 CLI
    at the golden config with ``--trace DIR``: the trace's CUDA kernel
    events of K1's kernel number the run's K1 launches and lie inside its
    range ``apd.dtw``, and it holds one range ``apd.<stage>`` for each stage
@@ -215,7 +216,16 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    instantiation bitwise its one call; config 2's corpus through
    ``discover()`` at the default config on a 2x2 mesh (the AE over the data
    and model axes) against one device: the same partition, the last
-   epoch's loss within ``MESH_LOSS_RTOL`` and D within ``MESH_D_ATOL``.
+   epoch's loss within ``MESH_LOSS_RTOL`` and D within ``MESH_D_ATOL``;
+33. D assembled on the card (``ops/dtw_scatter.py``): config 4's diag 16
+   and unbanded jobs with the scheduler's gate (``_device_assembly``) held
+   off for the host path: D bitwise the native scatter's, one scatter launch
+   a chunk and one un-permute, ``device_scatter_blocks`` 3,240; the two
+   kernels' device time a job (the job's scatter calls replayed) beside the
+   bound (blocks read and D written once at 3.35 TB/s) and the plain twins'
+   time on the card (bitwise the kernels); the copy of D back pageable,
+   staged through a pinned buffer and as the pinned buffer; each job's wall
+   and ``scatter_s`` on both paths.
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
@@ -278,6 +288,8 @@ KERNELS = {   # source name -> (entry function, kernel body it replaces)
     "dtw_stripe": ("_dtw_batch_stripe", f"{PALLAS}:261"),
     # No pallas_call: the reference's block kernel inside an XLA scan.
     "dtw_long_block": ("dtw_long_batch", "audio_pattern_discovery_tpu/ops/dtw_long.py:72"),
+    # No pallas_call: the reference's host scatter of D.
+    "dtw_scatter": ("scatter_tile_blocks", "native/apd_native.cc:433"),
 }
 # Kernel vs plain twin: both compute each pair in fp32 from the same
 # squared-difference costs; the twin evaluates each DP row's left-to-right
@@ -452,7 +464,7 @@ def phase1(dev) -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load_all(list(KERNELS))
-    log(f"phase 1: K1-K8 loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1: K1-K8 and the scatter loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         ptxas = _build.build_info.get(name, "(already built)")
         secs = FIRST_USE.timings_s.get(f"kernel_build.{name}", 0.0)
@@ -1011,8 +1023,9 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
     if launches != want_launches or sum(launches) < 1 or stats["route"] != route:
         fail(f"{tag}: the job took route {stats['route']} with launches {names} "
              f"(expected {want_launches})")
-    if not stats["native_scatter"]:
-        fail(f"{tag}: the scheduler scattered with NumPy: the native library did not load")
+    if not (stats["native_scatter"] or stats["device_scatter_blocks"] > 0):
+        fail(f"{tag}: the scheduler scattered with NumPy: D was not assembled on the card and "
+             "the native library did not load")
     if not np.isfinite(D).all():
         fail(f"{tag}: non-finite distances in D")
     rng = np.random.default_rng(seed)
@@ -3707,6 +3720,182 @@ def per_pair_split(dev, tag: str, f, n, cfg, want=None) -> tuple[np.ndarray, int
     return D, launches
 
 
+def copy_back(D_dev: torch.Tensor, how: str) -> tuple[np.ndarray, dict]:
+    """D_dev on the host, the way ``how`` names, with its seconds: "pinned"
+    (the scheduler's ``_host_copy``: a pinned buffer of torch's caching host
+    allocator, itself the array), "pageable" (a copy into ``np.empty``) or
+    "staged" (through a pinned buffer, then into ``np.empty``)."""
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if how == "pinned":
+        host = ps._host_copy(D_dev)
+        return host, {"total": time.perf_counter() - t0}
+    if how == "pageable":
+        host = np.empty(tuple(D_dev.shape), np.float32)
+        torch.from_numpy(host).copy_(D_dev)
+        return host, {"total": time.perf_counter() - t0}
+    pinned = torch.empty(tuple(D_dev.shape), dtype=torch.float32, pin_memory=True)
+    t1 = time.perf_counter()
+    pinned.copy_(D_dev)
+    t2 = time.perf_counter()
+    host = np.empty(tuple(D_dev.shape), np.float32)
+    np.copyto(host, pinned.numpy())
+    t3 = time.perf_counter()
+    return host, {"total": t3 - t0, "alloc": t1 - t0, "dma": t2 - t1, "host_copy": t3 - t2}
+
+
+def phase33(dev) -> dict:
+    """D assembled on the card (``ops/dtw_scatter.py``, ``csrc/dtw_scatter.cu``)
+    against the host scatter on config 4's diag 16 and unbanded jobs: the
+    scheduler's gate held off for the host path; D bitwise; the scatter's
+    launches, one a chunk, and its blocks; the two kernels' device time
+    (the job's scatter calls replayed) beside the bound and the twins' time;
+    the copy of D back timed three ways; each job's wall and ``scatter_s``
+    on both paths, and on the device path with each other copy."""
+    from audio_pattern_discovery_tpu_torch.config import DTWConfig
+    from audio_pattern_discovery_tpu_torch.ops import dtw_scatter as ds
+    from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
+
+    K, S, d = 10_240, 128, 16
+    feats, lens = config4_corpus(K, S, d, seed=33, dev=dev)
+    lens_np = lens.cpu().numpy()
+    res: dict = {}
+
+    def job(cfg, gate=None, host_copy=None):
+        saved = ps._device_assembly, ps._host_copy
+        if gate is not None:
+            ps._device_assembly = gate
+        if host_copy is not None:
+            ps._host_copy = host_copy
+        try:
+            stats: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            D = ps.all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats)
+            return D, stats, time.perf_counter() - t0
+        finally:
+            ps._device_assembly, ps._host_copy = saved
+
+    for mode, cfg in (("diag16", DTWConfig(band=16, band_mode="diag", normalize="path_len")),
+                      ("unbanded", DTWConfig(band=None, normalize="path_len"))):
+        tag = f"phase 33 ({mode})"
+        D_host, s_host, wall_host = job(cfg, gate=lambda *a: False)
+        if s_host["device_scatter_blocks"] != 0 or not s_host["native_scatter"]:
+            fail(f"{tag}: the host path did not scatter natively: {s_host}")
+        calls: list = []
+        real = ps.scatter_tile_blocks
+
+        def keep(*args, **kw):
+            calls.append((args, kw))
+            real(*args, **kw)
+
+        n0, u0 = ds.scatter_tile_blocks.launches, ds.unpermute_columns.launches
+        ps.scatter_tile_blocks = keep
+        try:
+            D_dev, s_dev, wall_dev = job(cfg)
+        finally:
+            ps.scatter_tile_blocks = real
+        launches = ds.scatter_tile_blocks.launches - n0
+        unperm = ds.unpermute_columns.launches - u0
+        if not np.array_equal(D_dev.view(np.int32), D_host.view(np.int32)):
+            bad = np.argwhere(D_dev.view(np.int32) != D_host.view(np.int32))
+            fail(f"{tag}: D on the card differs from the host scatter's in {len(bad)} entries, "
+                 f"first {bad[:4].tolist()}")
+        if not (D_dev.flags["C_CONTIGUOUS"] and D_dev.dtype == np.float32):
+            fail(f"{tag}: D is not a C-contiguous float32 array")
+        if launches != s_dev["blocks"] or unperm != 1 or s_dev["native_scatter"]:
+            fail(f"{tag}: {launches} scatter launches for {s_dev['blocks']} chunks, {unperm} "
+                 f"un-permutes, native scatter {s_dev['native_scatter']}")
+        if s_dev["device_scatter_blocks"] != s_dev["tile_programs"] or (
+                s_dev["tile_programs"] != 3240):
+            fail(f"{tag}: device_scatter_blocks {s_dev['device_scatter_blocks']}, tile-pairs "
+                 f"{s_dev['tile_programs']} (3,240 expected)")
+        # The two kernels' device time: the job's scatter calls replayed.
+        perm_d, inv_d = calls[0][0][4], torch.argsort(calls[0][0][4])
+        buf = torch.empty((K, K), dtype=torch.float32, device=dev)
+
+        def scatters():
+            for args, kw in calls:
+                real(*args[:5], buf, **kw)
+
+        def assemble():
+            scatters()
+            ds.unpermute_columns(buf, inv_d)
+
+        scatter_ms = cuda_ms(scatters, 5)
+        whole_ms = cuda_ms(assemble, 5)
+        if not torch.equal(buf.cpu(), torch.from_numpy(D_dev)):
+            fail(f"{tag}: the replayed scatter differs from the job's D")
+        twin = torch.empty((K, K), dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for args, kw in calls:
+            ds.scatter_tile_blocks_ref(*args[:5], twin, **kw)
+        ds.unpermute_columns_ref(twin, inv_d)
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(twin, buf):
+            fail(f"{tag}: the plain twin on the card differs from the kernels")
+        del twin
+        n_blocks = sum(int(a[0].shape[0]) for a, _ in calls)
+        least_ms = (n_blocks * 128 * 128 * 4 + K * K * 4) / HBM_BYTES_S * 1e3
+        design_ms = (n_blocks * 128 * 128 * 4 + 3 * K * K * 4) / HBM_BYTES_S * 1e3
+        log(f"{tag}: D bitwise the host scatter's; {launches} scatter launches ({s_dev['blocks']} "
+            f"chunks), {unperm} un-permute, device_scatter_blocks {s_dev['device_scatter_blocks']}; "
+            f"device time {whole_ms:.3f} ms a job (scatter {scatter_ms:.3f} ms, un-permute "
+            f"{whole_ms - scatter_ms:.3f} ms) against the bound {least_ms:.3f} ms "
+            f"({least_ms / whole_ms:.1%}: {n_blocks} blocks read, D written once at 3.35 TB/s) "
+            f"and the design's traffic {design_ms:.3f} ms; plain twins on the card "
+            f"{twin_ms:.1f} ms")
+        # The copy back, three ways, in turns.
+        times: dict = {"pageable": [], "staged": [], "pinned": []}
+        for _ in range(3):
+            for how in ("pageable", "staged", "pinned", "pinned", "staged", "pageable"):
+                host, t = copy_back(buf, how)
+                if not np.array_equal(host, D_dev):
+                    fail(f"{tag}: the {how} copy of D differs")
+                times[how].append(t)
+                del host
+        for how, ts in times.items():
+            log(f"{tag}: copy of D ({K * K * 4 / 1e9:.3f} GB) {how}: "
+                + "; ".join(", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t.items()) for t in ts))
+        del buf
+        # The job both ways, and with each copy on the device path.
+        walls = {"host": [wall_host], "device": [wall_dev]}
+        scat = {"host": [s_host["scatter_s"]], "device": [s_dev["scatter_s"]]}
+        for _ in range(2):
+            for how in ("pageable", "staged"):
+                D2, s2, w2 = job(cfg, host_copy=lambda D, how=how: copy_back(D, how)[0])
+                walls.setdefault(how, []).append(w2)
+                scat.setdefault(how, []).append(s2["scatter_s"])
+                if not np.array_equal(D2, D_host):
+                    fail(f"{tag}: D with the {how} copy differs")
+                del D2
+            D2, s2, w2 = job(cfg)
+            walls["device"].append(w2)
+            scat["device"].append(s2["scatter_s"])
+            del D2
+            D2, s2, w2 = job(cfg, gate=lambda *a: False)
+            walls["host"].append(w2)
+            scat["host"].append(s2["scatter_s"])
+            del D2
+        n_pairs = K * (K - 1) // 2
+        for way in walls:
+            log(f"{tag}: job {way}: walls {[round(w, 3) for w in walls[way]]} s "
+                f"({n_pairs / np.median(walls[way]) / 1e6:.2f} M pairs/s at the median), "
+                f"scatter_s {[round(x, 4) for x in scat[way]]}")
+        log(f"{tag}: device path stats: dispatch {s_dev['dispatch_s']:.4f} s, collect "
+            f"{s_dev['collect_s']:.4f} s, kernel {s_dev['kernel_s']:.4f} s, upload "
+            f"{s_dev['upload_s']:.4f} s; host path: collect {s_host['collect_s']:.4f} s, kernel "
+            f"{s_host['kernel_s']:.4f} s")
+        res[mode] = {"ms": whole_ms, "bound_ms": least_ms, "twin_ms": twin_ms,
+                     "launches": launches}
+    return {"launches": res["diag16"]["launches"], "ms": res["diag16"]["ms"],
+            "bound_ms": res["diag16"]["bound_ms"], "twin_ms": res["diag16"]["twin_ms"]}
+
+
 # The K4/K5 gate: class stripes (W = 2*wv+2 slots) and padded lengths at
 # which --crossover times both kernels on one job.
 CROSSOVER = ((128, 34), (128, 66), (128, 98), (128, 130), (128, 144), (256, 130), (256, 258),
@@ -4056,7 +4245,7 @@ def main() -> int:
     kernels = {name: {"name": fn, "route": "cuda", "source": f"{CSRC}/{name}.cu",
                       "replaces": replaces, "library_ms": None}
                for name, (fn, replaces) in KERNELS.items()}
-    k1, k2, k3, k4, k5, k6, k7, k8 = (kernels[name] for name in KERNELS)
+    k1, k2, k3, k4, k5, k6, k7, k8, k_scatter = (kernels[name] for name in KERNELS)
     # K8's Gram instantiation (dtw.dtype=bfloat16): the same source and
     # reference body, the launches of phase 31's bf16 job.
     k8_bf16 = kernels["dtw_long_block (Gram)"] = {
@@ -4120,6 +4309,7 @@ def main() -> int:
             lambda: phase30(dev, tmp),
             lambda: k8_bf16.update(phase31(dev, tmp, long_units)),
             lambda: phase32(dev, tmp, long_units),
+            lambda: k_scatter.update(phase33(dev)),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):
