@@ -12,7 +12,9 @@ restores it:
 - ``unchanged``: the AE's training step returns its loss and leaves the
   model unchanged;
 - ``half_batch``: the AE's training step runs on half of its minibatch, the
-  mean taken over that half.
+  mean taken over that half;
+- ``unwhitened``: the PCA embedding's scale is left at 1, so its latents
+  come out unwhitened.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import contextlib
 import numpy as np
 import torch
 
-FAULTS = ("answer", "half", "block", "unchanged", "half_batch")
+FAULTS = ("answer", "half", "block", "unchanged", "half_batch", "unwhitened")
 BLOCK = 128
 
 
@@ -61,8 +63,9 @@ def planted(fault: str):
 
     saved = [(pair_scheduler, "all_pairs_distances", pair_scheduler.all_pairs_distances),
              (pipeline, "all_pairs_distances", pipeline.all_pairs_distances),
-             (autoencoder, "train_step", autoencoder.train_step)]
-    step = autoencoder.train_step
+             (autoencoder, "train_step", autoencoder.train_step),
+             (pipeline, "fit_pca", pipeline.fit_pca)]
+    step, fit_pca = autoencoder.train_step, pipeline.fit_pca
 
     def broken_step(model, tx, batch, noise=None):
         if fault == "unchanged":
@@ -72,6 +75,11 @@ def planted(fault: str):
         h = len(batch) // 2
         return step(model, tx, batch[:h], None if noise is None else noise[:h])
 
+    def unwhitened_fit(*args, **kw):
+        state = fit_pca(*args, **kw)
+        state.scale = np.ones_like(state.scale)
+        return state
+
     try:
         if fault in ("answer", "half", "block"):
             pair_scheduler.all_pairs_distances = _altered(pair_scheduler.all_pairs_distances,
@@ -79,6 +87,8 @@ def planted(fault: str):
             pipeline.all_pairs_distances = pair_scheduler.all_pairs_distances
         elif fault in ("unchanged", "half_batch"):
             autoencoder.train_step = broken_step
+        elif fault == "unwhitened":
+            pipeline.fit_pca = unwhitened_fit
         else:
             raise ValueError(f"unknown fault {fault!r}")
         yield

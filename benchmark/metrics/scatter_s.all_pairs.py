@@ -1,6 +1,8 @@
-"""scatter_s.all_pairs: seconds a job of the scheduler's host span around the
-native scatter of each tile's distances into D (``stats["scatter_s"]``), the
-mean over the traced jobs."""
+"""scatter_s.all_pairs: seconds a job of the scheduler's assembly of D from
+each tile's distances (``stats["scatter_s"]``): where D is assembled on the
+card, the host's time queueing the scatter kernels and the un-permute and
+the copy of D to the host after the final synchronize; on the host path,
+its span around the native scatter.  The mean over the traced jobs."""
 
 
 def read(run):

@@ -10,14 +10,18 @@ with R[-1, -1] = 0, +inf outside the band.  ``precision="fp64"`` computes
 the costs from differences in float64 and the recurrence in float64 (the
 reference); ``precision="bf16"`` is the control, the same recurrence in
 fp32 over costs from a Gram matrix of the frames rounded to bfloat16 with
-fp32 accumulation (the reference package's bf16 recipe).  Imports nothing
-of the program.
+fp32 accumulation (the reference package's bf16 recipe), and
+``precision="tf32"`` the same with the frames rounded to TF32.  Imports
+nothing of the program.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from benchmark.reference.precision import LOWER, rounded
+
 
 def band_mask(la, lb, N: int, M: int, band: int | None, band_mode: str,
               auto_widen: bool = True) -> torch.Tensor | None:
@@ -47,10 +51,9 @@ def costs(a: torch.Tensor, b: torch.Tensor, metric: str, precision: str) -> torc
             return torch.where(den > 0, 1.0 - dot / torch.where(den > 0, den, 1.0), 1.0)
         d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist")
         return d * d if metric == "sqeuclidean" else d
-    if precision != "bf16":
+    if precision not in LOWER:
         raise ValueError(f"unknown precision {precision!r}")
-    a = a.to(torch.bfloat16).float()
-    b = b.to(torch.bfloat16).float()
+    a, b = rounded(a, precision), rounded(b, precision)
     dot = torch.bmm(a, b.transpose(1, 2))
     na, nb = (a * a).sum(-1), (b * b).sum(-1)
     if metric == "cosine":

@@ -7,9 +7,9 @@ log10 of it above ``log_floor``; a frame's energy is log10 of its mean
 power; segments are the runs of frames within ``threshold_db`` of the clip's
 peak energy (and above ``min_energy_db``), gaps of up to ``merge_gap_frames``
 merged, runs shorter than ``min_len_frames`` dropped and longer ones split
-at ``max_len_frames``.  ``precision="bf16"`` (the control) rounds each
-windowed frame to bfloat16 before its transform.  Imports nothing of the
-program.
+at ``max_len_frames``.  ``precision="bf16"`` or ``"tf32"`` (the controls)
+rounds each windowed frame to bfloat16 or TF32 before its transform.
+Imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ import numpy as np
 import torch
 
 from benchmark.corpus import read_wav_pcm16
+from benchmark.reference.precision import rounded
 
 
-def _bf16(x: np.ndarray) -> np.ndarray:
-    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).double().numpy()
+def _rounded(x: np.ndarray, precision: str) -> np.ndarray:
+    return rounded(torch.from_numpy(x.astype(np.float32)), precision).double().numpy()
 
 
 def log_spectrogram(x: np.ndarray, win: int, hop: int, log_floor: float,
@@ -35,7 +36,9 @@ def log_spectrogram(x: np.ndarray, win: int, hop: int, log_floor: float,
     for s in range(0, nf, block):
         idx = np.arange(s, min(nf, s + block))[:, None] * hop + np.arange(win)[None, :]
         frames = x[idx] * w
-        spec = np.fft.rfft(_bf16(frames) if precision == "bf16" else frames, n=win, axis=1)
+        if precision != "fp64":
+            frames = _rounded(frames, precision)
+        spec = np.fft.rfft(frames, n=win, axis=1)
         out[s:s + len(idx)] = np.log10(np.maximum(spec.real ** 2 + spec.imag ** 2, log_floor))
     return out
 

@@ -9,7 +9,7 @@ import torch
 from benchmark import run
 from benchmark.control import readings
 from benchmark.faults import BLOCK, _altered, planted
-from test_harness_drivers import CELLS, SEED, tiny
+from test_harness_drivers import CELLS, SEED, cells_of, tiny, window
 
 
 def failed(checks: dict, name: str) -> list[str]:
@@ -36,16 +36,26 @@ def test_control_on_the_card(card, name):
 @pytest.mark.parametrize("fault", ["answer", "half", "block"])
 def test_planted_fault_is_not_correct(name, fault):
     with planted(fault):
-        res, _ = run.run_cell(name, SEED, 4.0, False, torch.device("cpu"), overrides=tiny(name))
-    assert not res["correct"], res["checks"]
+        res, _ = run.run_cell(name, SEED, window(name), False, torch.device("cpu"),
+                              overrides=tiny(name))
+    assert res["checks"] and not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("name", [c for c in CELLS if c.startswith("config2.")])
+@pytest.mark.parametrize("name", cells_of("discover"))
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch"])
 def test_training_fault_is_not_correct(name, fault):
     with planted(fault):
-        res, _ = run.run_cell(name, SEED, 4.0, False, torch.device("cpu"), overrides=tiny(name))
-    assert not res["correct"], res["checks"]
+        res, _ = run.run_cell(name, SEED, window(name), False, torch.device("cpu"),
+                              overrides=tiny(name))
+    assert res["checks"] and not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("name", cells_of("discover_pca"))
+def test_embedding_fault_is_not_correct(name):
+    with planted("unwhitened"):
+        res, _ = run.run_cell(name, SEED, window(name), False, torch.device("cpu"),
+                              overrides=tiny(name))
+    assert res["checks"] and not res["correct"], res["checks"]
 
 
 @pytest.mark.parametrize("K", [48, 300, 10240])

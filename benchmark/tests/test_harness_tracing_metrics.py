@@ -67,3 +67,32 @@ def test_first_use_s_is_none_without_the_registry(monkeypatch):
 
     monkeypatch.delattr(apd_logging, "FIRST_USE")
     assert reader("first_use_s")(fabricated()) is None
+
+
+def test_dtw_long_roofline_counts_every_cell_of_every_pair():
+    """K8's share: the cells of every pair (la x lb, unbanded) at 3d+4 fp32
+    operations over 67 TFLOP/s, over the device time of the kernels named
+    ``long_block_kernel`` a traced job."""
+    lens = [4284, 5000, 8192, 6001, 4284]
+    ctx = bench_run.make_ctx("longunits.discover", 1, None, None)
+    stats = {"timings_s": {}, "counts": {"feature_dim": 16.0}, "lengths": lens}
+    trace = {"device_ops": [["void long_block_kernel<4, 4, true, false>(...)", 0.03],
+                            ["void long_block_kernel<2, 4, true, false>(...)", 0.01],
+                            ["Memcpy HtoD (Pageable -> Device)", 0.5]]}
+    runs = Run(ctx, 20.0, 12.0, [{"stats": stats}, {"stats": stats}], trace)
+    cells = sum(lens[i] * lens[j] for i in range(5) for j in range(i + 1, 5))
+    least = cells * (3 * 16 + 4) / 67e12
+    assert reader("dtw_long_roofline.discover")(runs) == pytest.approx(
+        100.0 * 2 * least / 0.04, rel=1e-12)
+    # Nothing to read: no trace, or no K8 kernel in it (the CPU's twin).
+    assert reader("dtw_long_roofline.discover")(Run(ctx, 20.0, 12.0, [{"stats": stats}])) is None
+    trace["device_ops"] = trace["device_ops"][2:]
+    assert reader("dtw_long_roofline.discover")(runs) is None
+
+
+def test_embedding_s_sums_fit_and_encode():
+    read = reader("embedding_s.discover")
+    runs = fabricated(job({"embedding_fit": 0.3, "embedding_encode": 0.1}, {}),
+                      job({"embedding_fit": 0.5, "embedding_encode": 0.1}, {}))
+    assert read(runs) == pytest.approx(0.5)
+    assert read(fabricated(job({"autoencoder_train": 1.9}, {}))) is None
