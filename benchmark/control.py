@@ -8,7 +8,8 @@ at the cell's own size (the sound reading), then the control in the
 program's place (the cell's driver's ``control``: the reference computed
 in bfloat16), each held to the cell's checks.  One JSON line a seed:
 ``{"seed", "sound": {check: value}, "control": {check: value}}`` (no ``"control"`` with
-``--sound-only``).  The
+``--sound-only``).  The cell runs on its own cards, as ``benchmark/run.py``
+runs it.  The
 benchmark's own runs never run the control; the limits in the cell's file
 lie between the largest sound reading and the smallest control reading.
 With ``--fault`` (``benchmark/faults.py``) the fault is planted for the
@@ -29,16 +30,17 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from benchmark.faults import FAULTS, planted  # noqa: E402
-from benchmark.run import HERE, load_module, make_ctx  # noqa: E402
+from benchmark.run import HERE, load_json, load_module, make_ctx  # noqa: E402
 
 
-def readings(name: str, seed: int, device, overrides: dict | None = None,
+def readings(name: str, seed: int, devices, overrides: dict | None = None,
              fault: str | None = None, control: bool = True) -> dict:
     """{"seed", "sound", "control"} of one seed of cell ``name`` ("control"
-    only with ``control``), or with ``fault`` {"seed", "fault"}."""
+    only with ``control``), or with ``fault`` {"seed", "fault"}, on
+    ``devices`` (a list, or one device: see ``run.cell_devices``)."""
     tmp = Path(tempfile.mkdtemp(prefix="apd_control_", dir=os.environ.get("TMPDIR")))
     try:
-        ctx = make_ctx(name, seed, device, tmp, overrides)
+        ctx = make_ctx(name, seed, devices, tmp, overrides)
         driver = load_module(HERE / "traffic" / f"{ctx.cell['driver']}.py")
         if fault:
             with planted(fault):
@@ -68,8 +70,9 @@ def main() -> int:
     args = ap.parse_args()
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch sees no CUDA card", file=sys.stderr)
+    chips = int(load_json(HERE / "workloads" / f"{args.workload}.json")["chips"])
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"the cell needs {chips} CUDA card(s)", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

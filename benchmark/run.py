@@ -17,8 +17,10 @@ produced against the plain reference under ``benchmark/reference/``: each
 number beside its limit on standard error's last lines and under the result's
 last key, ``checks``.  The result is standard output's last line.
 
-Exits 2 without a result where torch sees fewer cards than the cell asks
-for, and 3 where JAX or the JAX package was loaded.
+A cell of ``chips`` cards runs on cards 0 .. chips-1 (``Ctx.devices``); the
+result line's ``device.count`` is the number of them that the window's jobs
+allocated on.  Exits 2 without a result where torch sees fewer cards than
+the cell asks for, and 3 where JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -50,15 +52,26 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "audio_pattern_discovery_tpu")
 @dataclass
 class Ctx:
     """What a traffic driver is given: the cell's and configuration's files
-    as parsed, the seed, the device and a scratch directory under TMPDIR."""
+    as parsed, the seed, the cell's devices (``devices``, the first of them
+    ``device``) and a scratch directory under TMPDIR."""
 
     name: str
     cell: dict
     config: dict
     seed: int
-    device: object
+    devices: list
     tmp: Path
     log: logging.Logger
+
+    @property
+    def device(self):
+        return self.devices[0]
+
+    @property
+    def program_device(self):
+        """What the program is handed: the device list in a cell of more
+        than one chip, else the one device."""
+        return self.devices if len(self.devices) > 1 else self.device
 
 
 @dataclass
@@ -96,9 +109,42 @@ def _merged(base: dict, over: dict | None) -> dict:
     return out
 
 
-def make_ctx(name: str, seed: int, device, tmp: Path, overrides: dict | None = None) -> Ctx:
-    """The context of cell ``name``; ``overrides`` ({"cell": ..., "config":
-    ...}) shrink a cell for the CPU tests."""
+def cell_devices(devices, chips: int) -> list:
+    """The cell's ``chips`` devices: a list as given; for one device, cards
+    0 .. chips-1 where it is a card, else that device ``chips`` times (a
+    device list may repeat one device)."""
+    if isinstance(devices, (list, tuple)):
+        return list(devices)
+    if devices is not None and getattr(devices, "type", devices) == "cuda":
+        import torch
+
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [devices] * chips
+
+
+def card_indices(devices: list) -> list[int]:
+    """The distinct CUDA cards among ``devices``, by index, in order."""
+    cards = [d for d in dict.fromkeys(devices) if getattr(d, "type", None) == "cuda"]
+    return [d.index or 0 for d in cards]
+
+
+def allocations(cards: list[int]) -> list[int]:
+    """Each card's count of allocations so far (the caching allocator's
+    ``allocation.all.allocated``)."""
+    import torch
+
+    return [int(torch.cuda.memory_stats(i).get("allocation.all.allocated", 0)) for i in cards]
+
+
+def cards_used(before: list[int], after: list[int]) -> int:
+    """The cards whose allocation count grew between two readings."""
+    return sum(a > b for b, a in zip(before, after))
+
+
+def make_ctx(name: str, seed: int, devices, tmp: Path, overrides: dict | None = None) -> Ctx:
+    """The context of cell ``name`` on ``devices`` (a list, or one device:
+    see ``cell_devices``); ``overrides`` ({"cell": ..., "config": ...})
+    shrink a cell for the CPU tests."""
     overrides = overrides or {}
     cell = _merged(load_json(HERE / "workloads" / f"{name}.json"), overrides.get("cell"))
     config = _merged(load_json(HERE / "configs" / f"{cell['config']}.json"),
@@ -108,13 +154,15 @@ def make_ctx(name: str, seed: int, device, tmp: Path, overrides: dict | None = N
     if not log.handlers:
         log.addHandler(logging.StreamHandler(sys.stderr))
     log.propagate = False
-    return Ctx(name, cell, config, int(seed), device, tmp, log)
+    return Ctx(name, cell, config, int(seed), cell_devices(devices, int(cell["chips"])), tmp, log)
 
 
-def run_window(driver, state, seconds: float, trace_jobs: int, tmp: Path, sync) -> tuple:
+def run_window(driver, state, seconds: float, trace_jobs: int, tmp: Path, sync,
+               cards: list[int] = (0,)) -> tuple:
     """Whole jobs back to back from the window's start; those that end within
     ``seconds`` count.  With ``trace_jobs`` > 0 the jobs that start in the
-    window, up to that many, run under torch.profiler.  Returns (window_s,
+    window, up to that many, run under torch.profiler, and the trace is
+    reduced over ``cards`` (device indices).  Returns (window_s,
     jobs, the reduced trace or None, the last counted job's output,
     attempted, failed)."""
     import torch
@@ -160,7 +208,7 @@ def run_window(driver, state, seconds: float, trace_jobs: int, tmp: Path, sync) 
         prof.export_chrome_trace(str(path))
         del prof
         if jobs:
-            trace = reduce_trace(path, sampler.samples, jobs[0]["t0"])
+            trace = reduce_trace(path, sampler.samples, jobs[0]["t0"], cards=cards)
         path.unlink()
     return window_s, jobs, trace, out, len(jobs) + failed, failed
 
@@ -184,28 +232,32 @@ def metric_names(bench: dict, name: str, trace: bool) -> list[dict]:
     return [m for m in bench[kind] if name in m.get("workloads", [name])]
 
 
-def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
+def run_cell(name: str, seed: int, seconds: float, trace: bool, devices,
              overrides: dict | None = None, bench: dict | None = None) -> tuple[dict, list]:
-    """One run of cell ``name`` on ``device``: (result line, checks)."""
+    """One run of cell ``name`` on ``devices`` (a list, or one device: see
+    ``cell_devices``): (result line, checks)."""
     import torch
 
     bench = bench or load_json(ROOT / "BENCHMARK.json")
     tmp = Path(tempfile.mkdtemp(prefix="apd_bench_", dir=os.environ.get("TMPDIR")))
     try:
-        ctx = make_ctx(name, seed, device, tmp, overrides)
+        ctx = make_ctx(name, seed, devices, tmp, overrides)
         driver = load_module(HERE / "traffic" / f"{ctx.cell['driver']}.py")
-        on_card = torch.device(device).type == "cuda"
+        cards = card_indices(ctx.devices)
 
         def sync():
-            if on_card:
-                torch.cuda.synchronize(device)
+            for i in cards:
+                torch.cuda.synchronize(i)
 
         state = driver.setup(ctx)
         sync()
         setup_s = time.perf_counter() - T_START
+        before = allocations(cards)
         window_s, jobs, tr, out, attempted, failed = run_window(
-            driver, state, seconds, int(ctx.cell["trace_jobs"]) if trace else 0, tmp, sync)
-        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+            driver, state, seconds, int(ctx.cell["trace_jobs"]) if trace else 0, tmp, sync,
+            cards or [0])
+        used = cards_used(before, allocations(cards)) if cards else 1
+        peaks = [int(torch.cuda.max_memory_allocated(i)) for i in cards]
         run = Run(ctx, setup_s, window_s, jobs, tr)
         metrics = {}
         for m in metric_names(bench, name, trace):
@@ -215,8 +267,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
         driver.release(state)
         del state
         checks = driver.check(ctx, out) if out is not None else []
-        for line in machine_lines(device):
+        for line in machine_lines(ctx.device):
             print(line, file=sys.stderr)
+        if cards and used < len(cards):
+            print(f"the window's jobs used {used} of the cell's {len(cards)} cards",
+                  file=sys.stderr)
         print(f"jobs {len(jobs)} attempted {attempted} failed {failed} window_s {window_s} "
               f"setup_s {setup_s}", file=sys.stderr)
         print(f"job seconds: {[j['t1'] - j['t0'] for j in jobs]}", file=sys.stderr)
@@ -227,14 +282,17 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
             if mean:
                 print(f"{key} a job: {json.dumps(mean)}", file=sys.stderr)
         correct = bool(checks) and failed == 0 and all(c[1] <= c[2] for c in checks)
-        dev_info = {"platform": "gpu" if on_card else "cpu",
-                    "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
-                    "count": 1, "memory_peak_bytes": int(peak)}
+        dev_info = {"platform": "gpu" if cards else "cpu",
+                    "kind": torch.cuda.get_device_name(cards[0]) if cards else "cpu",
+                    "count": used, "memory_peak_bytes": max(peaks, default=0),
+                    "memory_peak_bytes_by_device": peaks}
         result = {"correct": correct, "attempted": attempted, "failed": failed,
                   "metrics": metrics, "device": dev_info}
         if tr is not None:
             dev_info["busy_s"] = tr["busy_s"]
             dev_info["window_s"] = tr["window_s"]
+            dev_info["busy_s_by_device"] = tr["busy_s_by_device"]
+            dev_info["device_ops_by_device"] = tr["device_ops_by_device"]
             result["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
         result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in checks}
         return result, checks

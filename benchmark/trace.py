@@ -3,8 +3,9 @@ device busy time, kernel time by name and the longest idle gaps.
 
 The profiler records CPU and CUDA activity.  Its Chrome trace is written to
 the run's scratch directory, read back and deleted.  Device operations are
-the events of categories ``kernel``, ``gpu_memcpy`` and ``gpu_memset``; the
-traced window is the span of the harness's ``bench.job`` ranges.  An idle
+the events of categories ``kernel``, ``gpu_memcpy`` and ``gpu_memset``, each
+on the card its ``args["device"]`` names; the traced window is the span of
+the harness's ``bench.job`` ranges.  An idle
 gap is named by what the host was doing in it: the function of the program
 that a sampler of every thread's Python stack (``HostSampler``) found most
 often in the gap, else the innermost torch operation around it.
@@ -93,10 +94,21 @@ def gaps(intervals: list[tuple[float, float]], lo: float, hi: float) -> list[tup
     return [(s, e) for s, e in out if e > s]
 
 
-def reduce_trace(path: Path, samples=(), first_job_t0: float = 0.0, top: int = 10) -> dict:
-    """{"window_s", "busy_s", "kernel_s", "device_ops": [[name, s]],
-    "idle_gaps": [[what, s]]} of a
-    Chrome trace, over the span of its job ranges; ``samples`` from a
+def card_of(event: dict) -> int:
+    """The card a device operation ran on, by the profiler's device index."""
+    return int(event.get("args", {}).get("device", 0))
+
+
+def reduce_trace(path: Path, samples=(), first_job_t0: float = 0.0, top: int = 10,
+                 cards=(0,)) -> dict:
+    """{"window_s", "busy_s", "busy_s_by_device", "kernel_s", "device_ops":
+    [[name, s]], "device_ops_by_device": [[[name, s]], ...], "idle_gaps":
+    [[what, s]]} of a Chrome trace, over the span of its job ranges.
+    ``busy_s`` is the mean over ``cards`` (device indices) of each card's
+    own busy seconds (``busy_s_by_device``, in the order of ``cards``);
+    ``device_ops`` sums each operation's seconds over every card,
+    ``device_ops_by_device`` lists each card's ``top`` longest; the idle gaps
+    are those of every card's operations together.  ``samples`` from a
     ``HostSampler``, whose clock the first job's start ``first_job_t0``
     (perf_counter seconds) ties to the trace's."""
     events = json.loads(Path(path).read_text()).get("traceEvents", [])
@@ -105,13 +117,14 @@ def reduce_trace(path: Path, samples=(), first_job_t0: float = 0.0, top: int = 1
     if not jobs:
         raise RuntimeError("the trace holds no job range")
     lo, hi = min(s for s, _ in jobs), max(e for _, e in jobs)
-    dev = [(e["name"], max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["cat"]) for e in events
-           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+    # With one card every device operation is its own, whatever index the
+    # profiler gives it.
+    dev = [(e["name"], max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["cat"],
+            card_of(e) if len(cards) > 1 else cards[0])
+           for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
            and e["ts"] < hi and e["ts"] + e["dur"] > lo]
-    busy = [(s, e) for _, s, e, _ in dev]
-    by_name: dict[str, float] = {}
-    for name, s, e, _ in dev:
-        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e6
+    busy = [(s, e) for _, s, e, _, _ in dev]
+    busy_by = [union_s([(s, e) for _, s, e, _, c in dev if c == card]) for card in cards]
     host = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                    if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation",
                                                                "cuda_runtime", "cuda_driver")
@@ -133,17 +146,29 @@ def reduce_trace(path: Path, samples=(), first_job_t0: float = 0.0, top: int = 1
         labelled.append([what, (e - s) / 1e6])
     return {
         "window_s": (hi - lo) / 1e6,
-        "busy_s": union_s(busy),
-        "kernel_s": sum((e - s) for _, s, e, cat in dev if cat == "kernel") / 1e6,
-        "device_ops": sorted(([n, t] for n, t in by_name.items()), key=lambda x: -x[1])[:top],
+        "busy_s": sum(busy_by) / len(busy_by),
+        "busy_s_by_device": busy_by,
+        "kernel_s": sum((e - s) for _, s, e, cat, _ in dev if cat == "kernel") / 1e6,
+        "device_ops": top_ops(dev, top),
+        "device_ops_by_device": [top_ops([o for o in dev if o[4] == card], top)
+                                 for card in cards],
         "idle_gaps": labelled,
     }
 
 
+def top_ops(dev: list, top: int) -> list:
+    """[[name, seconds]] of the ``top`` operations of ``dev`` that took the
+    most time, each name's intervals summed."""
+    by_name: dict[str, float] = {}
+    for name, s, e, *_ in dev:
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e6
+    return sorted(([n, t] for n, t in by_name.items()), key=lambda x: -x[1])[:top]
+
+
 def idle_pct(run):
-    """The share of the traced window in which no operation ran on the device
-    (the union of the profiler's kernel, copy and set intervals), in %; None
-    without a trace."""
+    """The share of the traced window in which no operation ran on a card
+    (the union of the profiler's kernel, copy and set intervals on it), in
+    %, the mean over the cell's cards; None without a trace."""
     if not run.trace or run.trace["window_s"] <= 0:
         return None
     return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])

@@ -2,7 +2,8 @@
 corpus of feature sequences made on the device from the seed.
 
 A job is ``parallel.pair_scheduler.all_pairs_distances`` on the device
-features, D back on the host as NumPy.  Its work is the K(K-1)/2 pairs.
+features (over the cell's cards where it has more than one), D back on the
+host as NumPy.  Its work is the K(K-1)/2 pairs.
 
 Configuration: ``K`` sequences of ``S`` frames of ``d`` channels, lengths
 uniform in [S/2, S], zero past each length; ``dtw``: the port's
@@ -38,7 +39,7 @@ def setup(ctx) -> dict:
 
     feats, lens = corpus(ctx)
     state = {"feats": feats, "lens": lens.cpu().numpy(), "dtw": DTWConfig(**_dtw_fields(ctx)),
-             "device": ctx.device}
+             "device": ctx.device, "devices": ctx.devices if len(ctx.devices) > 1 else None}
     run_job(state)
     return state
 
@@ -48,7 +49,7 @@ def run_job(state) -> tuple[dict, np.ndarray]:
 
     stats: dict = {}
     D = all_pairs_distances(state["feats"], state["lens"], state["dtw"], device=state["device"],
-                            stats=stats)
+                            stats=stats, devices=state["devices"])
     K = len(state["lens"])
     return {"work": K * (K - 1) // 2, "stats": stats}, D
 

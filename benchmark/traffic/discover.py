@@ -1,9 +1,10 @@
 """Traffic driver ``discover``: one ``pipeline.discover`` run after another
 over one corpus of WAVs written from the seed.
 
-A job is the port's ``discover()`` on the corpus directory, on one device,
-with no output directory (artifacts are not written).  Its work is one run;
-its stats are the run's stage seconds and counts.  The parameters that the
+A job is the port's ``discover()`` on the corpus directory, on the cell's
+device (its list of cards where it has more than one), with no output
+directory (artifacts are not written).  Its work is one run; its stats are
+the run's stage seconds and counts.  The parameters that the
 run's AE training returns are kept beside its result for the check (the
 pipeline's own call, wrapped to keep a reference to them).
 
@@ -70,7 +71,8 @@ def run_job(state) -> tuple[dict, tuple]:
 
     ctx = state["ctx"]
     state["trained"] = None
-    res = discover(state["corpus"], state["cfg"], out_dir=None, logger=ctx.log, device=ctx.device)
+    res = discover(state["corpus"], state["cfg"], out_dir=None, logger=ctx.log,
+                   device=ctx.program_device)
     return {"work": 1, "stats": {"timings_s": dict(res.counters.timings_s),
                                  "counts": dict(res.counters.counts)}}, (res, state["trained"])
 
