@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audio_pattern_discovery_tpu_torch.config import AutoencoderConfig
+from audio_pattern_discovery_tpu_torch.ops.scaler_stats import scaler_stats
 from audio_pattern_discovery_tpu_torch.utils.device import resolve_device
 from audio_pattern_discovery_tpu_torch.utils.logging import FIRST_USE, StageCounters
 from audio_pattern_discovery_tpu_torch.utils.profiling import annotate
@@ -64,7 +65,18 @@ class FeatureScaler:
     std: np.ndarray    # [dim]
 
     @classmethod
-    def fit(cls, frames: np.ndarray) -> "FeatureScaler":
+    def fit(cls, frames: np.ndarray | torch.Tensor) -> "FeatureScaler":
+        """Per-bin mean and population std (floored at 1e-6) of [N, dim]
+        frames, in two passes (the mean, then the mean of the centred
+        squares).  A CUDA tensor reduces on its card
+        (``ops/scaler_stats.py``), bit for bit as NumPy does; NumPy arrays
+        and CPU tensors reduce on the host.  Either way the statistics come
+        back as float32 NumPy arrays."""
+        if isinstance(frames, torch.Tensor):
+            if frames.device.type == "cuda":
+                mean, std = scaler_stats(frames.float().contiguous()).cpu().numpy()
+                return cls(mean, std)
+            frames = frames.numpy()
         mean = frames.mean(axis=0)
         std = np.maximum(frames.std(axis=0), 1e-6)
         return cls(mean.astype(np.float32), std.astype(np.float32))
@@ -77,6 +89,14 @@ class FeatureScaler:
             std = torch.from_numpy(self.std).to(frames.device)
             return (frames - mean) / std
         return (frames - self.mean) / self.std
+
+    def transform_(self, frames: torch.Tensor) -> torch.Tensor:
+        """``transform`` of a float32 tensor in place, on its own device:
+        each element still (x - mean) / std in fp32, with no temporaries the
+        size of ``frames``."""
+        mean = torch.from_numpy(self.mean).to(frames.device)
+        std = torch.from_numpy(self.std).to(frames.device)
+        return frames.sub_(mean).div_(std)
 
 
 def _mlp(h: torch.Tensor, layers, act, dtype: torch.dtype) -> torch.Tensor:

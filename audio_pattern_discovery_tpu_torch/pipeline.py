@@ -228,6 +228,19 @@ def _flat_frames(
     )
 
 
+def _flat_frames_device(
+    frames_dev: torch.Tensor,      # [K, L, dim] on its device
+    seg_lengths: np.ndarray,
+) -> torch.Tensor:
+    """``_flat_frames`` on the device of the resident segment tensor: its
+    real (unpadded) rows in segment order, then frame order, gathered with
+    no host round trip.  Given ``stack_context_device``'s output, the rows
+    are ``flat_context``'s."""
+    K, L, dim = frames_dev.shape
+    rows = np.flatnonzero(np.arange(L) < np.asarray(seg_lengths, np.int64)[:, None])
+    return frames_dev.reshape(K * L, dim)[torch.from_numpy(rows).to(frames_dev.device)]
+
+
 def extract_segment_features(
     spectrograms: np.ndarray,      # [B, F, bins]
     segments: list[Segment],
@@ -665,22 +678,26 @@ def discover(
             emb_frames_dev = stack_context_device(seg_frames_dev, seg_lengths, ctx)
     ae_losses: list[float] = []
     if ae.enabled and ae.method == "pca":
-        # Covariance on the device, eigensolve on the host (models/pca.py).
+        # The scaler, the standardization and the covariance on the device
+        # from the resident frames; the eigensolve on the host (models/pca.py).
         with counters.time_stage("embedding_fit"):
             if restore_dir is not None and ckpt.has_pca_checkpoint(restore_dir):
                 pca_state, scaler = ckpt.restore_pca_checkpoint(restore_dir)
+                counters.add("embedding_fit_device", 0)
                 log.info(f"restored PCA embedding from {restore_dir}")
                 if ckpt_dir is not None and ckpt_dir.resolve() != restore_dir.resolve():
                     ckpt.save_pca_checkpoint(ckpt_dir, pca_state, scaler)
             else:
-                flat = _flat_frames(seg_frames, seg_lengths, len(segments), ctx)
-                scaler = FeatureScaler.fit(flat)
+                flat_dev = _flat_frames_device(emb_frames_dev, seg_lengths)
+                scaler = FeatureScaler.fit(flat_dev)
                 pca_state = fit_pca(
-                    scaler.transform(flat).astype(np.float32),
+                    scaler.transform_(flat_dev),
                     ae.latent_dim,
                     whiten=ae.pca_whiten,
                     device=device,
                 )
+                del flat_dev
+                counters.add("embedding_fit_device", 1)
                 log.info(
                     f"PCA embedding: {ae.latent_dim} components "
                     f"capture {100 * float(pca_state.explained.sum()):.1f}% "

@@ -163,7 +163,8 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    unbanded and widen 16) with its bound;
 28. long units past 4096 frames through ``discover()`` (24 clips of 120 s
    with 3 motifs of 25-45 s, unbanded, PCA, alignments off): K8 alone
-   launches, 8 distances against the twin, purity, the stages; the job
+   launches, the scaler's kernel once (the PCA fit from the card's frames,
+   ``embedding_fit_device`` 1), 8 distances against the twin, purity, the stages; the job
    again through the per-pair route (the same D and K8 launches, at most
    max(nBa + nBb - 1) a merged call) with the split of its wall; on the same
    features widen band 16 (K8) and diag band 16 on the
@@ -176,7 +177,7 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    K8's twin;
 30. the runtime extras: ``--doctor`` as a subprocess (the card's name and
    power limit, ``dispatch_floor_ms``, ``hbm_gbps``, ``upload_mb_s``, and
-   the nine kernel libraries current in ``compile_cache``); the seed-7 CLI
+   the ten kernel libraries current in ``compile_cache``); the seed-7 CLI
    at the golden config with ``--trace DIR``: the trace's CUDA kernel
    events of K1's kernel number the run's K1 launches and lie inside its
    range ``apd.dtw``, and it holds one range ``apd.<stage>`` for each stage
@@ -225,7 +226,15 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    bound (blocks read and D written once at 3.35 TB/s) and the plain twins'
    time on the card (bitwise the kernels); the copy of D back pageable,
    staged through a pinned buffer and as the pinned buffer; each job's wall
-   and ``scatter_s`` on both paths.
+   and ``scatter_s`` on both paths;
+34. the feature scaler's statistics on the card (``ops/scaler_stats.py``):
+   bitwise ``FeatureScaler.fit`` on the host copy (NumPy's reductions) at
+   every shape of ``SCALER_SHAPES`` (one row to longunits' ~300k frames of 513 bins, 5 x
+   513 bins stacked), with a bin at 1000 +- 0.01, a constant bin and a NaN;
+   ``FeatureScaler.fit`` on a CUDA tensor bitwise on its host copy; the
+   PCA's pool gathered on the card bitwise ``_flat_frames``; the kernel
+   timed at 300k x 513 beside its bound, NumPy's fit and ``torch.std_mean``
+   (its ``library_ms``; its launches are phase 28's discover()).
 
 Two measurements outside the phases, each after phase 1 and then exit:
 ``--crossover`` times K4 against K5 on one job per class stripe, in turns
@@ -290,6 +299,8 @@ KERNELS = {   # source name -> (entry function, kernel body it replaces)
     "dtw_long_block": ("dtw_long_batch", "audio_pattern_discovery_tpu/ops/dtw_long.py:72"),
     # No pallas_call: the reference's host scatter of D.
     "dtw_scatter": ("scatter_tile_blocks", "native/apd_native.cc:433"),
+    # No pallas_call: the reference's NumPy feature scaler.
+    "scaler_stats": ("scaler_stats", "audio_pattern_discovery_tpu/models/autoencoder.py:76"),
 }
 # Kernel vs plain twin: both compute each pair in fp32 from the same
 # squared-difference costs; the twin evaluates each DP row's left-to-right
@@ -464,7 +475,7 @@ def phase1(dev) -> dict:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load_all(list(KERNELS))
-    log(f"phase 1: K1-K8 and the scatter loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 1: K1-K8, the scatter and the scaler loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         ptxas = _build.build_info.get(name, "(already built)")
         secs = FIRST_USE.timings_s.get(f"kernel_build.{name}", 0.0)
@@ -2809,6 +2820,7 @@ def phase28(dev, tmp: Path, keep: dict) -> dict:
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import dtw_tile_lane_diag_pairs
     from audio_pattern_discovery_tpu_torch.ops.dtw_long import dtw_long_batch, dtw_long_batch_ref
+    from audio_pattern_discovery_tpu_torch.ops.scaler_stats import scaler_stats
     from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
     from audio_pattern_discovery_tpu_torch.pipeline import DTW_KERNELS, discover
 
@@ -2816,12 +2828,18 @@ def phase28(dev, tmp: Path, keep: dict) -> dict:
     cfg = phase28_config()
     for k in DTW_KERNELS:
         k.launches = 0
+    scaler_stats.launches = 0
     t0 = time.perf_counter()
     res = discover(corpus, cfg, out_dir=tmp / "long_units_28_out", device=dev)
     wall = time.perf_counter() - t0
     launched = {k.__name__: k.launches for k in DTW_KERNELS if k.launches}
     if set(launched) != {"dtw_long_batch"}:
         fail(f"phase 28: discover() launched {launched}; want dtw_long_batch alone")
+    # The PCA's scaler fitted from the card's frames: one launch of its kernel.
+    scaler_launches = scaler_stats.launches
+    if scaler_launches != 1 or res.counters.counts.get("embedding_fit_device") != 1:
+        fail(f"phase 28: discover() launched the scaler's kernel {scaler_launches} times, "
+             f"embedding_fit_device {res.counters.counts.get('embedding_fit_device')}; want 1 and 1")
     D, f, n = res.distance_matrix, res.seg_features, res.seg_lengths
     keep["features"] = (f, n)
     if not np.isfinite(D).all() or len(res.clusters) < 1:
@@ -2845,7 +2863,7 @@ def phase28(dev, tmp: Path, keep: dict) -> dict:
     log(f"phase 28: long units past 4096 frames ({len(n)} segments of {int(n.min())}-"
         f"{int(n.max())} frames, d={f.shape[2]}, {len(res.clusters)} clusters, planted-truth "
         f"purity {purity:.4f}): K8 launches {launched['dtw_long_batch']} and no other DTW "
-        f"kernel; 8 distances match the twin (max abs err {err8:.3g}, relative "
+        f"kernel, the scaler's kernel {scaler_launches}; 8 distances match the twin (max abs err {err8:.3g}, relative "
         f"{K8_READINGS['phase 28 (8 distances vs the twin)']:.3g}); discover() wall "
         f"{wall:.2f} s (alignments off); stages {t}")
     # The job's DTW again through the scheduler: the same D bit for bit, the
@@ -2900,7 +2918,7 @@ def phase28(dev, tmp: Path, keep: dict) -> dict:
                 torch.from_numpy(D_k3), K3_RTOL, K3_ATOL)
     log(f"phase 28: the per-pair route at 1,100-4,096 frames against the tiled K3 D (wall "
         f"{k3_wall:.3f} s): max abs difference {err:.3g} (rtol {K3_RTOL}, atol {K3_ATOL})")
-    return {"launches": launched["dtw_long_batch"]}
+    return {"launches": launched["dtw_long_batch"], "scaler_launches": scaler_launches}
 
 
 def phase29(dev, tmp: Path) -> None:
@@ -3896,6 +3914,79 @@ def phase33(dev) -> dict:
             "bound_ms": res["diag16"]["bound_ms"], "twin_ms": res["diag16"]["twin_ms"]}
 
 
+# Shapes of phase 34: one row, columns around a block of 32, rows around
+# the kernel's tiles of 64, a context-stacked job (5 x 513 bins), and
+# longunits.discover's PCA pool (~300k frames of 513 bins).
+SCALER_SHAPES = ((1, 3), (2, 1), (63, 31), (64, 32), (65, 33), (1000, 513), (4097, 2565),
+                 (300_000, 513))
+# The H100 SXM's boost clock, for the kernel's bound: 2n dependent fp32
+# additions a column at 4 cycles each.
+SM_HZ = 1.98e9
+
+
+def phase34(dev) -> dict:
+    """The feature scaler's statistics on the card (``ops/scaler_stats.py``,
+    ``csrc/scaler_stats.cu``) bitwise its plain version, ``FeatureScaler.fit``
+    on the host copy (NumPy's reductions), at every shape of ``SCALER_SHAPES``, with a bin at 1000 +- 0.01 (where only
+    NumPy's order gives its bits), a constant bin (the 1e-6 floor) and a
+    bin with a NaN (kept), called directly and through ``FeatureScaler.fit``;
+    the PCA's pool gathered on the card (``pipeline._flat_frames_device``)
+    bitwise ``_flat_frames``; the kernel timed at the largest shape against
+    its bound, NumPy's fit and torch's ``std_mean`` there."""
+    from audio_pattern_discovery_tpu_torch import pipeline
+    from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
+    from audio_pattern_discovery_tpu_torch.ops import scaler_stats as ss
+
+    rng = np.random.default_rng(34)
+    n0 = ss.scaler_stats.launches
+    for n, d in SCALER_SHAPES:
+        x = (rng.normal(size=(n, d)) * rng.uniform(0.5, 3, d) + rng.uniform(-12, 4, d))
+        x = x.astype(np.float32)
+        x[:, 0] = 1000.0 + 0.01 * rng.normal(size=n)
+        if d >= 3:
+            x[:, 1] = -7.25
+            x[n // 2, 2] = np.nan
+        xd = torch.from_numpy(x).to(dev)
+        host = FeatureScaler.fit(x)
+        want = np.stack([host.mean, host.std])
+        got = ss.scaler_stats(xd).cpu().numpy()
+        if not np.array_equal(got, want, equal_nan=True):
+            bad = np.flatnonzero(~((got == want) | (np.isnan(got) & np.isnan(want))).all(0))
+            fail(f"phase 34: n={n} d={d}: the kernel's statistics differ from NumPy's in "
+                 f"{len(bad)} columns, e.g. {bad[:5].tolist()}")
+        fit = FeatureScaler.fit(xd)
+        if not (np.array_equal(fit.mean, host.mean, equal_nan=True)
+                and np.array_equal(fit.std, host.std, equal_nan=True)):
+            fail(f"phase 34: n={n} d={d}: FeatureScaler.fit on the card differs from the host's")
+    if ss.scaler_stats.launches - n0 != 2 * len(SCALER_SHAPES):
+        fail(f"phase 34: {ss.scaler_stats.launches - n0} launches for "
+             f"{2 * len(SCALER_SHAPES)} calls")
+    # The PCA's pool: [K, L, d] segments of ragged lengths, gathered on the card.
+    K, L, d = 12, 700, 513
+    lens = rng.integers(1, L + 1, K).astype(np.int32)
+    seg = rng.normal(size=(K, L, d)).astype(np.float32)
+    for k in range(K):
+        seg[k, lens[k]:] = 0.0
+    pool = pipeline._flat_frames_device(torch.from_numpy(seg).to(dev), lens).cpu().numpy()
+    if not np.array_equal(pool, pipeline._flat_frames(seg, lens, K)):
+        fail("phase 34: the pool gathered on the card differs from _flat_frames")
+    n, d = SCALER_SHAPES[-1]
+    kernel_ms = cuda_ms(lambda: ss.scaler_stats(xd), 5, device=dev)
+    library_ms = cuda_ms(lambda: torch.std_mean(xd, dim=0, correction=0), 5, device=dev)
+    chain_ms = 2 * n * 4 / SM_HZ * 1e3
+    bytes_ms = 2 * n * d * 4 / 3.35e12 * 1e3
+    t0 = time.perf_counter()
+    FeatureScaler.fit(x)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    log(f"phase 34: statistics bitwise NumPy's at {len(SCALER_SHAPES)} shapes; pool bitwise; "
+        f"n={n} d={d}: kernel {kernel_ms:.3f} ms against the bound {max(chain_ms, bytes_ms):.3f} "
+        f"ms (chains {chain_ms:.3f}, bytes {bytes_ms:.3f}: "
+        f"{100 * max(chain_ms, bytes_ms) / kernel_ms:.1f} %); NumPy's fit on the host "
+        f"{numpy_ms:.1f} ms; torch.std_mean on the card {library_ms:.3f} ms (not NumPy's bits)")
+    return {"ms": kernel_ms, "bound_ms": max(chain_ms, bytes_ms), "twin_ms": numpy_ms,
+            "library_ms": library_ms}
+
+
 # The K4/K5 gate: class stripes (W = 2*wv+2 slots) and padded lengths at
 # which --crossover times both kernels on one job.
 CROSSOVER = ((128, 34), (128, 66), (128, 98), (128, 130), (128, 144), (256, 130), (256, 258),
@@ -4241,11 +4332,12 @@ def main() -> int:
             against(Path(args.against).resolve())
         return 0
 
-    # library_ms: no PyTorch call computes DTW.
+    # library_ms: no PyTorch call computes DTW; phase 34 times torch.std_mean
+    # for the scaler's kernel.
     kernels = {name: {"name": fn, "route": "cuda", "source": f"{CSRC}/{name}.cu",
                       "replaces": replaces, "library_ms": None}
                for name, (fn, replaces) in KERNELS.items()}
-    k1, k2, k3, k4, k5, k6, k7, k8, k_scatter = (kernels[name] for name in KERNELS)
+    k1, k2, k3, k4, k5, k6, k7, k8, k_scatter, k_stats = (kernels[name] for name in KERNELS)
     # K8's Gram instantiation (dtw.dtype=bfloat16): the same source and
     # reference body, the launches of phase 31's bf16 job.
     k8_bf16 = kernels["dtw_long_block (Gram)"] = {
@@ -4265,6 +4357,12 @@ def main() -> int:
     def long_widen(res: dict) -> None:
         if not k5.get("launches"):
             k5["launches"] = res["launches"]
+
+    def long_units_job(res: dict) -> None:
+        # Phase 28's discover(): K8's launches, and the scaler kernel's in
+        # the PCA fit on the card.
+        k8["launches"] = res["launches"]
+        k_stats["launches"] = res["scaler_launches"]
 
     def known_route(res: dict) -> None:
         # The known= route's launches, beside each kernel's main-path ones:
@@ -4304,12 +4402,13 @@ def main() -> int:
             lambda: phase25(tmp),
             lambda: phase26(dev, tmp),
             lambda: k8.update(phase27(dev)),
-            lambda: k8.update(phase28(dev, tmp, long_units)),
+            lambda: long_units_job(phase28(dev, tmp, long_units)),
             lambda: phase29(dev, tmp),
             lambda: phase30(dev, tmp),
             lambda: k8_bf16.update(phase31(dev, tmp, long_units)),
             lambda: phase32(dev, tmp, long_units),
             lambda: k_scatter.update(phase33(dev)),
+            lambda: k_stats.update(phase34(dev)),
         ]
         t_all = time.perf_counter()
         for n, run in enumerate(phases, start=1):

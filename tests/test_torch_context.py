@@ -113,6 +113,7 @@ def test_discover_matches_jax(corpus, overrides):
     assert _partition(got.labels) == _partition(want.labels)
     if "autoencoder.context_frames" in overrides:
         assert "context_stack" in got.counters.timings_s
+    assert got.counters.counts["embedding_fit_device"] == 1
     # The option changes the result: it is not ignored.
     plain = discover(corpus, _cfg(PipelineConfig, {}), device="cpu")
     assert np.abs(plain.distance_matrix - got.distance_matrix).max() > 1e-4

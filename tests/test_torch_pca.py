@@ -12,6 +12,7 @@ from audio_pattern_discovery_tpu.models.autoencoder import FeatureScaler as JSca
 from audio_pattern_discovery_tpu.models.pca import encode_pca as j_encode
 from audio_pattern_discovery_tpu.models.pca import fit_pca as j_fit
 from audio_pattern_discovery_tpu_torch.models.autoencoder import FeatureScaler
+from audio_pattern_discovery_tpu_torch.ops import scaler_stats as ss
 from audio_pattern_discovery_tpu_torch.models.pca import (
     PCAState,
     encode_pca,
@@ -69,3 +70,55 @@ def test_fit_is_deterministic_and_validates():
         fit_pca(x, 21, device="cpu")
     with pytest.raises(ValueError, match="frames"):
         fit_pca(x[:1], 2, device="cpu")
+
+
+def _scaler_frames(seed, n):
+    """``_frames`` with bin 0 at a large mean and a small spread (log-power
+    bins far from 0: the case where E[x^2] - E[x]^2 cancels) and bin 1
+    constant (the 1e-6 floor)."""
+    x = _frames(seed, n=n)
+    rng = np.random.default_rng(seed)
+    x[:, 0] = 300.0 + 0.5 * rng.normal(size=n)
+    x[:, 1] = -7.25
+    return x
+
+
+def test_scaler_fit_on_a_tensor_matches_numpy_and_jax():
+    # Bit for bit: a CPU tensor's statistics are NumPy's (a CUDA tensor's
+    # are too: ops/scaler_stats.py).
+    x = _scaler_frames(5, n=2000)
+    got = FeatureScaler.fit(torch.from_numpy(x))
+    for want in (FeatureScaler.fit(x), JScaler.fit(x)):
+        np.testing.assert_array_equal(got.mean, want.mean)
+        np.testing.assert_array_equal(got.std, want.std)
+    for a in (got.mean, got.std):
+        assert isinstance(a, np.ndarray) and a.dtype == np.float32 and a.shape == (20,)
+    assert got.std[1] == np.float32(1e-6)
+    # Bin 0 is a cancellation case: fp32's one pass misses its std by far
+    # more than a rounding.
+    one_pass = np.sqrt(np.mean(x[:, 0] * x[:, 0]) - np.mean(x[:, 0]) ** 2)
+    assert abs(one_pass / got.std[0] - 1) > 1e-3
+    # transform sees the same scaler whichever input fitted it, and the
+    # in-place standardization gives its bits.
+    np.testing.assert_array_equal(got.transform(torch.from_numpy(x)).numpy(), got.transform(x))
+    xt = torch.from_numpy(x.copy())
+    assert got.transform_(xt) is xt
+    np.testing.assert_array_equal(xt.numpy(), got.transform(x))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (torch.zeros((64, 3), dtype=torch.float64), "float32"),
+    (torch.zeros(64), "float32"),
+    (torch.zeros((4, 64, 3)), "float32"),
+    (torch.zeros((3, 64)).T, "contiguous"),
+    (torch.zeros((0, 3)), "rows"),
+    (torch.zeros((64, 3)), "CUDA"),
+])
+def test_scaler_stats_refuses_what_the_kernel_cannot_take(bad, match):
+    # The kernel (csrc/scaler_stats.cu) reads contiguous [n, d] fp32 rows
+    # on the card; anything else is refused before a launch.  A CPU
+    # tensor's statistics are FeatureScaler.fit's NumPy branch.
+    n0 = ss.scaler_stats.launches
+    with pytest.raises(ValueError, match=match):
+        ss.scaler_stats(bad)
+    assert ss.scaler_stats.launches == n0

@@ -69,6 +69,8 @@ def test_discover_matches_committed_golden(seed7, resident):
     assert res.distance_matrix.shape == ref["D"].shape
     np.testing.assert_allclose(res.distance_matrix, ref["D"], rtol=1e-4, atol=1e-5)
     assert _partition(res.labels) == _partition(ref["labels"])
+    # The scaler and the covariance were fitted from the resident tensor.
+    assert res.counters.counts["embedding_fit_device"] == 1
     # CPU tensors never reach the CUDA kernel.
     assert res.counters.counts["dtw_kernel_launches"] == 0
 
@@ -626,6 +628,9 @@ def test_pipeline_resume_skips_training(tmp_path, monkeypatch, method, state_fil
     monkeypatch.setattr(tpipe, "fit_pca", refuse)
     r2 = discover(corpus, cfg, out_dir=out, device="cpu")
     assert not r2.ae_losses
+    if method == "pca":
+        assert r1.counters.counts["embedding_fit_device"] == 1
+        assert r2.counters.counts["embedding_fit_device"] == 0
     np.testing.assert_array_equal(r1.labels, r2.labels)
     np.testing.assert_array_equal(r1.distance_matrix, r2.distance_matrix)
     np.testing.assert_array_equal(r1.seg_features, r2.seg_features)
@@ -680,6 +685,26 @@ def test_overlap_training_pool_is_the_prefix_derivation(tmp_path, monkeypatch):
         tuple(vars(s).values()) for s in single.segments]
     assert len(res.ae_losses) == 8 and all(np.isfinite(res.ae_losses))
     assert _purity(res.segments, res.labels, truth, cfg) >= 0.9
+
+
+@pytest.mark.parametrize("ctx", [0, 2])
+def test_device_pool_is_the_host_pool_bitwise(seed7, ctx):
+    # The PCA fit's rows, gathered on the device from the resident segment
+    # tensor (context slices stacked there), are the host pool's: the same
+    # frames in the same order (_flat_frames; flat_context for ctx > 0).
+    from audio_pattern_discovery_tpu_torch import pipeline as tpipe
+    from audio_pattern_discovery_tpu_torch.io.corpus import StreamingCorpus
+    from audio_pattern_discovery_tpu_torch.ops.context import stack_context_device
+    from audio_pattern_discovery_tpu_torch.utils.logging import StageCounters, get_logger
+
+    _, _, segs, seg_frames, seg_dev, lens = tpipe._prepare_corpus(
+        _golden_config(), StreamingCorpus(seed7), StageCounters(), get_logger(),
+        torch.device("cpu"))
+    assert lens.min() < seg_frames.shape[1]          # padded rows to leave out
+    want = tpipe._flat_frames(seg_frames, lens, len(segs), ctx)
+    got = tpipe._flat_frames_device(stack_context_device(seg_dev, lens, ctx), lens)
+    assert got.shape == want.shape == (lens.sum(), (2 * ctx + 1) * seg_frames.shape[2])
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_cli_default_config(seed7, tmp_path, capsys):

@@ -39,7 +39,7 @@ def test_report_keys_without_device_probes():
     cache = rep["compile_cache"]
     assert cache["dir"] == str(_build.BUILD_DIR)
     assert set(cache["libraries"]) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
-    assert len(cache["libraries"]) == 9
+    assert len(cache["libraries"]) == 10
     assert set(cache["libraries"].values()) <= {"absent", "stale", "current"}
     json.dumps(rep)
 
@@ -88,7 +88,7 @@ def test_compile_cache_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
     cache = doctor.run_doctor(probe_device=False)["compile_cache"]
     assert cache["nvcc"] == {"error": "RuntimeError: nvcc not found"}
-    assert len(cache["libraries"]) == 9
+    assert len(cache["libraries"]) == 10
 
 
 @pytest.mark.parametrize("state", ["absent", "stale", "current"])
