@@ -40,12 +40,16 @@
 // threads takes one 32 x 32 sub-tile of a block; on a diagonal tile the
 // sub-tiles below the diagonal are skipped (the mirror of the one above
 // writes them).  The column un-permute is then one pass over D, a CUDA block
-// a row: the row (at most 92.7 KB at the 2 GiB direct-scatter limit) is read
-// whole into shared memory, coalesced, and written back gathered through
-// inv, coalesced.  Traffic: 0.21 GB read and 0.42 GB written by the scatter,
-// 0.42 GB read and written by the un-permute, 1.47 GB a job (0.44 ms at
-// 3.35 TB/s), in one [K, K] buffer, where writing in the sorted order on
-// both axes and gathering into a second buffer would need two.  The
+// a row: the row is read whole into shared memory, coalesced, and written
+// back gathered through inv, coalesced, where K floats fit a block's 227 KB
+// (K <= 58,112; 41 KB at config 4, 164 KB at K = 40,960).  Past that,
+// apd_dtw_scatter_unpermute_rows gathers each row through inv into a row of
+// a scratch buffer in global memory that its block owns, then copies it
+// back, coalesced: twice the un-permute's traffic, any K.  Traffic: 0.21 GB
+// read and 0.42 GB written by the scatter, 0.42 GB read and written by the
+// un-permute, 1.47 GB a job (0.44 ms at 3.35 TB/s), in one [K, K] buffer,
+// where writing in the sorted order on both axes and gathering into a
+// second buffer would need two.  The
 // scatter runs on the scheduler's stream behind each chunk's DTW launch,
 // the un-permute once behind the last.  Measured on the H100 (chip_smoke.py
 // phase 33): 0.90 ms a config-4 job, 21 % of the 0.19 ms bound.
@@ -113,6 +117,24 @@ __global__ void __launch_bounds__(512) unpermute_kernel(
   for (int j = threadIdx.x; j < K; j += blockDim.x) o[j] = row[inv[j]];
 }
 
+// Past the shared memory: block b takes rows b, b + gridDim.x, ... through
+// its own scratch row.  A thread reads back only the scratch entries it
+// wrote, so the one barrier is the one that keeps every read of row i
+// before the first write to it.
+__global__ void __launch_bounds__(512) unpermute_rows_kernel(
+    float* out,                            // [K, K], rows done, columns sorted
+    const int64_t* __restrict__ inv,       // [K] original index -> sorted position
+    float* scratch,                        // [gridDim.x, K]
+    int K) {
+  float* s = scratch + (size_t)blockIdx.x * K;
+  for (size_t i = blockIdx.x; i < (size_t)K; i += gridDim.x) {
+    float* o = out + i * K;
+    for (int j = threadIdx.x; j < K; j += blockDim.x) s[j] = o[inv[j]];
+    __syncthreads();
+    for (int j = threadIdx.x; j < K; j += blockDim.x) o[j] = s[j];
+  }
+}
+
 }  // namespace
 
 extern "C" int apd_dtw_scatter(
@@ -131,5 +153,12 @@ extern "C" int apd_dtw_scatter_unpermute(float* out, const int64_t* inv, int K, 
       unpermute_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   unpermute_kernel<<<(unsigned)K, 512, smem, (cudaStream_t)stream>>>(out, inv, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int apd_dtw_scatter_unpermute_rows(float* out, const int64_t* inv, float* scratch,
+                                              int K, int nblocks, void* stream) {
+  unpermute_rows_kernel<<<(unsigned)nblocks, 512, 0, (cudaStream_t)stream>>>(
+      out, inv, scratch, K);
   return (int)cudaGetLastError();
 }

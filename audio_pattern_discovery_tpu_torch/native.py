@@ -11,7 +11,9 @@ single-threaded.  ``openmp`` records which library was loaded, and
 built on one host runs on another.  Every binding has a pure-Python fallback
 elsewhere in the package, so the framework still runs without a compiler.
 
-The bindings are a copy of ``audio_pattern_discovery_tpu/native.py``.
+The bindings are a copy of ``audio_pattern_discovery_tpu/native.py``
+without its block scatter: the port assembles D on the device
+(``ops/dtw_scatter.py``).
 """
 
 from __future__ import annotations
@@ -140,23 +142,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int,
     ]
-    FP = ctypes.POINTER(ctypes.c_float)
-    IP = ctypes.POINTER(ctypes.c_int64)
-    lib.apd_scatter_block_direct.restype = None
-    lib.apd_scatter_block_direct.argtypes = [
-        FP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        FP, FP, IP, IP, FP, ctypes.c_int64, ctypes.c_int,
-    ]
-    lib.apd_scatter_block_strip.restype = None
-    lib.apd_scatter_block_strip.argtypes = [
-        FP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        FP, FP, FP, ctypes.c_int64, ctypes.c_int64,
-        FP, ctypes.c_int64, ctypes.c_int64,
-    ]
-    lib.apd_strip_unpermute.restype = None
-    lib.apd_strip_unpermute.argtypes = [
-        FP, ctypes.c_int, ctypes.c_int64, IP, IP, FP,
-    ]
     return lib
 
 
@@ -234,82 +219,6 @@ def nn_chain_cpp(dist: np.ndarray, method: str = "average") -> np.ndarray:
         if rc != 0:
             raise RuntimeError(f"apd_nn_chain failed: {rc}")
     return Z
-
-
-def _fp(a: np.ndarray | None, off_elems: int = 0):
-    if a is None:
-        return None
-    return ctypes.cast(
-        a.ctypes.data + 4 * off_elems, ctypes.POINTER(ctypes.c_float)
-    )
-
-
-def _ip(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-
-
-def scatter_block_direct(
-    blk: np.ndarray,          # [ti, ti] f32 C-contiguous kernel block
-    nr: int,
-    nc: int,
-    lr: np.ndarray | None,    # [nr] f32 row path-length terms, None = no norm
-    lc: np.ndarray | None,    # [nc] f32
-    pr: np.ndarray,           # [nr] int64 original row ids
-    pc: np.ndarray,           # [nc] int64
-    D: np.ndarray,            # [K, K] f32
-    diag: bool,
-) -> None:
-    """Fused normalize + mirrored scatter of one tile-pair block into D.
-
-    Single pass over the block, writing both triangles through the sort
-    permutation — replaces the NumPy normalize/triu/transpose/np.ix_ chain
-    (~6 memory passes + temps) in the pair scheduler's hot scatter loop.
-    Bitwise-identical to that chain (f32 IEEE divide either way; tested in
-    tests/test_native.py).
-    """
-    lib = get_lib()
-    assert lib is not None
-    lib.apd_scatter_block_direct(
-        _fp(blk), blk.shape[1], nr, nc, _fp(lr), _fp(lc),
-        _ip(pr), _ip(pc), _fp(D), D.shape[1], int(diag),
-    )
-
-
-def scatter_block_strip(
-    blk: np.ndarray,          # [ti, ti] f32
-    nr: int,
-    nc: int,
-    lr: np.ndarray | None,
-    lc: np.ndarray | None,
-    bufI: np.ndarray,         # [rows_I, K] f32 strip buffer of tile I
-    c0: int,                  # column offset of this block in strip I
-    bufJ: np.ndarray | None,  # strip J buffer, or None for a diagonal tile
-    r0: int,                  # column offset of the transposed block in J
-) -> None:
-    """Fused write of one block into strip I (and its transpose into strip
-    J) at sorted-order column offsets; diagonal tiles (bufJ=None) mirror the
-    strict upper triangle in place with an exact-zero diagonal."""
-    lib = get_lib()
-    assert lib is not None
-    lib.apd_scatter_block_strip(
-        _fp(blk), blk.shape[1], nr, nc, _fp(lr), _fp(lc),
-        _fp(bufI), bufI.shape[1], c0,
-        _fp(bufJ), 0 if bufJ is None else bufJ.shape[1], r0,
-    )
-
-
-def strip_unpermute(
-    buf: np.ndarray,          # [n_rows, K] completed sorted-order strip
-    inv: np.ndarray,          # [K] int64 original->sorted column gather
-    row_ids: np.ndarray,      # [n_rows] int64 original row ids
-    D: np.ndarray,            # [K, K] f32
-) -> None:
-    """D[row_ids] = buf[:, inv] without the strip-sized np.take temp."""
-    lib = get_lib()
-    assert lib is not None
-    lib.apd_strip_unpermute(
-        _fp(buf), buf.shape[0], buf.shape[1], _ip(inv), _ip(row_ids), _fp(D)
-    )
 
 
 def read_wav_pcm16(path: str | Path) -> tuple[np.ndarray, int] | None:

@@ -28,13 +28,14 @@ the tile size until K1 takes the job's widest class (``_tile_classes``).
 Kept from the reference: the length sort, the padding of the corpus to
 whole tiles and of the time axis to a multiple of 128, the per-tile-pair
 static classes with thin classes merged by ``_merge_thin_classes``,
-power-of-two chunking of each class, and the fused native scatter with
-``path_len`` normalization on a worker thread.  On one card a job that
-computes every tile-pair and persists none assembles D there instead
-(``_device_assembly``): each chunk's blocks are scattered by a kernel
-queued behind its launch (``ops/dtw_scatter.py``) into a device ``[K, K]``
-buffer, copied to the host once.  The TPU's VMEM/SMEM gates of the routes
-are not ported; the widen route's K4/K5 gate is the card's own, per class.
+power-of-two chunking of each class, and the scatter's ``path_len``
+normalization.  The reference scatters on the host; here every tiled job
+assembles D on its first device (``ops/dtw_scatter.py``): each chunk's
+blocks, computed, read back from ``block_dir`` or copied from another
+device of the list, are scattered into a ``[K, K]`` buffer there, queued
+behind the chunk's launch, and D is copied to the host once.  The TPU's
+VMEM/SMEM gates of the routes are not ported; the widen route's K4/K5 gate
+is the card's own, per class.
 
 The per-pair scheduler is the reference's legacy loop: pairs bucketed by
 length (``enumerate_pair_blocks``), gathered per block, K6
@@ -55,17 +56,14 @@ new one; ``block_dir`` persists each dispatched block as an ``.npz`` and a
 rerun reads it back instead of dispatching it (``_block_key``: the block's
 pair indices, the DTW config and a fingerprint of the features, so a block
 is never reused after either changes); ``max_retries`` re-dispatches a block
-whose launch or collection raised, from its inputs.  Block keys depend on
-the chunking and so on ``ti`` (``DEFAULT_TI``): blocks written on the card
-do not resume a CPU run, nor the other way round.
+whose launch (per pair also its collection) raised, from its inputs.  Block
+keys depend on the chunking and so on ``ti`` (``DEFAULT_TI``): blocks
+written on the card do not resume a CPU run, nor the other way round.
 """
 
 from __future__ import annotations
 
 import hashlib
-import os
-import queue
-import threading
 import time
 from pathlib import Path
 from typing import Callable
@@ -73,7 +71,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from audio_pattern_discovery_tpu_torch import native
 from audio_pattern_discovery_tpu_torch.config import DTWConfig
 from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
 from audio_pattern_discovery_tpu_torch.ops.dtw_cuda import (
@@ -103,6 +100,7 @@ from audio_pattern_discovery_tpu_torch.ops.dtw_long import (
     long_boundary_bytes,
 )
 from audio_pattern_discovery_tpu_torch.ops.dtw_scatter import (
+    panel_rows,
     scatter_tile_blocks,
     unpermute_columns,
 )
@@ -120,25 +118,10 @@ _PER_PAIR_KERNELS = (dtw_batch_pallas, _dtw_batch_stripe)
 # the per-pair scheduler may hold: 16,384 pairs of 8,192 frames (64 KiB a
 # pair at blocks of 256); a job past it runs as several merged calls.
 LONG_BOUNDARY_BUDGET = 1 << 30
-# Past this matrix size, blocks assemble per sorted row strip instead of
-# scattering straight into original-order D (reference: measured on the
-# host, per-block random-row writes degrade superlinearly past ~2 GB).
-_DIRECT_SCATTER_BYTES = 2 * 1024**3
-
-
-def _device_assembly(devs: list[torch.device], K: int, known, block_dir) -> bool:
-    """Whether the tiled scheduler assembles D on the card
-    (``ops/dtw_scatter.py``) and copies it to the host once: every chunk on
-    one CUDA device (a list may repeat it), every tile-pair computed (no
-    ``known=``), no block persisted (no ``block_dir``), and D within the
-    direct scatter's size.  Every other job scatters on the host."""
-    dev = devs[0]
-    return (dev.type == "cuda" and all(d == dev for d in devs) and known is None
-            and block_dir is None and K * K * 4 <= _DIRECT_SCATTER_BYTES)
 
 
 def _host_copy(D_dev: torch.Tensor) -> np.ndarray:
-    """D of the device path on the host, in one copy into page-locked memory
+    """The tiled scheduler's D on the host, in one copy into page-locked memory
     of torch's caching host allocator, returned as the array: the array
     holds the buffer, so no later job reuses it while the array lives.  On
     the H100, config 4's 0.42 GB take 7.7-8.3 ms this way, 160-235 ms into
@@ -567,26 +550,28 @@ def all_pairs_distances_tiled(
     Sequences are length-sorted and padded to whole tiles, uploaded once,
     and every upper-triangle tile-pair runs as one kernel tile-pair (ti*ti
     pairs).  Tile-pairs are grouped by static class and launched in chunks
-    of ``chunk_programs``.  Where ``_device_assembly`` takes the job (one
-    CUDA device, no ``known`` or ``block_dir``, D within the direct
-    scatter's 2 GiB), each chunk's blocks are scattered on the card by a
-    kernel queued behind its launch into a device ``[K, K]`` buffer, which
-    is copied to the host once the last chunk is done, bit for bit the host
-    scatter's D.  Otherwise, on a CUDA device up to eight chunks are in
-    flight while a worker thread scatters finished blocks into D on the
-    host.
+    of ``chunk_programs``.  D is assembled on the job's first device: each
+    chunk's blocks are written by ``ops/dtw_scatter.scatter_tile_blocks``,
+    queued behind the chunk's launch, into a ``[K, K]`` buffer with rows in
+    the original order and columns in the sorted order;
+    ``unpermute_columns`` puts the columns in the original order once the
+    last chunk is queued, and ``_host_copy`` copies D to the host.  On the
+    CPU the same calls run the kernels' plain twins, bit for bit the same D.
 
     ``known=(k_old, D_old)``: the distances among the first k_old sequences
-    come from D_old.  The sort groups old sequences before new ones (each
-    group length-sorted), and tile-pairs with no new sequence are skipped;
-    the one boundary tile recomputes its old x old pairs with the same
-    kernels.  Tiles are then not globally length-sorted (a new tile can be
-    shorter than an old one): every class function bounds both
-    orientations, and the diag route puts each tile-pair's longer tile on
-    the DP rows.  ``block_dir``: each chunk's raw blocks persist as an
-    ``.npz`` under a key of its tile-pairs, class, kernel, DTW config and
-    feature fingerprint, and a chunk whose file exists is read back and
-    never dispatched.  ``max_retries``: a chunk whose launch or collection
+    come from D_old, which seeds the buffer (its columns in the sorted
+    order) before any chunk is scattered.  The sort groups old sequences
+    before new ones (each group length-sorted), and tile-pairs with no new
+    sequence are skipped; the one boundary tile recomputes its old x old
+    pairs with the same kernels, and its blocks overwrite the seed.  Tiles
+    are then not globally length-sorted (a new tile can be shorter than an
+    old one): every class function bounds both orientations, and the diag
+    route puts each tile-pair's longer tile on the DP rows.  ``block_dir``:
+    each chunk's raw blocks persist as an ``.npz`` under a key of its
+    tile-pairs, class, kernel, DTW config and feature fingerprint (copied to
+    pinned host memory behind the launch and written a few chunks later),
+    and a chunk whose file exists is read back and scattered like a
+    computed one, never dispatched.  ``max_retries``: a chunk whose launch
     raises is launched again from its inputs up to this many times (0: the
     first exception propagates).
 
@@ -594,21 +579,20 @@ def all_pairs_distances_tiled(
     round-robin over, chunk ci on ``devices[ci % n]`` (a retried chunk on
     the same one), the reference's data axis; each distinct device gets its
     own copy of the corpus and of its layouts, built once a job, and
-    ``device`` is then ignored.  Up to max(8, 4n) chunks are in flight.
+    ``device`` is then ignored.  A chunk computed on another device than the
+    first has its blocks copied to the first before their scatter.
 
-    ``stats`` receives the route, host seconds per activity (dispatch,
-    collect: waiting for a chunk's copy, scatter, persist, upload), the
-    chunks read back (``blocks_resumed``), the chunks dispatched to each
-    device (``device_blocks``, a list in the order of ``devices``), whether
-    the native scatter ran and with OpenMP, the tile-pair blocks the card's
-    scatter wrote (``device_scatter_blocks``, 0 on the host path; there
-    ``scatter_s`` is the host's time queueing the scatter kernels and
-    copying D back, and ``collect_s`` the wait for the last chunks), and, on
-    CUDA devices,
-    ``kernel_s``: the kernel launches' device time from CUDA events around
-    each launch on its device's current stream, and ``kernel_s_by``: that
-    time per kernel entry name.  The default device is the card; without
-    one, pass ``device="cpu"``."""
+    ``stats`` receives the route, host seconds per activity (dispatch;
+    scatter: queueing the scatter and the un-permute, and copying D back;
+    collect: the wait for the last chunks and for each persisted chunk's
+    copy; persist; upload), the chunks read back (``blocks_resumed``), the
+    chunks dispatched to each device (``device_blocks``, a list in the
+    order of ``devices``), the tile-pair blocks scattered
+    (``device_scatter_blocks``), and, on CUDA devices, ``kernel_s``: the
+    kernel launches' device time from CUDA events around each launch on its
+    device's current stream, and ``kernel_s_by``: that time per kernel
+    entry name.  The default device is the card; without one, pass
+    ``device="cpu"``."""
     devs = resolve_devices(devices) if devices is not None else [resolve_device(device)]
     device = devs[0]
     K, L, d = features.shape
@@ -638,14 +622,6 @@ def all_pairs_distances_tiled(
         route, lengths, Lp, cfg, int(ti or DEFAULT_TI[device.type]), d, known,
     )
     Kp = len(lens_p)
-    # Updates scatter straight into D (the reference's rule): skipped
-    # tile-pairs would leave row strips incomplete.
-    direct = known is not None or K * K * 4 <= _DIRECT_SCATTER_BYTES
-    on_card = _device_assembly(devs, K, known, block_dir)
-    D = None if on_card else np.zeros((K, K), dtype=np.float32)
-    if known is not None:
-        k_old, D_old = known
-        D[:k_old, :k_old] = D_old
     nT = Kp // ti
 
     t_up = time.perf_counter()
@@ -664,6 +640,7 @@ def all_pairs_distances_tiled(
 
     n_pairs = K * (K - 1) // 2
     if known is not None:
+        k_old, D_old = known
         n_pairs -= k_old * (k_old - 1) // 2
 
     def kernel_of(cls: tuple[int, ...]) -> Callable:
@@ -742,12 +719,22 @@ def all_pairs_distances_tiled(
 
     t_up = time.perf_counter()
     inputs = {dev: inputs_on(dev) for dev in dict.fromkeys(devs)}
-    if on_card:
-        with on_device(device):
-            # Every entry is written: each tile-pair's block, both triangles.
+    with on_device(device):
+        perm_d = torch.from_numpy(perm).to(device)
+        inv_d = torch.from_numpy(np.argsort(perm)).to(device)
+        # Rows in the original order, columns in the sorted order until the
+        # un-permute.  A job that computes every tile-pair writes every
+        # entry; under known the old x old entries are seeded, D_old uploaded
+        # and its columns gathered a panel of rows at a time.
+        if known is None:
             D_dev = torch.empty((K, K), dtype=torch.float32, device=device)
-            perm_d = torch.from_numpy(perm).to(device)
-            inv_d = torch.from_numpy(np.argsort(perm)).to(device)
+        else:
+            D_dev = torch.zeros((K, K), dtype=torch.float32, device=device)
+            old = np.asarray(D_old, dtype=np.float32)
+            rows = panel_rows(k_old)
+            for r0 in range(0, k_old, rows):
+                part = torch.from_numpy(old[r0 : r0 + rows]).to(device)
+                D_dev[r0 : r0 + len(part), :k_old] = part[:, perm_d[:k_old]]
     upload_s += time.perf_counter() - t_up
     if stats is None:
         stats = {}
@@ -763,78 +750,7 @@ def all_pairs_distances_tiled(
         cfg_tag = _cfg_tag(cfg, features, lengths) + f"|tiled|{route}".encode()
 
     norm = cfg.normalize == "path_len"
-    ls_f = lens_p.astype(np.float32)
-    use_native = (not on_card and native.available()
-                  and os.environ.get("APD_NO_NATIVE_SCATTER", "") != "1")
-    stats["native_scatter"] = use_native
-    stats["native_openmp"] = bool(use_native and native.openmp)
-    inv = None if direct else np.argsort(perm)
-    strip_bufs: dict[int, np.ndarray] = {}
-    strip_left: dict[int, int] = {}
-
-    def _strip_buf(I):
-        buf = strip_bufs.get(I)
-        if buf is None:
-            buf = np.zeros((min(ti, K - I * ti), K), np.float32)
-            strip_bufs[I] = buf
-            strip_left[I] = nT      # one piece per tile of the strip
-        return buf
-
-    def _strip_dec(I):
-        strip_left[I] -= 1
-        if strip_left[I] == 0:
-            del strip_left[I]
-            buf = strip_bufs.pop(I)
-            rows = perm[I * ti : I * ti + buf.shape[0]]
-            if use_native:
-                native.strip_unpermute(buf, inv, rows, D)
-            else:
-                D[rows] = np.take(buf, inv, axis=1)
-
-    def scatter_chunk(ii, jj, blocks) -> None:
-        # Both triangles per block; diagonal tiles take their strict upper
-        # part mirrored, so D is exactly symmetric with a zero diagonal.
-        seen = set()
-        for u in range(len(ii)):
-            I, J = int(ii[u]), int(jj[u])
-            if (I, J) in seen:
-                continue
-            seen.add((I, J))
-            blk = blocks[u]
-            r0, c0 = I * ti, J * ti
-            # pad sequences (sorted index >= K) exist only in the last tile
-            nr, nc = min(ti, K - r0), min(ti, K - c0)
-            lr = ls_f[r0 : r0 + nr] if norm else None
-            lc = ls_f[c0 : c0 + nc] if norm else None
-            if use_native and direct:
-                native.scatter_block_direct(
-                    blk, nr, nc, lr, lc, perm[r0 : r0 + nr],
-                    perm[c0 : c0 + nc], D, I == J,
-                )
-                continue
-            if use_native:
-                bufI = _strip_buf(I)
-                bufJ = None if I == J else _strip_buf(J)
-                native.scatter_block_strip(blk, nr, nc, lr, lc, bufI, c0, bufJ, r0)
-                _strip_dec(I)
-                if I != J:
-                    _strip_dec(J)
-                continue
-            blk = blk[:nr, :nc] / (lr[:, None] + lc[None, :]) if norm else blk[:nr, :nc]
-            if I == J:
-                blk = np.triu(blk, k=1)
-                blk = blk + blk.T
-            if direct:
-                r_orig, c_orig = perm[r0 : r0 + nr], perm[c0 : c0 + nc]
-                D[np.ix_(r_orig, c_orig)] = blk
-                if I != J:
-                    D[np.ix_(c_orig, r_orig)] = blk.T
-            else:
-                _strip_buf(I)[:, c0 : c0 + nc] = blk
-                _strip_dec(I)
-                if I != J:
-                    _strip_buf(J)[:, r0 : r0 + nr] = blk.T
-                    _strip_dec(J)
+    on_cuda = device.type == "cuda"
 
     def add_kernel_s(events, name) -> None:
         secs = events[0].elapsed_time(events[1]) / 1e3
@@ -842,50 +758,44 @@ def all_pairs_distances_tiled(
         by = stats["kernel_s_by"]
         by[name] = by.get(name, 0.0) + secs
 
-    scatter_q: queue.Queue = queue.Queue(maxsize=max(8, 4 * len(devs)))
-    scatter_err: list[BaseException] = []
+    def scatter(blocks, ii, jj, ii_d, jj_d) -> None:
+        """Queue one chunk's blocks into D on its device (a peer copy first
+        where the chunk ran on another device)."""
+        t0 = time.perf_counter()
+        with on_device(device):
+            scatter_tile_blocks(blocks.to(device), ii_d.to(device), jj_d.to(device),
+                                inputs[device]["lens"], perm_d, D_dev, normalize=norm)
+        stats["scatter_s"] += time.perf_counter() - t0
+        # Padded repeats of the last tile-pair are skipped.
+        stats["device_scatter_blocks"] += 1 + int(
+            np.count_nonzero((ii[1:] != ii[:-1]) | (jj[1:] != jj[:-1])))
 
-    def scatter_worker():
-        while True:
-            item = scatter_q.get()
-            if item is None:
-                return
-            if scatter_err:
-                continue  # drain so the producer never blocks on put()
+    # block_dir's chunks between their copy to the host and their file.
+    saves: list[tuple] = []
+
+    def save_oldest() -> None:
+        path, ii, jj, host, copied = saves.pop(0)
+        t0 = time.perf_counter()
+        if copied is not None:
+            copied.synchronize()
+        t1 = time.perf_counter()
+        np.savez(path, ii=ii, jj=jj, blocks=host.numpy())
+        stats["collect_s"] += t1 - t0
+        stats["persist_s"] += time.perf_counter() - t1
+
+    def persist_done() -> None:
+        """After a failure: write the saves whose copy has completed, so the
+        rerun resumes them; no error here replaces the one in flight."""
+        for path, ii, jj, host, copied in saves:
             try:
-                ii, jj, host, events, name, dispatch, path = item
-                t0 = time.perf_counter()
-                try:
-                    if events is not None:
-                        events[2].synchronize()
-                        add_kernel_s(events, name)
-                    vals = host.numpy()
-                except Exception as exc:
-                    vals = _with_retries(lambda: dispatch().cpu().numpy(), max_retries, exc)
-                stats["collect_s"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                scatter_chunk(ii, jj, vals)
-                stats["scatter_s"] += time.perf_counter() - t0
-                if path is not None:
-                    t0 = time.perf_counter()
-                    np.savez(path, ii=ii, jj=jj, blocks=vals)
-                    stats["persist_s"] += time.perf_counter() - t0
-            except BaseException as exc:
-                scatter_err.append(exc)
+                if copied is None or copied.query():
+                    np.savez(path, ii=ii, jj=jj, blocks=host.numpy())
+            except Exception:
+                path.unlink(missing_ok=True)
 
-    # The host path scatters on a worker thread; the device path queues each
-    # chunk's scatter behind its launch and reads the kernels' events once
-    # D is done.
-    worker = None
-    if not on_card:
-        worker = threading.Thread(target=scatter_worker, name="apd-scatter", daemon=True)
-        worker.start()
-    on_cuda = device.type == "cuda"
-    timed: list[tuple[list | None, str]] = []
+    timed: list[tuple[list, str]] = []
     try:
         for ci, (ii, jj, cls) in enumerate(chunks):
-            if scatter_err:
-                raise scatter_err[0]
             name = kernel_of(cls).__name__
             path = None
             if block_dir is not None:
@@ -893,9 +803,10 @@ def all_pairs_distances_tiled(
                 path = block_dir / (_block_key(ii, jj, tag) + ".npz")
                 if path.exists():
                     with np.load(path) as saved:
-                        resumed = (saved["ii"], saved["jj"], torch.from_numpy(saved["blocks"]))
+                        ii_r, jj_r, blocks_r = saved["ii"], saved["jj"], saved["blocks"]
                     stats["blocks_resumed"] += 1
-                    scatter_q.put((*resumed, None, name, None, None))
+                    scatter(torch.from_numpy(blocks_r), ii_r, jj_r, torch.from_numpy(ii_r),
+                            torch.from_numpy(jj_r))
                     continue
 
             di = ci % len(devs)
@@ -910,7 +821,6 @@ def all_pairs_distances_tiled(
                 with on_device(dev):
                     return launch(inputs[dev], ii_d, jj_d, cls)
 
-            events = None
             with on_device(dev):
                 if on_cuda:
                     events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -921,53 +831,41 @@ def all_pairs_distances_tiled(
                     blocks = _with_retries(dispatch, max_retries, exc)
                 if on_cuda:
                     events[1].record()
-                if on_card:
-                    t1 = time.perf_counter()
-                    stats["dispatch_s"] += t1 - t0
-                    scatter_tile_blocks(blocks, ii_d, jj_d, inputs[dev]["lens"], perm_d, D_dev,
-                                        normalize=norm)
-                    stats["scatter_s"] += time.perf_counter() - t1
-                    # Padded repeats of the last tile-pair are skipped.
-                    stats["device_scatter_blocks"] += 1 + int(
-                        np.count_nonzero((ii[1:] != ii[:-1]) | (jj[1:] != jj[:-1])))
                     timed.append((events, name))
-                    continue
-                if on_cuda:
-                    host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
-                    host.copy_(blocks, non_blocking=True)
-                    events.append(torch.cuda.Event())
-                    events[2].record()
-                else:
-                    host = blocks
+                if path is not None:
+                    host, copied = blocks, None
+                    if on_cuda:
+                        host = torch.empty(blocks.shape, dtype=torch.float32, pin_memory=True)
+                        host.copy_(blocks, non_blocking=True)
+                        copied = torch.cuda.Event()
+                        copied.record()
+                    saves.append((path, ii, jj, host, copied))
             stats["dispatch_s"] += time.perf_counter() - t0
-            # The bounded queue keeps at most max(8, 4n) chunks between
-            # launch and scatter, so pinned buffers stay bounded.
-            scatter_q.put((ii, jj, host, events, name, dispatch, path))
-    finally:
-        if worker is not None:
-            scatter_q.put(None)
-            worker.join()
-    if on_card:
-        # D's columns back in the original order; then the wait for the last
-        # chunks (collect), the kernels' device time, and one copy of D.
-        t0 = time.perf_counter()
-        with on_device(device):
-            unpermute_columns(D_dev, inv_d)
-        t1 = time.perf_counter()
-        stats["scatter_s"] += t1 - t0
-        if on_cuda:
-            torch.cuda.synchronize(device)
-            for events, name in timed:
-                add_kernel_s(events, name)
-        t2 = time.perf_counter()
-        stats["collect_s"] += t2 - t1
-        D = _host_copy(D_dev)
-        stats["scatter_s"] += time.perf_counter() - t2
-        return D
-    if scatter_err:
-        raise scatter_err[0]
-    if strip_bufs:
-        raise RuntimeError("incomplete row strips after all chunks")
+            scatter(blocks, ii, jj, ii_d, jj_d)
+            # At most max(8, 4n) chunks wait in pinned memory for their file.
+            if len(saves) > max(8, 4 * len(devs)):
+                save_oldest()
+    except BaseException:
+        persist_done()
+        raise
+    while saves:
+        save_oldest()
+    # D's columns back in the original order; then the wait for the last
+    # chunks (collect), the kernels' device time, and one copy of D.
+    t0 = time.perf_counter()
+    with on_device(device):
+        unpermute_columns(D_dev, inv_d)
+    t1 = time.perf_counter()
+    stats["scatter_s"] += t1 - t0
+    if on_cuda:
+        for dev in dict.fromkeys(devs):
+            torch.cuda.synchronize(dev)
+        for events, name in timed:
+            add_kernel_s(events, name)
+    t2 = time.perf_counter()
+    stats["collect_s"] += t2 - t1
+    D = _host_copy(D_dev)
+    stats["scatter_s"] += time.perf_counter() - t2
     return D
 
 

@@ -164,7 +164,7 @@ def run_doctor(probe_device: bool = True, hbm_mb: int = 64) -> dict:
         "compile_cache": _guard(_compile_cache),
         "env": {
             k: os.environ[k]
-            for k in ("CUDA_HOME", "CUDA_VISIBLE_DEVICES", "APD_NO_NATIVE_SCATTER")
+            for k in ("CUDA_HOME", "CUDA_VISIBLE_DEVICES")
             if k in os.environ
         },
     }

@@ -26,8 +26,7 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 5. config 4 through the scheduler: all pairs of K=10,240 sequences (S=128,
    d=16, band=16, lengths 64-128); prints pairs/s and launches, checks 64
    random pairs against the plain torch DTW on the card and 8 against the
-   NumPy oracle; D must have been assembled on the card (phase 33) or by
-   the native scatter;
+   NumPy oracle; D must have been assembled on the card (phase 33);
 6. K2 against its twin on the card (S=256, d=16, ti=128, 4 tiles, lengths
    8-256): unbanded euclidean on all 10 tile-pairs, sqeuclidean, cosine and
    widen band 8 (auto_widen on and off) on 2, every strip height and frame
@@ -49,7 +48,7 @@ seconds; ``--phases`` runs a subset, phase 1 always):
 11. config 4 unbanded through the scheduler (K2); prints pairs/s, the
    kernel's device time and the scatter's seconds, checks 64 pairs against
    the plain torch DTW and 8 against the oracle; D must have been assembled
-   on the card or by the native scatter;
+   on the card;
 12. K4 against its twin at the config-4 widen shape (S=128, d=16, band 16,
    lengths 64-128, ti=128, 10 tile-pairs; sqeuclidean, cosine and a hard
    band on 2), plus a ``rows`` and a ``wv_max`` shortfall that must be +inf
@@ -63,8 +62,8 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    exactly as often as the classes and the K4/K5 gate predict
    (``widen_split``: every class on K4 since the gate moved to 320 slots);
    each kernel's device time and share of its cells' bound; 64 pairs
-   against the plain torch DTW and 8 against the oracle; the native scatter
-   must have run;
+   against the plain torch DTW and 8 against the oracle; D must have been
+   assembled on the card;
 15. long units widen (band 16, phase 10's corpus, alignments off) through
    ``discover()``: the job must take K5 (K5's main-path cell); 8 distances
    against the oracle;
@@ -219,14 +218,17 @@ seconds; ``--phases`` runs a subset, phase 1 always):
    and model axes) against one device: the same partition, the last
    epoch's loss within ``MESH_LOSS_RTOL`` and D within ``MESH_D_ATOL``;
 33. D assembled on the card (``ops/dtw_scatter.py``): config 4's diag 16
-   and unbanded jobs with the scheduler's gate (``_device_assembly``) held
-   off for the host path: D bitwise the native scatter's, one scatter launch
-   a chunk and one un-permute, ``device_scatter_blocks`` 3,240; the two
-   kernels' device time a job (the job's scatter calls replayed) beside the
-   bound (blocks read and D written once at 3.35 TB/s) and the plain twins'
-   time on the card (bitwise the kernels); the copy of D back pageable,
-   staged through a pinned buffer and as the pinned buffer; each job's wall
-   and ``scatter_s`` on both paths;
+   and unbanded jobs, one scatter launch a chunk and one un-permute,
+   ``device_scatter_blocks`` 3,240; the job's scatter calls recorded and
+   replayed through the kernels (D bitwise the job's), through the plain
+   twins on the card and through the un-permute's scratch-row kernel (both
+   bitwise the kernels); the two kernels' device time a job beside the
+   bound (blocks read and D written once at 3.35 TB/s), the twins' time and
+   the scratch-row un-permute's; that kernel as the wrapper launches it at
+   K = 60,000 (past a row in shared memory, D of 14.4 GB) bitwise the twin
+   on the card, timed; the copy of D back pageable, staged through a pinned
+   buffer and as the pinned buffer; each job's wall and ``scatter_s`` with
+   each copy;
 34. the feature scaler's statistics on the card (``ops/scaler_stats.py``):
    bitwise ``FeatureScaler.fit`` on the host copy (NumPy's reductions) at
    every shape of ``SCALER_SHAPES`` (one row to longunits' ~300k frames of 513 bins, 5 x
@@ -1008,12 +1010,13 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
     64-128) through the scheduler: the route, each kernel's launches (all
     must run, or with ``split``, {entry name: (launches, cells)}, exactly the
     launches it predicts), 64 pairs against the plain torch DTW and 8
-    against the oracle, native scatter.  Prints each kernel's device time
-    (``kernel_s_by``), and with ``split`` its share of its cells' bound.
-    ``keep[route]`` receives (D, stats, wall) for phase 22.  Returns the
-    launches."""
+    against the oracle, D assembled on the card.  Prints each kernel's
+    device time (``kernel_s_by``), and with ``split`` its share of its
+    cells' bound.  ``keep[route]`` receives (D, stats, wall) for phase 22.
+    Returns the launches."""
     from audio_pattern_discovery_tpu_torch.oracle.dtw import dtw_oracle
     from audio_pattern_discovery_tpu_torch.ops.dtw import dtw_batch
+    from audio_pattern_discovery_tpu_torch.ops.dtw_scatter import scatter_tile_blocks
     from audio_pattern_discovery_tpu_torch.parallel.pair_scheduler import all_pairs_distances
 
     K, S, d = 10_240, 128, 16
@@ -1022,10 +1025,12 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
     stats: dict = {}
     for k in kernels:
         k.launches = 0
+    n_scatter = scatter_tile_blocks.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     D = all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats)
     wall = time.perf_counter() - t0
+    n_scatter = scatter_tile_blocks.launches - n_scatter
     launches = [k.launches for k in kernels]
     names = ", ".join(f"{k.__name__} {n}" for k, n in zip(kernels, launches))
     n_pairs = K * (K - 1) // 2
@@ -1034,9 +1039,9 @@ def config4_all_pairs(tag: str, dev, cfg, kernels: tuple, route: str, seed: int,
     if launches != want_launches or sum(launches) < 1 or stats["route"] != route:
         fail(f"{tag}: the job took route {stats['route']} with launches {names} "
              f"(expected {want_launches})")
-    if not (stats["native_scatter"] or stats["device_scatter_blocks"] > 0):
-        fail(f"{tag}: the scheduler scattered with NumPy: D was not assembled on the card and "
-             "the native library did not load")
+    if n_scatter != stats["blocks"] or not stats["device_scatter_blocks"] > 0:
+        fail(f"{tag}: {n_scatter} launches of the scatter kernel for {stats['blocks']} chunks, "
+             f"{stats['device_scatter_blocks']} tile-pair blocks scattered")
     if not np.isfinite(D).all():
         fail(f"{tag}: non-finite distances in D")
     rng = np.random.default_rng(seed)
@@ -3766,12 +3771,14 @@ def copy_back(D_dev: torch.Tensor, how: str) -> tuple[np.ndarray, dict]:
 
 def phase33(dev) -> dict:
     """D assembled on the card (``ops/dtw_scatter.py``, ``csrc/dtw_scatter.cu``)
-    against the host scatter on config 4's diag 16 and unbanded jobs: the
-    scheduler's gate held off for the host path; D bitwise; the scatter's
-    launches, one a chunk, and its blocks; the two kernels' device time
-    (the job's scatter calls replayed) beside the bound and the twins' time;
-    the copy of D back timed three ways; each job's wall and ``scatter_s``
-    on both paths, and on the device path with each other copy."""
+    on config 4's diag 16 and unbanded jobs: the scatter's launches, one a
+    chunk, and its blocks; the job's scatter calls recorded and replayed
+    through the kernels (D bitwise the job's), through the plain twins on
+    the card and through the scratch-row un-permute (both bitwise the
+    kernels); the two kernels' device time beside the bound, the twins' and
+    the scratch-row un-permute's; the copy of D back timed three ways; each
+    job's wall and ``scatter_s`` with each copy; then the un-permute past
+    the shared memory (``unpermute_past_shared``)."""
     from audio_pattern_discovery_tpu_torch.config import DTWConfig
     from audio_pattern_discovery_tpu_torch.ops import dtw_scatter as ds
     from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as ps
@@ -3781,10 +3788,8 @@ def phase33(dev) -> dict:
     lens_np = lens.cpu().numpy()
     res: dict = {}
 
-    def job(cfg, gate=None, host_copy=None):
-        saved = ps._device_assembly, ps._host_copy
-        if gate is not None:
-            ps._device_assembly = gate
+    def job(cfg, host_copy=None):
+        saved = ps._host_copy
         if host_copy is not None:
             ps._host_copy = host_copy
         try:
@@ -3794,14 +3799,11 @@ def phase33(dev) -> dict:
             D = ps.all_pairs_distances(feats, lens_np, cfg, device=dev, stats=stats)
             return D, stats, time.perf_counter() - t0
         finally:
-            ps._device_assembly, ps._host_copy = saved
+            ps._host_copy = saved
 
     for mode, cfg in (("diag16", DTWConfig(band=16, band_mode="diag", normalize="path_len")),
                       ("unbanded", DTWConfig(band=None, normalize="path_len"))):
         tag = f"phase 33 ({mode})"
-        D_host, s_host, wall_host = job(cfg, gate=lambda *a: False)
-        if s_host["device_scatter_blocks"] != 0 or not s_host["native_scatter"]:
-            fail(f"{tag}: the host path did not scatter natively: {s_host}")
         calls: list = []
         real = ps.scatter_tile_blocks
 
@@ -3817,21 +3819,17 @@ def phase33(dev) -> dict:
             ps.scatter_tile_blocks = real
         launches = ds.scatter_tile_blocks.launches - n0
         unperm = ds.unpermute_columns.launches - u0
-        if not np.array_equal(D_dev.view(np.int32), D_host.view(np.int32)):
-            bad = np.argwhere(D_dev.view(np.int32) != D_host.view(np.int32))
-            fail(f"{tag}: D on the card differs from the host scatter's in {len(bad)} entries, "
-                 f"first {bad[:4].tolist()}")
         if not (D_dev.flags["C_CONTIGUOUS"] and D_dev.dtype == np.float32):
             fail(f"{tag}: D is not a C-contiguous float32 array")
-        if launches != s_dev["blocks"] or unperm != 1 or s_dev["native_scatter"]:
+        if launches != s_dev["blocks"] or unperm != 1:
             fail(f"{tag}: {launches} scatter launches for {s_dev['blocks']} chunks, {unperm} "
-                 f"un-permutes, native scatter {s_dev['native_scatter']}")
+                 "un-permutes")
         if s_dev["device_scatter_blocks"] != s_dev["tile_programs"] or (
                 s_dev["tile_programs"] != 3240):
             fail(f"{tag}: device_scatter_blocks {s_dev['device_scatter_blocks']}, tile-pairs "
                  f"{s_dev['tile_programs']} (3,240 expected)")
         # The two kernels' device time: the job's scatter calls replayed.
-        perm_d, inv_d = calls[0][0][4], torch.argsort(calls[0][0][4])
+        inv_d = torch.argsort(calls[0][0][4])
         buf = torch.empty((K, K), dtype=torch.float32, device=dev)
 
         def scatters():
@@ -3855,18 +3853,31 @@ def phase33(dev) -> dict:
         torch.cuda.synchronize()
         twin_ms = (time.perf_counter() - t0) * 1e3
         if not torch.equal(twin, buf):
-            fail(f"{tag}: the plain twin on the card differs from the kernels")
+            bad = torch.nonzero(twin.view(torch.int32) != buf.view(torch.int32))
+            fail(f"{tag}: the plain twins on the card differ from the kernels in {len(bad)} "
+                 f"entries, first {bad[:4].tolist()}")
         del twin
+        # The un-permute through scratch rows (the kernel past K = 58,112),
+        # forced here: bitwise the shared-memory kernel's D.
+        rows_buf = torch.empty((K, K), dtype=torch.float32, device=dev)
+        rows_ms = cuda_ms(lambda: unpermute_rows(rows_buf, inv_d, ds), 5)
+        for args, kw in calls:
+            real(*args[:5], rows_buf, **kw)
+        unpermute_rows(rows_buf, inv_d, ds)
+        if not torch.equal(rows_buf, buf):
+            fail(f"{tag}: the un-permute through scratch rows differs from the shared-memory one")
+        del rows_buf
         n_blocks = sum(int(a[0].shape[0]) for a, _ in calls)
         least_ms = (n_blocks * 128 * 128 * 4 + K * K * 4) / HBM_BYTES_S * 1e3
         design_ms = (n_blocks * 128 * 128 * 4 + 3 * K * K * 4) / HBM_BYTES_S * 1e3
-        log(f"{tag}: D bitwise the host scatter's; {launches} scatter launches ({s_dev['blocks']} "
-            f"chunks), {unperm} un-permute, device_scatter_blocks {s_dev['device_scatter_blocks']}; "
+        log(f"{tag}: D bitwise the plain twins replaying the job's calls on the card; {launches} "
+            f"scatter launches ({s_dev['blocks']} chunks), {unperm} un-permute, "
+            f"device_scatter_blocks {s_dev['device_scatter_blocks']}; "
             f"device time {whole_ms:.3f} ms a job (scatter {scatter_ms:.3f} ms, un-permute "
             f"{whole_ms - scatter_ms:.3f} ms) against the bound {least_ms:.3f} ms "
             f"({least_ms / whole_ms:.1%}: {n_blocks} blocks read, D written once at 3.35 TB/s) "
             f"and the design's traffic {design_ms:.3f} ms; plain twins on the card "
-            f"{twin_ms:.1f} ms")
+            f"{twin_ms:.1f} ms; un-permute through scratch rows {rows_ms:.3f} ms, bitwise")
         # The copy back, three ways, in turns.
         times: dict = {"pageable": [], "staged": [], "pinned": []}
         for _ in range(3):
@@ -3880,38 +3891,81 @@ def phase33(dev) -> dict:
             log(f"{tag}: copy of D ({K * K * 4 / 1e9:.3f} GB) {how}: "
                 + "; ".join(", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t.items()) for t in ts))
         del buf
-        # The job both ways, and with each copy on the device path.
-        walls = {"host": [wall_host], "device": [wall_dev]}
-        scat = {"host": [s_host["scatter_s"]], "device": [s_dev["scatter_s"]]}
+        # The job with the scheduler's copy and with each other copy.
+        walls = {"pinned": [wall_dev]}
+        scat = {"pinned": [s_dev["scatter_s"]]}
         for _ in range(2):
             for how in ("pageable", "staged"):
                 D2, s2, w2 = job(cfg, host_copy=lambda D, how=how: copy_back(D, how)[0])
                 walls.setdefault(how, []).append(w2)
                 scat.setdefault(how, []).append(s2["scatter_s"])
-                if not np.array_equal(D2, D_host):
+                if not np.array_equal(D2, D_dev):
                     fail(f"{tag}: D with the {how} copy differs")
                 del D2
             D2, s2, w2 = job(cfg)
-            walls["device"].append(w2)
-            scat["device"].append(s2["scatter_s"])
-            del D2
-            D2, s2, w2 = job(cfg, gate=lambda *a: False)
-            walls["host"].append(w2)
-            scat["host"].append(s2["scatter_s"])
+            walls["pinned"].append(w2)
+            scat["pinned"].append(s2["scatter_s"])
+            if not np.array_equal(D2, D_dev):
+                fail(f"{tag}: D differs between runs of the job")
             del D2
         n_pairs = K * (K - 1) // 2
         for way in walls:
-            log(f"{tag}: job {way}: walls {[round(w, 3) for w in walls[way]]} s "
+            log(f"{tag}: job, copy {way}: walls {[round(w, 3) for w in walls[way]]} s "
                 f"({n_pairs / np.median(walls[way]) / 1e6:.2f} M pairs/s at the median), "
                 f"scatter_s {[round(x, 4) for x in scat[way]]}")
-        log(f"{tag}: device path stats: dispatch {s_dev['dispatch_s']:.4f} s, collect "
+        log(f"{tag}: stats: dispatch {s_dev['dispatch_s']:.4f} s, collect "
             f"{s_dev['collect_s']:.4f} s, kernel {s_dev['kernel_s']:.4f} s, upload "
-            f"{s_dev['upload_s']:.4f} s; host path: collect {s_host['collect_s']:.4f} s, kernel "
-            f"{s_host['kernel_s']:.4f} s")
+            f"{s_dev['upload_s']:.4f} s")
         res[mode] = {"ms": whole_ms, "bound_ms": least_ms, "twin_ms": twin_ms,
                      "launches": launches}
+    big = unpermute_past_shared(dev, ds)
     return {"launches": res["diag16"]["launches"], "ms": res["diag16"]["ms"],
-            "bound_ms": res["diag16"]["bound_ms"], "twin_ms": res["diag16"]["twin_ms"]}
+            "bound_ms": res["diag16"]["bound_ms"], "twin_ms": res["diag16"]["twin_ms"],
+            "big_ms": big}
+
+
+def unpermute_rows(out, inv, ds) -> None:
+    """``unpermute_columns`` through its scratch-row kernel at any K."""
+    saved = ds._MAX_ROW_BYTES
+    ds._MAX_ROW_BYTES = 0
+    try:
+        ds.unpermute_columns(out, inv)
+    finally:
+        ds._MAX_ROW_BYTES = saved
+
+
+# Past the 58,112 floats a row in one block's shared memory holds: D of
+# 14.4 GB, and its twin's copy beside it.
+BIG_K = 60_000
+
+
+def unpermute_past_shared(dev, ds) -> float:
+    """Phase 33's un-permute at ``BIG_K`` on a random D and permutation: the
+    wrapper's one launch of the scratch-row kernel bitwise the plain twin on
+    the card; the kernel's device ms beside D read and written once."""
+    K = BIG_K
+    g = torch.Generator(device=dev).manual_seed(33)
+    D = torch.rand((K, K), generator=g, device=dev)
+    inv = torch.randperm(K, generator=g, device=dev)
+    want = D.clone()
+    ds.unpermute_columns_ref(want, inv)
+    u0 = ds.unpermute_columns.launches
+    ds.unpermute_columns(D, inv)
+    if ds.unpermute_columns.launches != u0 + 1:
+        fail(f"phase 33 (K={K}): {ds.unpermute_columns.launches - u0} un-permute launches")
+    if not torch.equal(D, want):
+        bad = torch.nonzero(D.view(torch.int32) != want.view(torch.int32))
+        fail(f"phase 33 (K={K}): the scratch-row un-permute differs from the twin in "
+             f"{len(bad)} entries, first {bad[:4].tolist()}")
+    del want
+    kernel_ms = cuda_ms(lambda: ds.unpermute_columns(D, inv), 3)
+    least_ms = 2 * K * K * 4 / HBM_BYTES_S * 1e3
+    log(f"phase 33 (K={K}): D {K * K * 4 / 1e9:.1f} GB un-permuted through scratch rows "
+        f"bitwise the plain twin on the card; {kernel_ms:.3f} ms against {least_ms:.3f} ms "
+        f"for D read and written once ({least_ms / kernel_ms:.1%})")
+    del D
+    torch.cuda.empty_cache()
+    return kernel_ms
 
 
 # Shapes of phase 34: one row, columns around a block of 32, rows around

@@ -1,10 +1,12 @@
 """The port's native library (audio_pattern_discovery_tpu_torch/native.py):
 built from the shared ``native/apd_native.cc`` into the port's own
 ``build/`` directory, with OpenMP where the compiler has it and without it
-otherwise, and the library without OpenMP scatters blocks exactly like the
-NumPy twin the scheduler keeps for a host without a compiler."""
+otherwise, and the library without OpenMP gives the default library's
+results for the bindings the port calls (the clustering's NN-chain and the
+bulk WAV loader)."""
 
 import ctypes
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -12,8 +14,6 @@ import pytest
 import torch
 
 from audio_pattern_discovery_tpu_torch import native
-from audio_pattern_discovery_tpu_torch.config import DTWConfig
-from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as tps
 
 torch.set_num_threads(1)
 
@@ -37,49 +37,42 @@ def no_openmp_lib(tmp_path_factory):
     return native.bind(ctypes.CDLL(str(so)))
 
 
-@pytest.mark.parametrize("norm", ["none", "path_len"])
-def test_no_openmp_build_scatters_like_numpy(no_openmp_lib, monkeypatch, norm):
-    rng = np.random.default_rng(31)
-    K, L, d = 37, 24, 3
-    feats = rng.normal(0, 1, (K, L, d)).astype(np.float32)
-    lens = rng.integers(6, L + 1, K).astype(np.int32)
-    cfg = DTWConfig(band=4, band_mode="diag", normalize=norm)
+def _default_and_no_openmp(no_openmp_lib, monkeypatch, fn):
+    """``fn()`` on the default library, then on the one without OpenMP."""
+    assert native.get_lib() is not None
+    want = fn()
     monkeypatch.setattr(native, "_lib", no_openmp_lib)
     monkeypatch.setattr(native, "openmp", False)
-    for direct in (True, False):
-        if not direct:
-            monkeypatch.setattr(tps, "_DIRECT_SCATTER_BYTES", 0)
-        stats = {}
-        got = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats, device="cpu")
-        assert stats["native_scatter"] and not stats["native_openmp"]
+    return want, fn()
+
+
+def test_no_openmp_build_clusters_like_the_default(no_openmp_lib, monkeypatch):
+    rng = np.random.default_rng(31)
+    x = rng.normal(0, 1, (40, 3))
+    dist = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1))
+    for method in ("single", "complete", "average", "weighted"):
         with monkeypatch.context() as m:
-            m.setenv("APD_NO_NATIVE_SCATTER", "1")
-            want = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=8, stats=stats, device="cpu")
-        assert not stats["native_scatter"]
+            want, got = _default_and_no_openmp(no_openmp_lib, m,
+                                               lambda: native.nn_chain_cpp(dist, method))
+        assert want.shape == (39, 4)
         np.testing.assert_array_equal(got, want)
 
 
-def test_block_scatter_no_openmp_equals_numpy(no_openmp_lib, monkeypatch):
-    # One diagonal and one off-diagonal block straight into D.
+def test_no_openmp_build_loads_wavs_like_the_default(no_openmp_lib, monkeypatch, tmp_path):
     rng = np.random.default_rng(32)
-    ti, K = 8, 13
-    perm = rng.permutation(K).astype(np.int64)
-    lens = rng.integers(4, 20, K).astype(np.float32)
-    monkeypatch.setattr(native, "_lib", no_openmp_lib)
-    for I, J in ((0, 0), (0, 1)):
-        blk = rng.uniform(0, 10, (ti, ti)).astype(np.float32)
-        nr, nc = min(ti, K - I * ti), min(ti, K - J * ti)
-        lr, lc = lens[I * ti : I * ti + nr], lens[J * ti : J * ti + nc]
-        got = np.zeros((K, K), np.float32)
-        native.scatter_block_direct(blk, nr, nc, lr, lc, perm[I * ti : I * ti + nr],
-                                    perm[J * ti : J * ti + nc], got, I == J)
-        want = np.zeros((K, K), np.float32)
-        b = blk[:nr, :nc] / (lr[:, None] + lc[None, :])
-        if I == J:
-            b = np.triu(b, k=1)
-            b = b + b.T
-        r, c = perm[I * ti : I * ti + nr], perm[J * ti : J * ti + nc]
-        want[np.ix_(r, c)] = b
-        if I != J:
-            want[np.ix_(c, r)] = b.T
-        np.testing.assert_array_equal(got, want)
+    paths = []
+    for i, (n, rate) in enumerate(((1000, 16000), (2345, 16000), (7, 8000))):
+        path = tmp_path / f"clip{i}.wav"
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(rng.integers(-32768, 32768, n).astype("<i2").tobytes())
+        paths.append(path)
+    want, got = _default_and_no_openmp(no_openmp_lib, monkeypatch,
+                                       lambda: native.load_wavs_batch(paths, n_threads=2))
+    assert want is not None and want[0].shape == (3, 2345)
+    np.testing.assert_array_equal(want[1], [1000, 2345, 7])
+    np.testing.assert_array_equal(want[2], [16000, 16000, 8000])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

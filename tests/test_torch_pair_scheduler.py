@@ -13,6 +13,7 @@ import torch
 import audio_pattern_discovery_tpu.parallel.pair_scheduler as jps
 from audio_pattern_discovery_tpu.config import DTWConfig as JCfg
 from audio_pattern_discovery_tpu_torch.config import DTWConfig
+from audio_pattern_discovery_tpu_torch.ops import dtw_scatter as ds
 from audio_pattern_discovery_tpu_torch.parallel import pair_scheduler as tps
 
 torch.set_num_threads(1)
@@ -59,31 +60,31 @@ def test_tiling_does_not_change_distances(ti, chunk):
     assert stats["pairs"] == 29 * 28 // 2
 
 
-def test_unnormalized_torch_features_and_numpy_scatter(monkeypatch):
+def test_unnormalized_torch_features_and_numpy_scatter():
     # Tensor input (the pipeline's device-resident features), no
-    # normalization, and the NumPy twin of the native scatter.
+    # normalization: D bitwise the array input's, and the JAX per-pair D.
     feats, lens = _case(14, K=21)
     cfg = DTWConfig(band=5, band_mode="diag", normalize="none")
-    with_native = tps.all_pairs_distances(torch.from_numpy(feats), lens, cfg, device="cpu")
-    monkeypatch.setenv("APD_NO_NATIVE_SCATTER", "1")
-    numpy_scatter = tps.all_pairs_distances(feats, lens, cfg, device="cpu")
-    np.testing.assert_array_equal(with_native, numpy_scatter)
+    from_tensor = tps.all_pairs_distances(torch.from_numpy(feats), lens, cfg, device="cpu")
+    from_array = tps.all_pairs_distances(feats, lens, cfg, device="cpu")
+    np.testing.assert_array_equal(from_tensor, from_array)
     want = jps.all_pairs_distances(
         feats, lens, JCfg(band=5, band_mode="diag", normalize="none"), tiled=False
     )
-    np.testing.assert_allclose(with_native, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(from_tensor, want, rtol=1e-4, atol=1e-4)
 
 
-def test_strip_assembly_matches_direct(monkeypatch):
-    feats, lens = _case(15, K=23)
+@pytest.mark.parametrize("rows", [1, 7, 5], ids=["row", "seven_rows", "not_a_multiple"])
+def test_strip_assembly_matches_direct(monkeypatch, rows):
+    # D's columns un-permuted in panels of a few rows (the twin's panels,
+    # as the card's scratch-row kernel takes them) bitwise in one panel;
+    # K = 21 is a multiple of 1 and 7 rows, not of 5.
+    feats, lens = _case(15, K=21)
     cfg = DTWConfig(band=4, band_mode="diag", normalize="path_len")
-    direct = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu")
-    monkeypatch.setattr(tps, "_DIRECT_SCATTER_BYTES", 0)
-    strips = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu")
-    np.testing.assert_array_equal(direct, strips)
-    monkeypatch.setenv("APD_NO_NATIVE_SCATTER", "1")
-    np.testing.assert_array_equal(
-        direct, tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu"))
+    one_panel = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu")
+    monkeypatch.setattr(ds, "_PANEL_BYTES", rows * 4 * 21)
+    panels = tps.all_pairs_distances_tiled(feats, lens, cfg, ti=4, device="cpu")
+    np.testing.assert_array_equal(one_panel.view(np.int32), panels.view(np.int32))
 
 
 def test_class_fn_and_merge_equal_jax():

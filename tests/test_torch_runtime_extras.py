@@ -45,12 +45,12 @@ def test_report_keys_without_device_probes():
 
 
 def test_env_lists_the_ports_variables(monkeypatch):
-    monkeypatch.setenv("APD_NO_NATIVE_SCATTER", "1")
+    # The port reads no variable of its own: the report lists CUDA's two.
+    monkeypatch.setenv("CUDA_HOME", "cuda-home")
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
     monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     env = doctor.run_doctor(probe_device=False)["env"]
-    assert env["APD_NO_NATIVE_SCATTER"] == "1" and env["CUDA_VISIBLE_DEVICES"] == "0"
-    assert "JAX_PLATFORMS" not in env
+    assert env == {"CUDA_HOME": "cuda-home", "CUDA_VISIBLE_DEVICES": "0"}
 
 
 def test_cli_doctor_flag(capsys, monkeypatch):
